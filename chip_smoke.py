@@ -11,22 +11,30 @@ Phases (none catches its own failure; any failure exits non-zero):
    spill report goes to ``chiprun_out/nvcc_build.txt``.
 1. Each kernel against its plain PyTorch version at the main-path shapes
    (int8 codes: max |diff| <= 1 on < 1% of codes; floats rtol 1e-3 /
-   atol 1e-2), with the kernel's and the plain version's time and the
-   card's bound for the same work.
-2. ``tiny-sdxl`` W8A8 step in float32: kernels on the GPU against the
-   plain versions on the CPU (|d|/|ref| <= 1e-2, max |d| < 0.3).
-3. The main path: SDXL-Turbo UNet at full width (random weights from a
-   seed), calibrated on one request, deployed W8A8 (int8_sec, fused
-   QKV/KV, BoS-aware, einsum attention), answering a few requests at
-   bf16. Asserts the kernel launch counts, finite outputs, and the SQNR
-   of int8 against the bf16 FP UNet (>= 16 dB); prints median step times.
-   One-layer faults injected into the deploy show what that gate sees.
+   atol 1e-2), with the kernel's and the plain version's time, the
+   card's bound for the same work and, for ``qmatmul``, the time of
+   ``torch._int_mm`` on the same operands (the product alone).
+2. ``tiny-sdxl`` W8A8 step in float32 under ``attn_impl='einsum'`` and
+   ``'auto'``: kernels on the GPU against the plain versions on the CPU
+   (whole step: |d|/|ref| <= 1e-2, max |d| < 0.3; under ``'auto'`` each
+   attention module on its GPU-step input: rtol 1e-3 / atol 1e-2).
+3. The main paths: SDXL-Turbo UNet at full width (random weights from a
+   seed), calibrated on one request, deployed W8A8 once (int8_sec, fused
+   QKV/KV, BoS-aware), answering a few requests at bf16 under
+   ``attn_impl='auto'`` (the headline: whole-attention kernels) and
+   ``'einsum'`` (the same deploy, the context's ``attn_impl`` swapped).
+   Asserts each path's kernel launch counts, finite outputs, and the
+   SQNR of int8 against the bf16 FP UNet (>= 16 dB); prints the SQNR of
+   auto against einsum and paired median step times. One-layer faults
+   injected into the deploy show what the SQNR gate sees.
 4. Every deploy entry at full width, teacher-forced on the input its
    layer sees in an FP step, against fake quantization computed from the
-   quantizers' definition (>= 30 dB each); the injected faults must fail
-   this check.
-5. A per-kernel device-time breakdown of one step from torch.profiler
-   (written to ``chiprun_out/``).
+   quantizers' definition (>= 30 dB each), and every attention module,
+   teacher-forced on its FP-step input, under ``'auto'`` against
+   ``'einsum'`` on the same deploy (>= ``SITE_SQNR_DB``); the injected
+   faults must fail these checks.
+5. A per-kernel device-time breakdown of one step of each int8 path and
+   of bf16 from torch.profiler (written to ``chiprun_out/``).
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
@@ -42,6 +50,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 N_REQUESTS = 4
 TIMING_ROUNDS = 3
@@ -50,6 +59,12 @@ LAYER_SQNR_DB = 30.0   # each deploy entry vs fake quantization
 # one fault each: caught only per layer / by both gates
 FAULT_LAYERS = ("mid_block.attentions.0.transformer_blocks.0.attn2.to_kv",
                 "time_embedding.linear_1")
+SITE_SQNR_DB = 25.0    # each attention module, auto vs einsum
+# to_out entries whose act zero point the attention kernels see shifted
+# by 8 codes (the to_out GEMM's bias0 keeps the sound one)
+FAULT_SITES = (
+    "mid_block.attentions.0.transformer_blocks.0.attn2.to_out.0",
+    "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_out.0")
 OUT_DIR = "chiprun_out"
 
 # every function of the JAX package that reaches pl.pallas_call
@@ -59,15 +74,16 @@ TPU_KERNELS = [
     ("pallas_gn_quant.py:116 gn_silu_quantize", "gn_silu_quantize"),
     ("pallas_ln_quant.py:55 ln_quantize", "ln_quantize"),
     ("pallas_qmatmul.py:352 geglu_qmatmul", "geglu_qmatmul"),
-    ("pallas_qmatmul.py:67 qmatmul", None),
+    ("pallas_qmatmul.py:67 qmatmul", "qmatmul"),
     ("pallas_qmatmul.py:205 qmatmul_fused2", None),
     ("pallas_qmatmul.py:557 geglu_out_qmatmul", None),
     ("pallas_qmatmul.py:724 qmatmul_fused", None),
     ("pallas_sec_attention.py:99 sec_attention", None),
     ("pallas_sec_attention.py:223 sec_attention_q", None),
-    ("pallas_sec_attention.py:409 sec_attention_qkv", None),
+    ("pallas_sec_attention.py:409 sec_attention_qkv", "sec_attention_qkv"),
     ("pallas_sec_attention.py:647 sec_attention_qkv_out", None),
-    ("pallas_sec_attention.py:814 sec_attention_q_out", None),
+    ("pallas_sec_attention.py:814 sec_attention_q_out",
+     "sec_attention_q_out"),
     ("pallas_attention.py:83 flash_attention", None),
     ("pallas_attention.py:204 int8_flash_attention", None),
     ("pallas_attention.py:303 int8qkv_flash_attention", None),
@@ -85,7 +101,17 @@ PORTED = {
                     "mixdq_tpu/ops/pallas_ln_quant.py:82"),
     "geglu_qmatmul": ("mixdq_tpu_torch/csrc/geglu_qmatmul.cu",
                       "mixdq_tpu/ops/pallas_qmatmul.py:438"),
+    "qmatmul": ("mixdq_tpu_torch/csrc/qmatmul.cu",
+                "mixdq_tpu/ops/pallas_qmatmul.py:109"),
+    "sec_attention_qkv": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+                          "mixdq_tpu/ops/pallas_sec_attention.py:460"),
+    "sec_attention_q_out": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+                            "mixdq_tpu/ops/pallas_sec_attention.py:927"),
 }
+
+# what library_ms times, where a kernel has one
+LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
+                      "product without the epilogue"}
 
 
 def log(*a):
@@ -99,10 +125,11 @@ def card_line():
         check=True).stdout.strip()
 
 
-def bound(nbytes, ops, peak):
+def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / peak
+    the operations over the peak rate of their type; ``ops`` is a list of
+    (count, peak) pairs, one per type."""
+    tb, to = nbytes / HBM_BYTES_PER_S, sum(n / peak for n, peak in ops)
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -139,10 +166,11 @@ def float_err(torch, got, want):
 
 
 def kernel_cases(torch, dev):
-    """(kernel, shape label, kernel call, plain call, compare, bytes, ops,
-    peak) at the main-path shapes; the first case of each kernel is its
-    reported shape."""
-    from mixdq_tpu_torch.ops import gn_quant, ln_quant, qconv, qmatmul
+    """(kernel, shape label, kernel call, plain call, compare, bytes,
+    [(ops, peak) per type], library call or None) at the main-path shapes;
+    the first case of each kernel is its reported shape."""
+    from mixdq_tpu_torch.ops import (gn_quant, ln_quant, qconv, qmatmul,
+                                     sec_attention)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -175,7 +203,8 @@ def kernel_cases(torch, dev):
             lambda fn=fn, a=(x, w, scale, bias0), kw=kw: fn(*a, -3.0, **kw),
             lambda s=stride, a=(x, w, scale, bias0), kw=kw:
                 qconv.qconv2d_plain(*a, -3.0, stride=s, **kw),
-            float_err, nbytes, 2 * P * P * K * 9 * C, INT8_OPS_PER_S))
+            float_err, nbytes, [(2 * P * P * K * 9 * C, INT8_OPS_PER_S)],
+            None))
     for shape, silu, eps in [((1, 64, 64, 320), True, 1e-5),
                              ((1, 32, 32, 640), False, 1e-6),
                              ((1, 16, 16, 2560), True, 1e-5)]:
@@ -188,7 +217,7 @@ def kernel_cases(torch, dev):
                       f"{list(shape)} silu={silu}",
                       lambda a=args: gn_quant.gn_silu_quantize(*a),
                       lambda a=args: gn_quant.gn_silu_quantize_plain(*a),
-                      codes_err, 3 * n, 12 * n, F32_OPS_PER_S))
+                      codes_err, 3 * n, [(12 * n, F32_OPS_PER_S)], None))
     for shape in [(1, 1024, 640), (1, 256, 1280)]:
         C = shape[-1]
         x = randn(*shape, dtype=bf16) * 3
@@ -198,7 +227,7 @@ def kernel_cases(torch, dev):
         cases.append(("ln_quantize", str(list(shape)),
                       lambda a=args: ln_quant.ln_quantize(*a),
                       lambda a=args: ln_quant.ln_quantize_plain(*a),
-                      codes_err, 3 * n, 8 * n, F32_OPS_PER_S))
+                      codes_err, 3 * n, [(8 * n, F32_OPS_PER_S)], None))
     for M, K, H in [(256, 1280, 5120), (1024, 640, 2560)]:
         x, w = codes(M, K), codes(K, 2 * H)
         scale = (torch.rand(2 * H, generator=g, device=dev) + 0.5) * 2e-5
@@ -207,18 +236,118 @@ def kernel_cases(torch, dev):
         cases.append(("geglu_qmatmul", f"M={M} K={K} 2H={2 * H}",
                       lambda a=args: qmatmul.geglu_qmatmul(*a),
                       lambda a=args: qmatmul.geglu_qmatmul_plain(*a),
-                      codes_err, M * K + 2 * K * H + M * H, 4 * M * K * H,
-                      INT8_OPS_PER_S))
+                      codes_err, M * K + 2 * K * H + M * H,
+                      [(4 * M * K * H, INT8_OPS_PER_S)], None))
+    # qmatmul: ff.net.2 @32x32 first, time_emb_proj, to_kv, ff.net.2
+    # @16x16, conv_shortcut @64x64; library: torch._int_mm, the product
+    # alone (cuBLASLt refuses M <= 16)
+    for M, K, N in [(1024, 2560, 640), (1, 1280, 1280), (77, 2048, 2560),
+                    (256, 5120, 1280), (4096, 960, 320)]:
+        x, w = codes(M, K), codes(K, N)
+        scale = (torch.rand(N, generator=g, device=dev) + 0.5) * 1e-5
+        bias0 = -9.0 * w.int().sum(0).float()
+        args = (x, w, scale, bias0, randn(N, dtype=bf16))
+        cases.append(("qmatmul", f"M={M} K={K} N={N}",
+                      lambda a=args: qmatmul.qmatmul(*a),
+                      lambda a=args: qmatmul.qmatmul_plain(*a),
+                      float_err, M * K + K * N + 10 * N + 2 * M * N,
+                      [(2 * M * K * N, INT8_OPS_PER_S)],
+                      (lambda x=x, w=w: torch._int_mm(x, w)) if M > 16
+                      else None))
+    # attn1 / attn2 at the 32x32 (T=1024, C=640, 10 heads) and 16x16
+    # (T=256, C=1280, 20 heads) levels, d=64, Tk=77
+    for T, heads in [(1024, 10), (256, 20)]:
+        C = heads * 64
+        args, kw = qkv_case(torch, g, dev, 1, T, heads, 64)
+        cases.append(("sec_attention_qkv", f"T={T} C={C} heads={heads}",
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_qkv(*a, **kw),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_qkv_plain(*a, **kw),
+                      codes_err, 2 * T * C + 3 * C * C + 24 * C,
+                      [(6 * T * C * C, INT8_OPS_PER_S),
+                       (4 * T * T * C, BF16_OPS_PER_S)], None))
+    for T, heads, ln in [(1024, 10, True), (256, 20, True), (256, 20, False)]:
+        C = heads * 64
+        args, kw = q_out_case(torch, g, dev, 1, T, 77, heads, 64, C, bf16, ln)
+        nbytes = (T * C * (2 if ln else 3) + 2 * C * C + 4 * 77 * C
+                  + 2 * T * C + 30 * C)
+        cases.append(("sec_attention_q_out",
+                      f"Tq={T} C={C} heads={heads} "
+                      + ("LN-folded" if ln else "pre-coded + residual"),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_q_out(*a, **kw),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_q_out_plain(*a, **kw),
+                      float_err, nbytes,
+                      [(4 * T * C * C, INT8_OPS_PER_S),
+                       (4 * T * 77 * C, BF16_OPS_PER_S),
+                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
     return cases
+
+
+def qkv_case(torch, g, dev, B, T, heads, d):
+    """Inputs of ``sec_attention_qkv``: random codes, a fused QKV weight
+    whose q/k/v come out about unit size (random codes sum to ~5500
+    sqrt(C)), so the softmax is not one-hot; returns (args, kwargs)."""
+    C = heads * d
+    x = torch.randint(-128, 128, (B, T, C), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (C, 3 * C), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = (torch.rand(3 * C, generator=g, device=dev) + 0.5) / (
+        5500.0 * C ** 0.5)
+    args = (x, w, scale, 4.0 * w.int().sum(0).float(), 200.0, -3.0)
+    return args, dict(heads=heads, head_dim=d, scale=d ** -0.5)
+
+
+def q_out_case(torch, g, dev, B, Tq, Tk, heads, d, C_in, dtype, ln):
+    """Inputs of ``sec_attention_q_out`` at one attn2 site: the raw stream
+    (LN-folded) or to_q codes + a residual, a fused to_kv output ``y``
+    ``[B, Tk, 2C]`` with a BoS-like first row, weights and constants, at
+    sizes where |out| < 2 (one bf16 ulp within the float tolerance);
+    returns (args, kwargs)."""
+    C = heads * d
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    wq, wout = codes(C_in, C), codes(C, C_in)
+    sq = (rand(C) + 0.5) / (3000.0 * C_in ** 0.5)
+    so = (rand(C_in) + 0.5) * 2e-6
+    y = randn(B, Tk, 2 * C)
+    y[:, 0] *= 8
+    stream = (randn(B, Tq, C_in) * 0.25).to(dtype)
+    if ln:
+        x, residual = stream, None
+        fold = (rand(C_in) + 0.5, randn(C_in) * 0.2, 25.0, 2.0,
+                (-128.0, 127.0), 1e-5)
+    else:
+        x, residual, fold = codes(B, Tq, C_in), stream, None
+    args = (x, wq, sq, 3.0 * wq.int().sum(0).float(), y.to(dtype),
+            y.to(dtype), 100.0, -2.0, wout, so,
+            -6.0 * wout.int().sum(0).float(), (randn(C_in) * 0.1).to(dtype),
+            residual)
+    kw = dict(heads=heads, head_dim=d, scale=d ** -0.5, k_off=0, v_off=C,
+              out_dtype=dtype, ln=fold)
+    return args, kw
 
 
 def phase_kernels(torch, dev, flush):
     from mixdq_tpu_torch import pipeline
     from mixdq_tpu_torch.models.configs import get_family
 
-    per_step = pipeline.expected_kernel_calls(get_family("sdxl-turbo").unet)
+    per_step = pipeline.expected_kernel_calls(get_family("sdxl-turbo").unet,
+                                              "auto")
     report = {}
-    for name, label, fn, plain, cmp, nbytes, ops, peak in kernel_cases(
+    for name, label, fn, plain, cmp, nbytes, ops, lib in kernel_cases(
             torch, dev):
         got = fn()
         want = plain()
@@ -226,14 +355,17 @@ def phase_kernels(torch, dev, flush):
         err = cmp(torch, got, want)
         k_ms = time_ms(torch, fn, 20, flush)
         p_ms = time_ms(torch, plain, 3, flush)
-        b_ms, b_by = bound(nbytes, ops, peak)
+        l_ms = None if lib is None else time_ms(torch, lib, 20, flush)
+        b_ms, b_by = bound(nbytes, ops)
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
+            f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
             f" launches/step={per_step[name]}")
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
-                                bound_ms=b_ms, bound_by=b_by))
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=l_ms))
     return report
 
 
@@ -244,8 +376,11 @@ def to_device(qparams, dev):
 
 
 def phase_tiny_parity(torch, dev):
-    """Whole tiny-sdxl W8A8 step: GPU kernels vs CPU plain versions."""
-    from mixdq_tpu_torch import pipeline
+    """Whole tiny-sdxl W8A8 step under each ``attn_impl``: GPU kernels vs
+    CPU plain versions."""
+    import dataclasses
+
+    from mixdq_tpu_torch import ops, pipeline
     from mixdq_tpu_torch.quant.calibrate import calibrate
     from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
     from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
@@ -259,15 +394,41 @@ def phase_tiny_parity(torch, dev):
                     {k: v.to(dev) for k, v in x.items()} for x in inp)
     qp = calibrate(cpu_m, [inp], pipeline.WQ, pipeline.AQ)
     ctrl = uniform_ctrl(list(quantizable_layers(cpu_m)))
-    ref = pipeline.unet_step(cpu_m, inp, deploy_unet_ctx(
-        cpu_m, qp, ctrl, pipeline.WQ, fuse_qkv=True))
-    got = pipeline.unet_step(gpu_m, inp_gpu, deploy_unet_ctx(
-        gpu_m, to_device(qp, dev), ctrl, pipeline.WQ, fuse_qkv=True)).cpu()
-    rel = ((got - ref).norm() / ref.norm()).item()
-    mx = (got - ref).abs().max().item()
-    log(f"tiny-sdxl int8 step GPU vs CPU plain: rel={rel:.3e} max={mx:.3e}")
-    if not (math.isfinite(rel) and rel <= 1e-2 and mx < 0.3):
-        raise AssertionError(f"tiny-sdxl parity: rel {rel} max {mx}")
+    cpu_ctx = deploy_unet_ctx(cpu_m, qp, ctrl, pipeline.WQ, fuse_qkv=True)
+    gpu_ctx = deploy_unet_ctx(gpu_m, to_device(qp, dev), ctrl, pipeline.WQ,
+                              fuse_qkv=True)
+    for impl in ("einsum", "auto"):
+        c_ctx = dataclasses.replace(cpu_ctx, attn_impl=impl)
+        g_ctx = dataclasses.replace(gpu_ctx, attn_impl=impl)
+        ref = pipeline.unet_step(cpu_m, inp, c_ctx)
+        ops.reset_counts()
+        got = pipeline.unet_step(gpu_m, inp_gpu, g_ctx).cpu()
+        if ops.launch_counts() != pipeline.expected_kernel_calls(
+                gpu_m.config, impl):
+            raise AssertionError(f"tiny-sdxl {impl} launches "
+                                 f"{ops.launch_counts()}")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        mx = (got - ref).abs().max().item()
+        log(f"tiny-sdxl int8 step ({impl}) GPU vs CPU plain: rel={rel:.3e} "
+            f"max={mx:.3e}")
+        if impl == "einsum":
+            if not (math.isfinite(rel) and rel <= 1e-2 and mx < 0.3):
+                raise AssertionError(f"tiny-sdxl parity ({impl}): rel {rel} "
+                                     f"max {mx}")
+            continue
+        # The attention kernels sum in another order than the CPU; one
+        # act code that differs by one at one site can grow past the
+        # whole-step tolerance in this small UNet. So each attention
+        # module is held alone, on the input it had in the GPU step.
+        seen = record_attention_inputs(torch, gpu_m, inp_gpu, g_ctx)
+        err = 0.0
+        for name, (stream, ehs) in sorted(seen.items()):
+            g = attention_site(torch, gpu_m, name, stream, ehs, g_ctx)
+            c = attention_site(torch, cpu_m, name, stream.cpu(),
+                               None if ehs is None else ehs.cpu(), c_ctx)
+            err = max(err, float_err(torch, g.cpu(), c))
+        log(f"tiny-sdxl ({impl}): {len(seen)} attention modules, each on "
+            f"its GPU-step input, GPU vs CPU plain: max |d| {err:.3e}")
 
 
 def sqnr_db(ref, got):
@@ -413,45 +574,70 @@ def step_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def phase_main_path(torch, dev, card):
+def run_path(torch, unet, requests, ctx, impl):
+    """One int8 path over ``requests`` with the launch counts set to 0
+    just before it and read just after; fails unless every kernel
+    launched as often as the structure implies."""
     from mixdq_tpu_torch import ops, pipeline
+
+    ops.reset_counts()
+    outs = [pipeline.unet_step(unet, r, ctx) for r in requests]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    per_step = pipeline.expected_kernel_calls(unet.config, impl)
+    want = {k: v * len(requests) for k, v in per_step.items()}
+    log(f"{impl} path launches over {len(requests)} requests: {launches}")
+    if launches != want:
+        raise AssertionError(f"{impl} launch counts {launches}, expected "
+                             f"{want}")
+    return outs, launches
+
+
+def phase_main_path(torch, dev, card):
+    """The SDXL-Turbo step under ``attn_impl='auto'`` (``quantize_w8a8``'s
+    context, the headline) and ``'einsum'`` on the same deploy."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
 
     bf16 = torch.bfloat16
     t0 = time.time()
     unet = pipeline.build_unet("sdxl-turbo", seed=0, dtype=bf16, device=dev)
     calib = pipeline.example_inputs("sdxl-turbo", 1, 0, bf16, dev)
     ctx = pipeline.quantize_w8a8(unet, calib)
+    ectx = dataclasses.replace(ctx, attn_impl="einsum")
     torch.cuda.synchronize()
     log(f"sdxl-turbo build+calibrate+deploy: {time.time() - t0:.1f}s, "
         f"{len(ctx.deploy)} deploy entries")
+    if pipeline.expected_kernel_calls(unet.config, "auto") != {
+            "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
+            "ln_quantize": 140, "geglu_qmatmul": 70, "qmatmul": 264,
+            "sec_attention_qkv": 70, "sec_attention_q_out": 70}:
+        raise AssertionError("the structure's launch counts changed")
     requests = [pipeline.example_inputs("sdxl-turbo", 1, 100 + i, bf16, dev)
                 for i in range(N_REQUESTS)]
-    pipeline.unet_step(unet, requests[0], ctx)  # warm-up outside the count
+    for c in (ctx, ectx):  # warm-up outside the counts
+        pipeline.unet_step(unet, requests[0], c)
     torch.cuda.synchronize()
+    outs, launches = run_path(torch, unet, requests, ctx, "auto")
+    e_outs, e_launches = run_path(torch, unet, requests, ectx, "einsum")
 
-    ops.reset_counts()
-    outs = [pipeline.unet_step(unet, r, ctx) for r in requests]
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    per_step = pipeline.expected_kernel_calls(unet.config)
-    want = {k: v * N_REQUESTS for k, v in per_step.items()}
-    log(f"main path launches over {N_REQUESTS} requests: {launches}")
-    if launches != want or per_step != {
-            "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
-            "ln_quantize": 210, "geglu_qmatmul": 70}:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-
-    refs, sqnrs = [], []
-    for r, q in zip(requests, outs):
+    refs = []
+    sqnrs = {"auto": [], "einsum": [], "auto vs einsum": []}
+    for r, q, e in zip(requests, outs, e_outs):
         ref = pipeline.unet_step(unet, r)
-        if q.shape != ref.shape or not torch.isfinite(q).all():
-            raise AssertionError(f"bad int8 output {q.shape}")
+        for x in (q, e):
+            if x.shape != ref.shape or not torch.isfinite(x).all():
+                raise AssertionError(f"bad int8 output {x.shape}")
         refs.append(ref)
-        sqnrs.append(sqnr_db(ref, q))
-    log(f"SQNR int8 vs bf16 per request (dB): "
-        f"{[round(s, 2) for s in sqnrs]}")
-    if min(sqnrs) < MIN_SQNR_DB:
-        raise AssertionError(f"SQNR {min(sqnrs)} dB < {MIN_SQNR_DB}")
+        sqnrs["auto"].append(sqnr_db(ref, q))
+        sqnrs["einsum"].append(sqnr_db(ref, e))
+        sqnrs["auto vs einsum"].append(sqnr_db(e, q))
+    for k, v in sqnrs.items():
+        log(f"SQNR {k if 'vs' in k else k + ' vs bf16'} per request (dB): "
+            f"{[round(x, 2) for x in v]}")
+    if min(sqnrs["auto"] + sqnrs["einsum"]) < MIN_SQNR_DB:
+        raise AssertionError(f"SQNR {sqnrs} dB < {MIN_SQNR_DB}")
     for name in FAULT_LAYERS:
         bad = faulted_ctx(ctx, name)
         s = [sqnr_db(ref, pipeline.unet_step(unet, r, bad))
@@ -460,16 +646,20 @@ def phase_main_path(torch, dev, card):
         if name == FAULT_LAYERS[-1] and max(s) >= MIN_SQNR_DB:
             raise AssertionError(f"the SQNR gate misses a fault in {name}")
 
-    fp_t, q_t = [], []
+    times = {"bf16": [], "auto": [], "einsum": []}
     for _ in range(TIMING_ROUNDS):
         for r in requests:
-            fp_t.append(step_ms(torch, lambda: pipeline.unet_step(unet, r)))
-            q_t.append(step_ms(torch,
-                               lambda: pipeline.unet_step(unet, r, ctx)))
-    fp_ms, q_ms = statistics.median(fp_t), statistics.median(q_t)
-    log(f"step ms (median of {len(q_t)}, CUDA events, {card}): "
-        f"int8={q_ms:.3f} bf16={fp_ms:.3f} bf16/int8={fp_ms / q_ms:.3f}")
-    return unet, ctx, calib, requests[0], launches
+            times["bf16"].append(step_ms(
+                torch, lambda: pipeline.unet_step(unet, r)))
+            for k, c in (("auto", ctx), ("einsum", ectx)):
+                times[k].append(step_ms(
+                    torch, lambda: pipeline.unet_step(unet, r, c)))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"step ms (median of {len(times['bf16'])} paired steps, CUDA events,"
+        f" {card}): bf16={med['bf16']:.3f} auto={med['auto']:.3f} "
+        f"einsum={med['einsum']:.3f} bf16/auto={med['bf16'] / med['auto']:.3f}"
+        f" bf16/einsum={med['bf16'] / med['einsum']:.3f}")
+    return unet, ctx, calib, requests[0], launches, e_launches
 
 
 def phase_layers(torch, unet, ctx, calib, req):
@@ -500,14 +690,111 @@ def phase_layers(torch, unet, ctx, calib, req):
                                  f"{name}")
 
 
+def record_attention_inputs(torch, unet, req, ctx=None):
+    """{attention module name: (residual stream, encoder states)} of every
+    attention module in one step under ``ctx`` (default: FP)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models.attention import Attention
+
+    seen = {}
+
+    def hook(mod, args, kwargs):
+        seen[mod.qname] = (kwargs["residual"], args[1])
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in unet.modules() if isinstance(m, Attention)]
+    try:
+        pipeline.unet_step(unet, req, *([] if ctx is None else [ctx]))
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def attention_site(torch, unet, name, stream, ehs, ctx):
+    """Attention module ``name`` run as its transformer block runs it (the
+    block's deferred pre-LayerNorm, the residual add) on ``stream``."""
+    block, _, which = name.rpartition(".")
+    blk = unet.get_submodule(block)
+    if which == "attn1":
+        norm, consumer = blk.norm1, (f"{block}.attn1.to_qkv"
+                                     if ctx.fuse_qkv else None)
+    else:
+        norm, consumer = blk.norm2, f"{block}.attn2.to_q"
+    with torch.inference_mode():
+        h, ln = blk._ln(stream, norm, consumer, ctx)
+        return getattr(blk, which)(h, ehs, ctx, residual=stream, ln=ln)
+
+
+def zp_faulted_ctx(ctx, name):
+    """``ctx`` with entry ``name``'s act zero point shifted by 8 codes (its
+    ``bias0`` keeps the sound one)."""
+    import dataclasses
+
+    e = ctx.deploy[name]
+    return dataclasses.replace(ctx, deploy={
+        **ctx.deploy, name: e.replace(zp_shifted=e.zp_shifted + 8.0)})
+
+
+def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None):
+    """SQNR in dB of each attention module's output delta under ``ctx``
+    against the same module under ``ref_ctx`` (default: ``ctx`` with
+    ``attn_impl='einsum'``), both teacher-forced on the FP-step input."""
+    import dataclasses
+
+    ref_ctx = ref_ctx or dataclasses.replace(ctx, attn_impl="einsum")
+    out = {}
+    for name in names or sorted(seen):
+        stream, ehs = seen[name]
+        got = attention_site(torch, unet, name, stream, ehs, ctx).float()
+        ref = attention_site(torch, unet, name, stream, ehs, ref_ctx).float()
+        signal = (ref - stream.float()).pow(2).sum().item()
+        err = (got - ref).pow(2).sum().item()
+        out[name] = math.inf if err == 0 else 10 * math.log10(signal / err)
+    return out
+
+
+def phase_attention_sites(torch, unet, ctx, req):
+    """Every attention module, teacher-forced on its FP-step input, under
+    ``ctx`` (``attn_impl='auto'``) against ``attn_impl='einsum'`` on the
+    same deploy: a fault at one attention kernel's site, which the
+    whole-step SQNR cannot see, shows here. Each of ``FAULT_SITES`` (a
+    to_out entry whose act zero point the kernel sees shifted by 8 codes)
+    proves it."""
+    import dataclasses
+
+    seen = record_attention_inputs(torch, unet, req)
+    s = site_sqnrs(torch, unet, ctx, seen)
+    low = sorted(s.items(), key=lambda kv: kv[1])
+    log(f"attention sites auto vs einsum over {len(s)} modules (dB): min "
+        f"{low[0][1]:.2f} median {statistics.median(s.values()):.2f}; "
+        f"lowest {[(n, round(v, 2)) for n, v in low[:4]]}")
+    if low[0][1] < SITE_SQNR_DB:
+        raise AssertionError(f"site {low[0][0]}: SQNR {low[0][1]} dB < "
+                             f"{SITE_SQNR_DB}")
+    einsum = dataclasses.replace(ctx, attn_impl="einsum")
+    for name in FAULT_SITES:
+        site = name[:-len(".to_out.0")]
+        f = site_sqnrs(torch, unet, zp_faulted_ctx(ctx, name), seen, [site],
+                       ref_ctx=einsum)[site]
+        log(f"attention site SQNR with the {name} zero point shifted by 8 "
+            f"codes: {f:.2f} dB")
+        if f >= SITE_SQNR_DB:
+            raise AssertionError(f"the site check misses a fault in {name}")
+
+
 def phase_profile(torch, unet, ctx, req):
-    """Device time by kernel over one int8 and one bf16 step."""
+    """Device time by kernel over one step of each int8 path and of bf16."""
+    import dataclasses
+
     from torch.profiler import ProfilerActivity, profile
 
     from mixdq_tpu_torch import pipeline
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    for tag, c in (("int8", ctx), ("bf16", None)):
+    for tag, c in (("auto", ctx),
+                   ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
+                   ("bf16", None)):
         args = (unet, req) if c is None else (unet, req, c)
         pipeline.unet_step(*args)
         torch.cuda.synchronize()
@@ -567,13 +854,16 @@ def main():
     del flush
     log("phase 1: every kernel matches its plain version")
     phase_tiny_parity(torch, dev)
-    log("phase 2: tiny-sdxl parity ok")
-    unet, ctx, calib, req, launches = phase_main_path(torch, dev, card)
-    log("phase 3: main path ok")
+    log("phase 2: tiny-sdxl parity ok under both attn_impl values")
+    unet, ctx, calib, req, launches, e_launches = phase_main_path(
+        torch, dev, card)
+    log("phase 3: main paths ok (auto, einsum)")
     phase_layers(torch, unet, ctx, calib, req)
     log("phase 4: every deploy entry matches fake quantization")
+    phase_attention_sites(torch, unet, ctx, req)
+    log("phase 4: every attention site matches under auto and einsum")
     phase_profile(torch, unet, ctx, req)
-    log("phase 5: profile written")
+    log("phase 5: profiles written")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
@@ -582,16 +872,19 @@ def main():
     kernels = []
     for name, (src, replaces) in PORTED.items():
         r = report[name]
-        first = r["shapes"][0]
+        first, extra = r["shapes"][0], {}
+        if first["library_ms"] is not None:
+            extra["library"] = LIBRARY[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            **extra, "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "requests": N_REQUESTS,
             "launches_per_step": launches[name] // N_REQUESTS,
+            "launches_einsum": e_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"], "library_ms": None,
-            "shape": first["shape"]})
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shape": first["shape"]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

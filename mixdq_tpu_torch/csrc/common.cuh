@@ -34,3 +34,34 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// LayerNorm of one row + per-tensor quantize, by one warp, as
+// ops/ln_quant.py:ln_quantize_plain: lanes stride over the channels, sum
+// and sum of squares reduce with shuffles (one-pass E[x^2] - mean^2 in
+// f32), and the second pass re-reads the row from L1/L2.
+template <typename T>
+__device__ __forceinline__ void ln_quant_row(const T* __restrict__ xr,
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta,
+                                             int8_t* __restrict__ orow,
+                                             int C, float sinv, float zp,
+                                             float lo, float hi, float eps,
+                                             int lane) {
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    float v = to_f32(xr[c]);
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = __fdiv_rn(s, static_cast<float>(C));
+  const float var = __fsub_rn(__fdiv_rn(ss, static_cast<float>(C)),
+                              __fmul_rn(mean, mean));
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  for (int c = lane; c < C; c += 32) {
+    float y = __fmul_rn(__fsub_rn(to_f32(xr[c]), mean), rstd);
+    y = __fadd_rn(__fmul_rn(y, gamma[c]), beta[c]);
+    orow[c] = quant_code(y, sinv, zp, lo, hi);
+  }
+}

@@ -30,23 +30,6 @@ struct GegluArgs {
   float sinv, zp, lo, hi;
 };
 
-// One thread's 16-byte share of an A tile (row-major codes [M, K]).
-__device__ __forceinline__ Chunk16 load_a_rows(const GegluArgs& a, int m0,
-                                               int k0, int tid, bool vec) {
-  const int m = m0 + tid / 2, k = k0 + (tid % 2) * 16;
-  Chunk16 u = fill16(0);
-  if (m >= a.M) return u;
-  const int8_t* src = a.x + static_cast<size_t>(m) * a.K + k;
-  if (vec) {
-    if (k < a.K) u.v = *reinterpret_cast<const int4*>(src);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (k + i < a.K) u.s[i] = src[i];
-  }
-  return u;
-}
-
 // jax.nn.gelu, step by step: tanh form x * (0.5 * (1 + tanh(c * (x +
 // 0.044715 x^3)))), exact form (0.5 * x) * erfc(-x * sqrt(1/2)).
 __device__ __forceinline__ float gelu(float x, int tanh_form) {
@@ -72,7 +55,7 @@ __global__ void __launch_bounds__(THREADS)
   const int ldw = 2 * a.H;
 
   int accv[2][4][4] = {}, accg[2][4][4] = {};
-  Chunk16 ra = load_a_rows(a, m0, 0, tid, avec);
+  Chunk16 ra = load_a(a.x, a.M, a.K, m0, 0, tid, avec);
   Chunk16 rv = load_b(a.w, ldw, 0, a.H, a.K, 0, n0, tid, bvec);
   Chunk16 rg = load_b(a.w, ldw, a.H, a.H, a.K, 0, n0, tid, bvec);
   for (int k0 = 0; k0 < a.K; k0 += BK) {
@@ -81,7 +64,7 @@ __global__ void __launch_bounds__(THREADS)
     store_b(Bg, rg, tid);
     __syncthreads();
     if (k0 + BK < a.K) {
-      ra = load_a_rows(a, m0, k0 + BK, tid, avec);
+      ra = load_a(a.x, a.M, a.K, m0, k0 + BK, tid, avec);
       rv = load_b(a.w, ldw, 0, a.H, a.K, k0 + BK, n0, tid, bvec);
       rg = load_b(a.w, ldw, a.H, a.H, a.K, k0 + BK, n0, tid, bvec);
     }

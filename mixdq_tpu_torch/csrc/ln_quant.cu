@@ -4,10 +4,8 @@
 // :82). Memory-bound: it reads the bf16 row once from device memory
 // (2 bytes/elem) and writes int8 codes (1 byte/elem); at the main-path
 // shapes [1024, 640] and [256, 1280] that is ~1 MB, ~0.3 us at
-// 3.35 TB/s. One warp owns one row: lanes stride over the channels,
-// sum and sum of squares reduce with shuffles (one-pass E[x^2] - mean^2
-// in f32, as the reference), and the second pass re-reads the row from
-// L1/L2, normalizes and quantizes.
+// 3.35 TB/s. One warp owns one row (common.cuh:ln_quant_row): one-pass
+// E[x^2] - mean^2 variance in f32, as the reference.
 
 #include "common.cuh"
 
@@ -20,27 +18,10 @@ __global__ void ln_quant_kernel(const T* __restrict__ x,
                                 float eps) {
   const int warps = blockDim.x / 32;
   const int row = blockIdx.x * warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* xr = x + static_cast<size_t>(row) * C;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float v = to_f32(xr[c]);
-    s += v;
-    ss += v * v;
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = __fdiv_rn(s, static_cast<float>(C));
-  const float var = __fsub_rn(__fdiv_rn(ss, static_cast<float>(C)),
-                              __fmul_rn(mean, mean));
-  const float rstd = rsqrtf(__fadd_rn(var, eps));
-  int8_t* orow = out + static_cast<size_t>(row) * C;
-  for (int c = lane; c < C; c += 32) {
-    float y = __fmul_rn(__fsub_rn(to_f32(xr[c]), mean), rstd);
-    y = __fadd_rn(__fmul_rn(y, gamma[c]), beta[c]);
-    orow[c] = quant_code(y, sinv, zp, lo, hi);
-  }
+  ln_quant_row(x + static_cast<size_t>(row) * C, gamma, beta,
+               out + static_cast<size_t>(row) * C, C, sinv, zp, lo, hi, eps,
+               threadIdx.x % 32);
 }
 
 extern "C" int mixdq_ln_quantize(const void* x, const float* gamma,

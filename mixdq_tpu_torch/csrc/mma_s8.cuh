@@ -1,6 +1,7 @@
-// Tiled int8 GEMM building blocks shared by the conv and GEGLU kernels:
-// a 64x64 output tile per 128-thread block (2x2 warps of 32x32), K in
-// steps of 32, int32 accumulation with mma.sync m16n8k32 (s8 x s8 -> s32).
+// Tiled int8 GEMM building blocks shared by the conv, GEGLU, dense and
+// attention kernels: a 64x64 output tile per 128-thread block (2x2 warps
+// of 32x32), K in steps of 32, int32 accumulation with mma.sync m16n8k32
+// (s8 x s8 -> s32).
 //
 // Shared-memory tiles hold both operands K-contiguous ([row][k] for A,
 // [col][k] for B), as the mma fragments want 4 consecutive k values per
@@ -67,6 +68,27 @@ __device__ __forceinline__ void store_b(int8_t (*Bs)[LDS], const Chunk16& u,
   for (int i = 0; i < 16; ++i) Bs[nc + i][k] = u.s[i];
 }
 
+// One thread's 16-byte share of an A tile (32 k per row) of row-major
+// codes [M, K]: row `m0 + tid / 2`, k bytes `k0 + (tid % 2) * 16 ..+16`;
+// rows m >= M and k >= K read as 0. `vec`: K and the base address are
+// multiples of 16.
+__device__ __forceinline__ Chunk16 load_a(const int8_t* __restrict__ x,
+                                          int M, int K, int m0, int k0,
+                                          int tid, bool vec) {
+  const int m = m0 + tid / 2, k = k0 + (tid % 2) * 16;
+  Chunk16 u = fill16(0);
+  if (m >= M) return u;
+  const int8_t* src = x + static_cast<size_t>(m) * K + k;
+  if (vec) {
+    if (k < K) u.v = *reinterpret_cast<const int4*>(src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (k + i < K) u.s[i] = src[i];
+  }
+  return u;
+}
+
 // A tile share: row `tid / 2`, k bytes `(tid % 2) * 16 ..+16`.
 __device__ __forceinline__ void store_a(int8_t (*As)[LDS], const Chunk16& u,
                                         int tid) {
@@ -117,6 +139,41 @@ __device__ __forceinline__ void for_each_acc(int wm, int wn, int lane,
       for (int r = 0; r < 4; ++r)
         f(wm + mi * 16 + g + (r >> 1) * 8, wn + ni * 8 + t * 2 + (r & 1),
           acc0[mi][ni][r], acc1[mi][ni][r]);
+}
+
+// One 64x64 output tile of A [M, K] x W [K, N] (row-major codes): rows
+// [m0, m0 + 64), columns [n0, n0 + 64). Calls epi(m, n, acc) for every
+// element of the tile, in or out of range (the caller masks). Every
+// thread of the 128-thread block calls it: it synchronizes the block,
+// and As/Bs are free again when it returns.
+template <typename Epi>
+__device__ __forceinline__ void gemm_tile(
+    const int8_t* __restrict__ A, int M, int K, int m0, bool avec,
+    const int8_t* __restrict__ W, int N, int n0, bool bvec,
+    int8_t (*As)[LDS], int8_t (*Bs)[LDS], Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  int acc[2][4][4] = {};
+  Chunk16 ra = load_a(A, M, K, m0, 0, tid, avec);
+  Chunk16 rb = load_b(W, N, 0, N, K, 0, n0, tid, bvec);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    store_a(As, ra, tid);
+    store_b(Bs, rb, tid);
+    __syncthreads();
+    if (k0 + BK < K) {
+      ra = load_a(A, M, K, m0, k0 + BK, tid, avec);
+      rb = load_b(W, N, 0, N, K, k0 + BK, n0, tid, bvec);
+    }
+    warp_mma(As, Bs, wm, wn, lane, acc);
+    __syncthreads();
+  }
+  for_each_acc(wm, wn, lane, acc, acc,
+               [&](int r, int c, int v, int) { epi(m0 + r, n0 + c, v); });
+}
+
+// 16-byte vector loads need the row stride and the base address aligned.
+inline bool vec16(const void* p, int ld) {
+  return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace mixdq

@@ -1,5 +1,5 @@
 """Attention / transformer blocks (port of ``mixdq_tpu/models/attention.py``
-on its ``attn_impl='einsum'`` path).
+on its ``attn_impl='einsum'`` and ``'auto'`` paths).
 
 On the int8 path the pre-LayerNorm of a dense consumer is DEFERRED: the
 block passes the raw residual stream plus ``(gamma, beta, entry)`` and the
@@ -7,7 +7,12 @@ sub-module turns it into the consumer's int8 codes with ``ln_quantize``.
 Attention projections run through fused QKV (self) / KV (cross) deploy
 entries when ``ctx.fuse_qkv``; cross-attention k/v keep the first (BoS)
 text token on the FP dequantized-weight path when ``ctx.bos_aware``.
-The attention math is a matmul + f32 softmax chain.
+Under ``'einsum'`` the attention math is a matmul + f32 softmax chain.
+Under ``'auto'`` with fused entries, the configuration the JAX package
+takes by default (out-fusion at attn2 only, LN folded): every
+self-attention materializes its norm1 codes and runs
+``sec_attention_qkv``, then ``to_out``; every cross-attention runs one
+``sec_attention_q_out`` with norm2 folded in.
 """
 
 from __future__ import annotations
@@ -21,9 +26,14 @@ from ..ops.gn_quant import gn_silu_quantize
 from ..ops.ln_quant import ln_quantize
 from ..ops.qmatmul import gelu
 from ..ops.qops import act_clip_range
+from ..ops.sec_attention import sec_attention_q_out, sec_attention_qkv
 from ..quant.state import FP_CTX, QuantCtx
-from .layers import (GroupNorm, LayerNorm, QDense, bos_row, deploy_linear,
-                     name_layers)
+from .layers import (GroupNorm, LayerNorm, QDense, bos_row, codes_of,
+                     deploy_linear, name_layers)
+
+#: Tq * Tk from which the JAX package's ``attn_impl='auto'`` runs flash
+#: attention (``mixdq_tpu/models/attention.py:474-478``), not ported yet
+FLASH_TQ_TK = 2 ** 22
 
 
 def deploy_res_add(residual: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -38,6 +48,14 @@ def materialize_ln_codes(x: torch.Tensor, ln) -> torch.Tensor:
     return ln_quantize(x, norm.weight, norm.bias, dp.scale_inv,
                        dp.zp_shifted, eps=norm.eps,
                        clip=act_clip_range(dp.a_bits))
+
+
+def ln_fold_args(ln):
+    """(gamma, beta, x_scale_inv, x_zp_shifted, x_clip, eps) of a deferred
+    LayerNorm, for ``sec_attention_q_out``'s LN-folded mode."""
+    norm, dp = ln
+    return (norm.weight, norm.bias, dp.scale_inv, dp.zp_shifted,
+            act_clip_range(dp.a_bits), norm.eps)
 
 
 def fused_entry(ctx: QuantCtx, name: Optional[str], kind: str = "linear"):
@@ -85,6 +103,9 @@ class Attention(nn.Module):
         base = self.qname
         dp_f = (ctx.entry(base + (".to_kv" if is_cross else ".to_qkv"))
                 if ctx.fuse_qkv else None)
+        sec = dp_f is not None and self._sec_entries(ctx, is_cross)
+        if sec and not is_cross:
+            return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
         if dp_f is not None:
             if not is_cross and ln is not None:
                 kv_input = hidden_states = materialize_ln_codes(
@@ -94,6 +115,8 @@ class Attention(nn.Module):
             if is_cross and ctx.bos_aware and kv_input.ndim >= 3:
                 y = torch.cat([bos_row(kv_input.to(self.dtype), dp_f,
                                        self.dtype), y[..., 1:, :]], -2)
+            if sec:
+                return self._sec_cross(hidden_states, y, ctx, residual, ln)
             if is_cross:
                 if ln is not None:
                     hidden_states = materialize_ln_codes(hidden_states, ln)
@@ -120,6 +143,71 @@ class Attention(nn.Module):
         out = (probs @ vh).transpose(1, 2).reshape(B, Tq, inner)
         out = self.to_out[0](out, ctx)
         return out if residual is None else deploy_res_add(residual, out)
+
+    def _sec_entries(self, ctx: QuantCtx, is_cross: bool) -> bool:
+        """Whether ``attn_impl='auto'`` runs this attention on the
+        whole-attention kernels: int8 act-quantized ``to_out`` (and, for
+        cross-attention, ``to_q``) entries, as the JAX package asks."""
+        if ctx.attn_impl != "auto":
+            return False
+        names = (".to_q", ".to_out.0") if is_cross else (".to_out.0",)
+        for n in names:
+            dp = ctx.entry(self.qname + n)
+            if dp is None or dp.kind != "linear" or dp.scale_inv is None:
+                return False
+        return True
+
+    def _codes(self, x, dp):
+        """``x`` as the act codes of entry ``dp`` (fp input in the model
+        dtype first, as ``QDense`` does)."""
+        return codes_of(x if x.dtype == torch.int8 else x.to(self.dtype), dp)
+
+    def _sec_check(self, Tq: int, Tk: int) -> None:
+        if Tq * Tk >= FLASH_TQ_TK:
+            raise NotImplementedError(
+                f"{self.qname}: Tq*Tk = {Tq * Tk} takes flash attention "
+                "under attn_impl='auto', not ported yet (ROADMAP Queue B10)")
+
+    def _sec_self(self, hidden_states, ctx, residual, ln, dp_f):
+        """Self-attention: norm1 codes -> ``sec_attention_qkv`` -> to_out's
+        codes -> ``to_out`` -> residual add."""
+        T = hidden_states.shape[1]
+        self._sec_check(T, T)
+        codes = (materialize_ln_codes(hidden_states, ln) if ln is not None
+                 else self._codes(hidden_states, dp_f))
+        dp_o = ctx.entry(self.to_out[0].qname)
+        codes = sec_attention_qkv(
+            codes, dp_f.w_int, dp_f.scale, dp_f.bias0, dp_o.scale_inv,
+            dp_o.zp_shifted, heads=self.heads, head_dim=self.head_dim,
+            scale=self.head_dim ** -0.5, clip=act_clip_range(dp_o.a_bits))
+        out = self.to_out[0](codes, ctx)
+        return out if residual is None else deploy_res_add(residual, out)
+
+    def _sec_cross(self, hidden_states, y, ctx, residual, ln):
+        """Cross-attention in one ``sec_attention_q_out`` over the k/v
+        panels of the fused ``to_kv`` output ``y``: LN-folded when the
+        deferred LayerNorm's raw input is the residual, else on to_q's
+        codes plus the explicit residual."""
+        self._sec_check(hidden_states.shape[1], y.shape[1])
+        dp_q = ctx.entry(self.to_q.qname)
+        dp_o = ctx.entry(self.to_out[0].qname)
+        if ln is not None and residual is hidden_states:
+            x, fold = hidden_states.to(self.dtype), ln_fold_args(ln)
+            residual = None
+        else:
+            x = (materialize_ln_codes(hidden_states, ln) if ln is not None
+                 else self._codes(hidden_states, dp_q))
+            fold = None
+            if residual is not None:
+                residual = residual.to(self.dtype)
+        inner = self.heads * self.head_dim
+        return sec_attention_q_out(
+            x, dp_q.w_int, dp_q.scale, dp_q.bias0, y, y, dp_o.scale_inv,
+            dp_o.zp_shifted, dp_o.w_int, dp_o.scale, dp_o.bias0,
+            self.to_out[0].bias, residual, heads=self.heads,
+            head_dim=self.head_dim,
+            scale=self.head_dim ** -0.5, k_off=0, v_off=inner,
+            out_dtype=self.dtype, clip=act_clip_range(dp_o.a_bits), ln=fold)
 
 
 class GEGLU(nn.Module):

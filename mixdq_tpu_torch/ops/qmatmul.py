@@ -1,11 +1,16 @@
-"""Fused GEGLU int8 projection (port of
-``mixdq_tpu/ops/pallas_qmatmul.py:geglu_qmatmul``).
+"""Int8 GEMMs with fused epilogues (ports of
+``mixdq_tpu/ops/pallas_qmatmul.py``).
 
-The proj GEMM over the value and gate halves of ``[K, 2H]``, the dequant
-epilogues (``bias0`` cast to int32 before the subtraction), the gate
-``v * gelu(g)`` and the consumer's (``ff.net.2``) act-quantize, emitting
-that consumer's int8 codes ``[M, H]``. Kernel: ``csrc/geglu_qmatmul.cu``;
-plain version: ``geglu_qmatmul_plain``.
+* ``qmatmul`` (port of ``qmatmul``): codes ``[M, K]`` x weights
+  ``[K, N]`` with the dequant epilogue of ``qops.qlinear``, for every
+  dense layer and 1x1 conv. Kernel: ``csrc/qmatmul.cu``; plain version:
+  ``qmatmul_plain``.
+* ``geglu_qmatmul`` (port of ``geglu_qmatmul``): the proj GEMM over the
+  value and gate halves of ``[K, 2H]``, the dequant epilogues (``bias0``
+  cast to int32 before the subtraction), the gate ``v * gelu(g)`` and
+  the consumer's (``ff.net.2``) act-quantize, emitting that consumer's
+  int8 codes ``[M, H]``. Kernel: ``csrc/geglu_qmatmul.cu``; plain
+  version: ``geglu_qmatmul_plain``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from . import _build, check_cuda_args, qops, register, use_kernel
 
 COUNT = register("geglu_qmatmul")
+QMATMUL_COUNT = register("qmatmul")
 
 _SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi),
                                      dtype=torch.float32))
@@ -95,4 +101,62 @@ def geglu_qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor,
         _build.stream(x_int8.device))
     _build.check(lib, err, "geglu_qmatmul")
     COUNT.launches += 1
+    return out
+
+
+def qmatmul_plain(x_int8, w_int8, scale, bias0, bias=None,
+                  out_dtype=torch.bfloat16):
+    acc = qops.int_gemm(x_int8, w_int8)
+    out = (acc.float() - bias0) * scale
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def _qmatmul_lib():
+    lib = _build.load("qmatmul.cu")
+    f = lib.mixdq_qmatmul
+    if f.argtypes is None:
+        P, I = _build.P, _build.I
+        f.argtypes = [P] * 6 + [I] * 4 + [P]
+        f.restype = I
+    return lib
+
+
+def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
+            bias0: torch.Tensor, bias: Optional[torch.Tensor] = None,
+            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Codes ``[M, K]`` x ``[K, N]`` -> ``(f32(acc) - bias0) * scale
+    (+ bias)`` in ``out_dtype`` (bf16 or f32), ``[M, N]``; ``scale`` and
+    ``bias0`` are f32 ``[N]``.
+
+    The epilogue is ``qops.qlinear``'s: the int32 sum converts to f32
+    before ``bias0`` is subtracted. The Pallas ``qmatmul`` subtracts
+    ``bias0`` in int32 instead; since ``bias0`` is integer-valued (the
+    zero point is rounded), the two agree while ``|acc| < 2^24`` and may
+    differ by one f32 ulp above that."""
+    QMATMUL_COUNT.calls += 1
+    if not use_kernel(x_int8, w_int8, scale, bias0):
+        return qmatmul_plain(x_int8, w_int8, scale, bias0, bias, out_dtype)
+    M, K = x_int8.shape
+    K2, N = w_int8.shape
+    if x_int8.dtype != torch.int8 or w_int8.dtype != torch.int8 or K2 != K:
+        raise ValueError(f"qmatmul: bad operands x {tuple(x_int8.shape)}, "
+                         f"w {tuple(w_int8.shape)}")
+    if scale.shape != (N,) or bias0.shape != (N,) or \
+            scale.dtype != torch.float32 or bias0.dtype != torch.float32:
+        raise ValueError("qmatmul: scale/bias0 must be f32 [N]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qmatmul: out_dtype {out_dtype}")
+    if bias is not None:
+        bias = bias.float().contiguous()
+    check_cuda_args("qmatmul", x=x_int8, w=w_int8, scale=scale, bias0=bias0)
+    out = torch.empty((M, N), dtype=out_dtype, device=x_int8.device)
+    lib = _qmatmul_lib()
+    p = _build.ptr
+    err = lib.mixdq_qmatmul(
+        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), p(out), M, K, N,
+        int(out_dtype == torch.bfloat16), _build.stream(x_int8.device))
+    _build.check(lib, err, "qmatmul")
+    QMATMUL_COUNT.launches += 1
     return out

@@ -9,10 +9,13 @@ zero-point code, so a padded position represents exactly ``x = 0`` and
 ``bias0`` is one constant per output channel.
 
 Dense int8 products (``qlinear``, and the 1x1 convs through it) are XLA
-ops in the JAX package, not Pallas kernels; here they are
-``torch._int_mm`` on CUDA and an exact float64 product on the CPU.
-``qconv2d`` is the plain int8 convolution; the model's convs run the
-hand-written kernel in ``ops/qconv.py``, whose plain version builds on it.
+ops in the JAX package, which keeps ``pallas_qmatmul.qmatmul`` as its
+hand-written kernel for the same function; here ``qlinear`` runs the
+port of that kernel (``ops/qmatmul.py``). ``int_gemm`` (``torch._int_mm``
+on CUDA, an exact float64 product on the CPU) serves only the plain
+versions. ``qconv2d`` is the plain int8 convolution; the model's convs
+run the hand-written kernel in ``ops/qconv.py``, whose plain version
+builds on it.
 """
 
 from __future__ import annotations
@@ -66,13 +69,14 @@ def qlinear(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
             bias0: torch.Tensor, bias: Optional[torch.Tensor] = None,
             out_dtype=torch.bfloat16) -> torch.Tensor:
     """W8A8 matmul ``(acc - bias0) * scale (+ bias)`` over the last axis;
-    ``acc`` converts to f32 before the subtraction, as in the reference."""
+    ``acc`` converts to f32 before the subtraction, as in the reference.
+    Runs ``ops.qmatmul.qmatmul`` (the kernel for CUDA tensors)."""
+    from .qmatmul import qmatmul  # ops.qmatmul imports this module
+
     lead = x_int8.shape[:-1]
-    acc = int_gemm(x_int8.reshape(-1, x_int8.shape[-1]), w_int8)
-    out = (acc.float() - bias0) * scale
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(out_dtype).reshape(*lead, -1)
+    out = qmatmul(x_int8.reshape(-1, x_int8.shape[-1]).contiguous(), w_int8,
+                  scale, bias0, bias, out_dtype)
+    return out.reshape(*lead, -1)
 
 
 def pad_codes(x_int8: torch.Tensor, zp_shifted: float, ph: int,

@@ -1,0 +1,274 @@
+"""Whole-attention int8 kernels of the ``attn_impl='auto'`` path (ports of
+``mixdq_tpu/ops/pallas_sec_attention.py``).
+
+* ``sec_attention_qkv`` (port of ``sec_attention_qkv``): self-attention
+  from the norm1 codes: the fused ``[C, 3C]`` QKV GEMM with its dequant
+  epilogue, q/k/v cast to bf16, per-head softmax attention, and the
+  ``to_out`` act-quantize, emitting ``to_out``'s int8 codes.
+* ``sec_attention_q_out`` (port of ``sec_attention_q_out``): the whole
+  cross-attention sub-block: the pre-LayerNorm + act-quantize (LN-folded
+  mode) or given codes, the ``to_q`` GEMM, attention over the k/v panels
+  of the fused ``to_kv`` output, the ``to_out`` act-quantize, the
+  ``to_out`` GEMM, its bias and the residual add.
+
+Kernels: ``csrc/sec_attention.cu``. Plain versions:
+``sec_attention_qkv_plain`` and ``sec_attention_q_out_plain``, which share
+``_attend_codes_plain``, a step-by-step copy of the JAX ``_attend_codes``.
+The kernels take every shape with ``head_dim`` in ``HEAD_DIMS``; there is
+no counterpart of the TPU's VMEM gates.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from . import _build, check_cuda_args, qops, register, use_kernel
+from .ln_quant import ln_quantize_plain
+
+QKV_COUNT = register("sec_attention_qkv")
+Q_OUT_COUNT = register("sec_attention_q_out")
+
+HEAD_DIMS = (16, 32, 64, 128)
+_FLOAT_TYPES = (torch.bfloat16, torch.float32)
+
+
+def check_head_dim(head_dim: int) -> None:
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the attention kernels take "
+                         f"{HEAD_DIMS}")
+
+
+def _attend_codes_plain(q, k, v, heads: int, head_dim: int, scale: float,
+                        scale_inv: float, zp_shifted: float, clip):
+    """Per-head softmax attention over q ``[B, Tq, heads*d]`` and k/v
+    ``[B, Tk, heads*d]``, then the ``to_out`` act-quantize: int8 codes
+    ``[B, Tq, heads*d]``. f32 logits scaled after the dot, the row max
+    over all keys before any ``exp``, ``p`` cast to v's dtype for the PV
+    product and the f32 row sum ``l`` of the uncast ``p``."""
+    d = head_dim
+    outs = []
+    for i in range(heads):
+        qi = q[..., i * d:(i + 1) * d].float()
+        ki = k[..., i * d:(i + 1) * d].float()
+        vi = v[..., i * d:(i + 1) * d]
+        s = qi @ ki.transpose(-1, -2)
+        s = s * scale
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = p.to(vi.dtype).float() @ vi.float()
+        o = o / l
+        outs.append((torch.round(o * scale_inv) + zp_shifted).clamp_(
+            clip[0], clip[1]))
+    return torch.cat(outs, -1).to(torch.int8)
+
+
+def _proj_plain(x_codes, w_int8, scale, bias0, dtype):
+    """``(f32(acc) - bias0) * scale`` cast to ``dtype``, over the last
+    axis of the codes."""
+    acc = qops.int_gemm(x_codes.reshape(-1, x_codes.shape[-1]), w_int8)
+    y = (acc.float() - bias0) * scale
+    return y.to(dtype).reshape(*x_codes.shape[:-1], -1)
+
+
+def sec_attention_qkv_plain(x_codes, w_int8, w_scale, bias0,
+                            out_scale_inv: float, out_zp_shifted: float, *,
+                            heads: int, head_dim: int, scale: float,
+                            clip=(-128.0, 127.0)):
+    C = x_codes.shape[-1]
+    y = _proj_plain(x_codes, w_int8, w_scale, bias0, torch.bfloat16)
+    return _attend_codes_plain(y[..., :C], y[..., C:2 * C], y[..., 2 * C:],
+                               heads, head_dim, scale, out_scale_inv,
+                               out_zp_shifted, clip)
+
+
+def sec_attention_q_out_plain(x, wq_int8, wq_scale, bias0, k_src, v_src,
+                              mid_scale_inv: float, mid_zp_shifted: float,
+                              wout_int8, out_scale, out_bias0, out_bias,
+                              residual, *, heads: int, head_dim: int,
+                              scale: float, k_off: int = 0, v_off: int = 0,
+                              out_dtype=torch.bfloat16,
+                              clip=(-128.0, 127.0), ln=None):
+    C = heads * head_dim
+    if ln is not None:
+        gamma, beta, x_sinv, x_zp, x_clip, eps = ln
+        codes = ln_quantize_plain(x, gamma, beta, x_sinv, x_zp, eps, x_clip)
+        residual = x
+    else:
+        codes = x
+    q = _proj_plain(codes, wq_int8, wq_scale, bias0, k_src.dtype)
+    o_codes = _attend_codes_plain(q, k_src[..., k_off:k_off + C],
+                                  v_src[..., v_off:v_off + C], heads,
+                                  head_dim, scale, mid_scale_inv,
+                                  mid_zp_shifted, clip)
+    out = _proj_plain(o_codes, wout_int8, out_scale, out_bias0, torch.float32)
+    if out_bias is not None:
+        out = out + out_bias.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(out_dtype)
+
+
+def _lib():
+    lib = _build.load("sec_attention.cu")
+    if lib.mixdq_sec_attention_qkv.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        f = lib.mixdq_sec_attention_qkv
+        f.argtypes = [P] * 6 + [I] * 5 + [F] * 5 + [P]
+        f.restype = I
+        f = lib.mixdq_sec_attention_q_out
+        f.argtypes = [P] * 8 + [I] * 2 + [P] * 9 + [I] * 8 + [F] * 10 + [P]
+        f.restype = I
+    return lib
+
+
+def _check_weight(name, w, k, n, scale, bias0):
+    """An int8 ``[k, n]`` weight with f32 ``[n]`` scale and ``bias0``."""
+    if w.dtype != torch.int8 or w.shape != (k, n):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} {w.dtype}, "
+                         f"expected int8 [{k}, {n}]")
+    for t in (scale, bias0):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"{name}: scale/bias0 must be f32 [{n}]")
+
+
+def sec_attention_qkv(x_codes: torch.Tensor, w_int8: torch.Tensor,
+                      w_scale: torch.Tensor, bias0: torch.Tensor,
+                      out_scale_inv: float, out_zp_shifted: float, *,
+                      heads: int, head_dim: int, scale: float,
+                      clip=(-128.0, 127.0)) -> torch.Tensor:
+    """Self-attention from the norm1 codes ``x_codes`` ``[B, T, C]``
+    through the fused QKV weight ``[C, 3C]`` (q | k | v column panels,
+    ``w_scale``/``bias0`` f32 ``[3C]``) -> ``to_out``'s int8 codes
+    ``[B, T, C]``."""
+    QKV_COUNT.calls += 1
+    check_head_dim(head_dim)
+    if not use_kernel(x_codes, w_int8, w_scale, bias0):
+        return sec_attention_qkv_plain(
+            x_codes, w_int8, w_scale, bias0, out_scale_inv, out_zp_shifted,
+            heads=heads, head_dim=head_dim, scale=scale, clip=clip)
+    B, T, C = x_codes.shape
+    if heads * head_dim != C or x_codes.dtype != torch.int8:
+        raise ValueError(f"sec_attention_qkv: codes {tuple(x_codes.shape)} "
+                         f"{x_codes.dtype} for {heads} heads of {head_dim}")
+    _check_weight("sec_attention_qkv", w_int8, C, 3 * C, w_scale, bias0)
+    check_cuda_args("sec_attention_qkv", x=x_codes, w=w_int8, scale=w_scale,
+                    bias0=bias0)
+    dev = x_codes.device
+    ws = torch.empty((B * T, 3 * C), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, T, C), dtype=torch.int8, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.mixdq_sec_attention_qkv(
+        p(x_codes), p(w_int8), p(w_scale), p(bias0), p(ws), p(out), B, T,
+        C, heads, head_dim, scale, out_scale_inv, out_zp_shifted, clip[0],
+        clip[1], _build.stream(dev))
+    _build.check(lib, err, "sec_attention_qkv")
+    QKV_COUNT.launches += 1
+    return out
+
+
+def _panel_ptr(t: torch.Tensor, off: int) -> int:
+    return t.data_ptr() + off * t.element_size()
+
+
+def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
+                        wq_scale: torch.Tensor, bias0: torch.Tensor,
+                        k_src: torch.Tensor, v_src: torch.Tensor,
+                        mid_scale_inv: float, mid_zp_shifted: float,
+                        wout_int8: torch.Tensor, out_scale: torch.Tensor,
+                        out_bias0: torch.Tensor,
+                        out_bias: Optional[torch.Tensor],
+                        residual: Optional[torch.Tensor], *, heads: int,
+                        head_dim: int, scale: float, k_off: int = 0,
+                        v_off: int = 0, out_dtype=torch.bfloat16,
+                        clip=(-128.0, 127.0),
+                        ln: Optional[Sequence] = None) -> torch.Tensor:
+    """Whole cross-attention sub-block -> ``[B, Tq, C_in]`` in
+    ``out_dtype``.
+
+    ``x``: the int8 codes of ``to_q`` ``[B, Tq, C_in]``, or, in LN-folded
+    mode (``ln`` = ``(gamma, beta, x_scale_inv, x_zp_shifted, x_clip,
+    eps)``), the raw block input, which then is also the residual
+    (``residual`` must be None). ``k_src``/``v_src`` ``[B, Tk, >= off +
+    C]`` hold k and v at column offsets ``k_off``/``v_off`` (the fused
+    ``to_kv`` output); q is cast to their dtype. ``wq_int8`` ``[C_in, C]``
+    and ``wout_int8`` ``[C, C_in]`` with f32 scales/``bias0``;
+    ``out_bias`` the ``to_out`` bias or None."""
+    Q_OUT_COUNT.calls += 1
+    check_head_dim(head_dim)
+    if ln is not None and residual is not None:
+        raise ValueError("sec_attention_q_out: in LN-folded mode the input "
+                         "is the residual")
+    if not use_kernel(x, wq_int8, k_src, v_src, wout_int8, residual):
+        return sec_attention_q_out_plain(
+            x, wq_int8, wq_scale, bias0, k_src, v_src, mid_scale_inv,
+            mid_zp_shifted, wout_int8, out_scale, out_bias0, out_bias,
+            residual, heads=heads, head_dim=head_dim, scale=scale,
+            k_off=k_off, v_off=v_off, out_dtype=out_dtype, clip=clip, ln=ln)
+    B, Tq, C_in = x.shape
+    C = heads * head_dim
+    Tk = k_src.shape[1]
+    dt = k_src.dtype
+    if dt not in _FLOAT_TYPES or v_src.dtype != dt or out_dtype != dt:
+        raise TypeError(f"sec_attention_q_out: k/v {dt}/{v_src.dtype} and "
+                        f"out {out_dtype} must be one of bf16/f32")
+    if k_src.shape[:2] != (B, Tk) or v_src.shape[:2] != (B, Tk) or \
+            k_src.shape[-1] < k_off + C or v_src.shape[-1] < v_off + C:
+        raise ValueError("sec_attention_q_out: k/v panels out of range")
+    if dt == torch.bfloat16 and any(
+            _panel_ptr(t, off) % 16 or t.shape[-1] % 8
+            for t, off in ((k_src, k_off), (v_src, v_off))):
+        raise ValueError("sec_attention_q_out: bf16 k/v panels must start "
+                         "on 16 bytes with rows a multiple of 16 bytes")
+    if ln is not None:
+        gamma, beta, x_sinv, x_zp, x_clip, eps = ln
+        if x.dtype != dt:
+            raise TypeError("sec_attention_q_out: the raw input must have "
+                            "k/v's dtype")
+        for t in (gamma, beta):
+            if t.dtype != torch.float32 or t.shape != (C_in,):
+                raise ValueError("sec_attention_q_out: gamma/beta must be "
+                                 "f32 [C_in]")
+        codes = torch.empty((B, Tq, C_in), dtype=torch.int8, device=x.device)
+    else:
+        gamma = beta = None
+        x_sinv, x_zp, x_clip, eps = 0.0, 0.0, (0.0, 0.0), 0.0
+        codes = x
+        if x.dtype != torch.int8:
+            raise TypeError("sec_attention_q_out: x must be int8 codes "
+                            "without ln")
+        if residual is not None and (residual.shape != x.shape
+                                     or residual.dtype != dt):
+            raise ValueError("sec_attention_q_out: residual must be "
+                             f"[B, Tq, C_in] {dt}")
+    _check_weight("sec_attention_q_out to_q", wq_int8, C_in, C, wq_scale,
+                  bias0)
+    _check_weight("sec_attention_q_out to_out", wout_int8, C, C_in,
+                  out_scale, out_bias0)
+    if out_bias is not None:
+        out_bias = out_bias.float().contiguous()
+    check_cuda_args("sec_attention_q_out", x=x, gamma=gamma, beta=beta,
+                    wq=wq_int8, wq_scale=wq_scale, bias0=bias0, k=k_src,
+                    v=v_src, wout=wout_int8, out_scale=out_scale,
+                    out_bias0=out_bias0, residual=residual)
+    dev = x.device
+    q_ws = torch.empty((B, Tq, C), dtype=dt, device=dev)
+    o_ws = torch.empty((B, Tq, C), dtype=torch.int8, device=dev)
+    out = torch.empty((B, Tq, C_in), dtype=dt, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.mixdq_sec_attention_q_out(
+        p(x if ln is not None else None), p(gamma), p(beta), p(wq_int8),
+        p(wq_scale), p(bias0), _panel_ptr(k_src, k_off),
+        _panel_ptr(v_src, v_off), k_src.shape[-1], v_src.shape[-1],
+        p(wout_int8), p(out_scale), p(out_bias0), p(out_bias), p(residual),
+        p(codes), p(q_ws), p(o_ws), p(out), B, Tq, Tk, C_in, heads,
+        head_dim, int(dt == torch.bfloat16), int(ln is not None), scale,
+        mid_scale_inv, mid_zp_shifted, clip[0], clip[1], x_sinv, x_zp,
+        x_clip[0], x_clip[1], eps, _build.stream(dev))
+    _build.check(lib, err, "sec_attention_q_out")
+    Q_OUT_COUNT.launches += 1
+    return out

@@ -1,13 +1,15 @@
 """Entry points of the W8A8 UNet step (the flow of the JAX package's
 ``bench.py``): build a UNet with random weights from a seed, calibrate it
 on one sample, deploy it W8A8 (``int8_sec`` compute, fused QKV/KV,
-BoS-aware cross-attention, einsum attention), and run UNet steps.
+BoS-aware cross-attention, ``attn_impl='auto'`` whole-attention kernels:
+the ``bench.py`` headline), and run UNet steps.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -74,31 +76,67 @@ def example_inputs(family: str = "sdxl-turbo", batch: int = 1, seed: int = 0,
 
 def quantize_w8a8(unet: UNet2DConditionModel, calib: Inputs) -> QuantCtx:
     """Calibrate on ``calib`` and deploy every layer W8A8 with fused
-    QKV/KV."""
+    QKV/KV, under ``attn_impl='auto'`` (``dataclasses.replace`` the
+    context's ``attn_impl`` for the einsum path on the same deploy)."""
     qparams = calibrate(unet, [calib], WQ, AQ)
     ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=8, a_bits=8)
-    return deploy_unet_ctx(unet, qparams, ctrl, WQ, fuse_qkv=True)
+    ctx = deploy_unet_ctx(unet, qparams, ctrl, WQ, fuse_qkv=True)
+    return dataclasses.replace(ctx, attn_impl="auto")
 
 
-def expected_kernel_calls(cfg) -> Dict[str, int]:
+def _resnet_channels(cfg):
+    """(in, out) channels of every resnet, in the UNet's build order."""
+    ch, L = cfg.block_out_channels, cfg.layers_per_block
+    n = len(ch)
+    out = []
+    prev = ch[0]
+    for i in range(n):
+        out += [(prev if j == 0 else ch[i], ch[i]) for j in range(L)]
+        prev = ch[i]
+    out += [(ch[-1], ch[-1])] * 2
+    rev = list(reversed(ch))
+    for i in range(n):
+        prev_ch, oc, skip = rev[max(i - 1, 0)], rev[i], rev[min(i + 1, n - 1)]
+        out += [((prev_ch if j == 0 else oc) + (skip if j == L else oc), oc)
+                for j in range(L + 1)]
+    return out
+
+
+def expected_kernel_calls(cfg, attn_impl: str) -> Dict[str, int]:
     """Kernel calls of one W8A8 step implied by the UNet structure: two
     3x3 convs and two GN producers per resnet, conv_in/conv_out, one conv
     per resampler, one GN per transformer (``proj_in``) plus
-    ``conv_norm_out``, and three LN producers and one GEGLU per
-    transformer block."""
+    ``conv_norm_out``, one GEGLU per transformer block; LN producers:
+    norm1/2/3 of every block under ``'einsum'``, norm1/3 under ``'auto'``
+    (norm2 folds into ``sec_attention_q_out``). ``qmatmul`` runs every
+    other dense layer and 1x1 conv: the time (and SDXL added-condition)
+    embeddings, each resnet's ``time_emb_proj`` and ``conv_shortcut``
+    (where its channels change), each transformer's ``proj_in`` /
+    ``proj_out``, and per block ``to_qkv``, ``to_out`` (attn1), ``to_kv``,
+    ``to_q``, ``to_out`` (attn2) and ``ff.net.2``, less ``to_qkv``,
+    ``to_q`` and attn2's ``to_out``, which the attention kernels run
+    under ``'auto'``."""
     n, L = len(cfg.block_out_channels), cfg.layers_per_block
     tl = cfg.transformer_layers_per_block
     down_x = [i for i, b in enumerate(cfg.down_block_types)
               if b.startswith("CrossAttn")]
     up_x = [i for i, b in enumerate(cfg.up_block_types)
             if b.startswith("CrossAttn")]
-    resnets = n * L + 2 + n * (L + 1)
+    res = _resnet_channels(cfg)
+    resnets, shortcuts = len(res), sum(a != b for a, b in res)
     transformers = L * len(down_x) + 1 + (L + 1) * len(up_x)
     blocks = (sum(L * tl[i] for i in down_x) + tl[-1]
               + sum((L + 1) * tl[n - 1 - i] for i in up_x))
+    embeddings = 2 + (2 if cfg.addition_embed_type == "text_time" else 0)
+    dense = embeddings + resnets + shortcuts + 2 * transformers + 6 * blocks
+    auto = attn_impl == "auto"
     return {"qconv2d": 2 * resnets + 2 + (n - 1), "qconv2d_s2": n - 1,
             "gn_silu_quantize": 2 * resnets + transformers + 1,
-            "ln_quantize": 3 * blocks, "geglu_qmatmul": blocks}
+            "ln_quantize": (2 if auto else 3) * blocks,
+            "geglu_qmatmul": blocks,
+            "qmatmul": dense - (3 * blocks if auto else 0),
+            "sec_attention_qkv": blocks if auto else 0,
+            "sec_attention_q_out": blocks if auto else 0}
 
 
 @torch.inference_mode()

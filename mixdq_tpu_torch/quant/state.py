@@ -92,21 +92,30 @@ class QuantCtx:
 
     The int8 mode is the JAX package's ``deploy_compute='int8_sec'``
     (every spatial conv on the int8 conv kernel, GN/LN producers emitting
-    codes, 1x1 convs and dense layers as int8 GEMMs) with
-    ``attn_impl='einsum'`` (matmul + softmax chain). ``gelu``: ``'tanh'``
-    or ``'exact'``."""
+    codes, 1x1 convs and dense layers on the int8 GEMM kernel).
+    ``attn_impl``: ``'einsum'`` (the default, as in the JAX package:
+    matmul + softmax chain) or ``'auto'`` (the ``bench.py`` headline: with
+    fused QKV/KV, every self-attention runs ``sec_attention_qkv`` and
+    every cross-attention ``sec_attention_q_out`` with its pre-LayerNorm
+    folded in; the JAX package's defaults of its ``MIXDQ_SEC_OUTFUSE`` /
+    ``MIXDQ_SEC_LNFOLD`` knobs, which the port does not read).
+    ``gelu``: ``'tanh'`` or ``'exact'``."""
 
     deploy: Any = None  # Dict[str, DeployEntry]
     mode: str = "fp"
     bos_aware: bool = False
     fuse_qkv: bool = False
     gelu: str = "tanh"
+    attn_impl: str = "einsum"
 
     def __post_init__(self):
         if self.mode not in ("fp", "int8"):
             raise ValueError(f"mode {self.mode!r}: this port runs fp/int8")
         if self.gelu not in ("tanh", "exact"):
             raise ValueError(f"gelu {self.gelu!r}")
+        if self.attn_impl not in ("einsum", "auto"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: this port runs "
+                             "'einsum' or 'auto'")
 
     def entry(self, name: str):
         """The deploy entry of layer ``name`` in int8 mode, else None."""

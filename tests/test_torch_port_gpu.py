@@ -33,6 +33,18 @@ def assert_codes_close(got, want):
     assert frac < 0.01, f"{frac:.4f} of codes differ"
 
 
+def smoke():
+    """``chip_smoke.py`` as a module: the kernel cases it checks."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _codes(g, dev, *shape):
     return torch.randint(-128, 128, shape, generator=g, dtype=torch.int8
                          ).to(dev)
@@ -130,8 +142,8 @@ def test_geglu_kernel(dev, M, K, H, gelu_tanh, with_bias):
 @pytest.mark.parametrize("M,K,N", [(1, 320, 1280), (77, 2048, 1280),
                                    (5, 20, 12)])
 def test_qlinear_int_mm(dev, M, K, N):
-    """``qlinear`` on CUDA (``torch._int_mm`` with padding) against the
-    exact float64 product on the CPU."""
+    """``qlinear`` on CUDA (the ``qmatmul`` kernel) against the exact
+    float64 product on the CPU."""
     from mixdq_tpu_torch.ops.qops import qlinear
 
     g = torch.Generator().manual_seed(4)
@@ -142,3 +154,71 @@ def test_qlinear_int_mm(dev, M, K, N):
     want = qlinear(x.cpu(), w.cpu(), scale.cpu(), bias0.cpu(),
                    out_dtype=torch.float32)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,K,N,with_bias,dtype", [
+    (1, 1280, 1280, True, torch.bfloat16),     # time_emb_proj
+    (77, 2048, 2560, False, torch.bfloat16),   # attn2 to_kv
+    (256, 5120, 1280, True, torch.bfloat16),   # ff.net.2 at 16x16
+    (1024, 2560, 640, True, torch.bfloat16),   # ff.net.2 at 32x32
+    (4096, 960, 320, True, torch.bfloat16),    # conv_shortcut at 64x64
+    (37, 40, 40, True, torch.float32),         # ragged, f32 out
+])
+def test_qmatmul_kernel(dev, M, K, N, with_bias, dtype):
+    from mixdq_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+
+    g = torch.Generator().manual_seed(5)
+    x, w = _codes(g, dev, M, K), _codes(g, dev, K, N)
+    scale = ((torch.rand(N, generator=g) + 0.5) * 1e-5).to(dev)
+    bias0 = (-9.0 * w.int().sum(0)).float()
+    bias = torch.randn(N, generator=g).to(dev, dtype) if with_bias else None
+    got = qmatmul(x, w, scale, bias0, bias, dtype)
+    want = qmatmul_plain(x, w, scale, bias0, bias, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("B,T,heads,d", [
+    (1, 1024, 10, 64),   # SDXL-Turbo attn1 at 32x32
+    (1, 256, 20, 64),    # attn1 at 16x16
+    (2, 100, 2, 16),     # ragged T, small heads
+    (1, 72, 3, 32),
+    (2, 40, 2, 128),
+])
+def test_sec_attention_qkv_kernel(dev, B, T, heads, d):
+    from mixdq_tpu_torch.ops.sec_attention import (sec_attention_qkv,
+                                                   sec_attention_qkv_plain)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    args, kw = smoke().qkv_case(torch, g, dev, B, T, heads, d)
+    got = sec_attention_qkv(*args, **kw)
+    want = sec_attention_qkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("B,Tq,heads,d,C_in,dtype,ln", [
+    (1, 1024, 10, 64, 640, torch.bfloat16, True),   # attn2 at 32x32
+    (1, 256, 20, 64, 1280, torch.bfloat16, True),   # attn2 at 16x16
+    (1, 256, 20, 64, 1280, torch.bfloat16, False),  # pre-coded + residual
+    (2, 50, 3, 32, 96, torch.bfloat16, True),       # ragged Tq, odd heads
+    (2, 40, 2, 128, 256, torch.bfloat16, False),
+    (1, 64, 2, 64, 320, torch.bfloat16, True),      # C_in != heads * d
+    (1, 70, 2, 16, 32, torch.float32, True),        # f32 (tiny-sdxl)
+    (2, 33, 5, 64, 320, torch.float32, False),
+])
+def test_sec_attention_q_out_kernel(dev, B, Tq, heads, d, C_in, dtype, ln):
+    from mixdq_tpu_torch.ops.sec_attention import (
+        sec_attention_q_out, sec_attention_q_out_plain)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    args, kw = smoke().q_out_case(torch, g, dev, B, Tq, 77, heads, d, C_in,
+                                  dtype, ln)
+    got = sec_attention_q_out(*args, **kw)
+    want = sec_attention_q_out_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Tq, C_in)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
+                               atol=1e-2)

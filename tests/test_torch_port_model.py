@@ -121,7 +121,10 @@ def port_int8(module, jqparams, args, fuse_qkv=True):
 
 def test_sdxl_turbo_layer_names_meta():
     """The full-width port UNet (built on the meta device) has exactly the
-    794 quantizable layers of the SDXL-Turbo reference."""
+    794 quantizable layers of the SDXL-Turbo reference, and the kernel
+    calls per step of both attention paths follow from its structure
+    (``auto``: norm2 folds into ``sec_attention_q_out``; ``to_qkv``,
+    ``to_q`` and attn2's ``to_out`` leave ``qmatmul``)."""
     import os
 
     fixture = os.path.join(os.path.dirname(__file__),
@@ -132,9 +135,14 @@ def test_sdxl_turbo_layer_names_meta():
     names = sorted(quantizable_layers(m))
     assert len(names) == 794
     assert names == sorted(want)
-    assert pipeline.expected_kernel_calls(m.config) == {
-        "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
-        "ln_quantize": 210, "geglu_qmatmul": 70}
+    common = {"qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
+              "geglu_qmatmul": 70}
+    assert pipeline.expected_kernel_calls(m.config, "einsum") == {
+        **common, "ln_quantize": 210, "qmatmul": 474,
+        "sec_attention_qkv": 0, "sec_attention_q_out": 0}
+    assert pipeline.expected_kernel_calls(m.config, "auto") == {
+        **common, "ln_quantize": 140, "qmatmul": 264,
+        "sec_attention_qkv": 70, "sec_attention_q_out": 70}
 
 
 @pytest.fixture
@@ -288,18 +296,17 @@ def test_tiny_sdxl_int8_step(tiny):
     ops.reset_counts()
     got = pipeline.unet_step(m, args, ctx)
     assert_int8_close(got, tiny["int8"])
-    want_calls = pipeline.expected_kernel_calls(m.config)
+    want_calls = pipeline.expected_kernel_calls(m.config, "einsum")
     assert want_calls == {"qconv2d": 27, "qconv2d_s2": 1,
                           "gn_silu_quantize": 31, "ln_quantize": 36,
-                          "geglu_qmatmul": 12}
+                          "geglu_qmatmul": 12, "qmatmul": 107,
+                          "sec_attention_qkv": 0, "sec_attention_q_out": 0}
     assert ops.call_counts() == want_calls
     assert set(ops.launch_counts().values()) == {0}  # CPU: plain versions
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_chip_smoke_layer_check(dtype):
-    """``chip_smoke.py``'s per-layer check on tiny-sdxl: every deploy
-    entry passes it, and each injected one-layer fault fails it."""
+def load_smoke():
+    """``chip_smoke.py`` as a module."""
     import importlib.util
     import pathlib
 
@@ -307,6 +314,14 @@ def test_chip_smoke_layer_check(dtype):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_layer_check(dtype):
+    """``chip_smoke.py``'s per-layer check on tiny-sdxl: every deploy
+    entry passes it, and each injected one-layer fault fails it."""
+    smoke = load_smoke()
     dt = getattr(torch, dtype)
     unet = pipeline.build_unet("tiny-sdxl", 0, dt, "cpu")
     calib = pipeline.example_inputs("tiny-sdxl", 1, 0, dt, "cpu")
