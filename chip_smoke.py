@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: W8A8 SDXL-Turbo UNet
-steps through the hand-written kernels.
+"""Smoke run of the PyTorch/CUDA port on one GPU: W8A8 SDXL-Turbo (512 px)
+and SDXL (1024 px) UNet steps through the hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -9,13 +9,19 @@ Phases (none catches its own failure; any failure exits non-zero):
 0. Build every CUDA kernel from ``mixdq_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once); the compiler's register / shared memory /
    spill report goes to ``chiprun_out/nvcc_build.txt``.
-1. Each kernel against its plain PyTorch version at the main-path shapes
-   (int8 codes: max |diff| <= 1 on < 1% of codes; floats rtol 1e-3 /
-   atol 1e-2), with the kernel's and the plain version's time, the
-   card's bound for the same work and, for ``qmatmul``, the time of
-   ``torch._int_mm`` on the same operands (the product alone).
-2. ``tiny-sdxl`` W8A8 step in float32 under ``attn_impl='einsum'`` and
-   ``'auto'``: kernels on the GPU against the plain versions on the CPU
+1. Each kernel against its plain PyTorch version at the main-path shapes,
+   at B=1 and B=2 for the 1024 px kernels (int8 codes: max |diff| <= 1
+   on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
+   the kernel's key block size: max |diff| <= 2 bf16 ulps of the plain
+   output's max |x| and |diff| / |plain| <= 1e-2),
+   with the kernel's and the plain version's time, the card's bound for
+   the same work and, where one PyTorch call computes the same function,
+   its time (``torch._int_mm`` for ``qmatmul``, the product alone;
+   ``scaled_dot_product_attention`` for flash attention).
+2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
+   take the whole-attention kernels), W8A8 steps in float32
+   under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
+   against the plain versions on the CPU
    (whole step: |d|/|ref| <= 1e-2, max |d| < 0.3; under ``'auto'`` each
    attention module on its GPU-step input: rtol 1e-3 / atol 1e-2).
 3. The main paths: SDXL-Turbo UNet at full width (random weights from a
@@ -35,11 +41,23 @@ Phases (none catches its own failure; any failure exits non-zero):
    faults must fail these checks.
 5. A per-kernel device-time breakdown of one step of each int8 path and
    of bf16 from torch.profiler (written to ``chiprun_out/``).
+6. SDXL at 1024 px (128x128 latent), full width and depth, built in
+   place of SDXL-Turbo: the same deploy under ``'auto'`` (flash
+   attention, ``sec_attention`` and ``sec_attention_q``) and
+   ``'einsum'``, and the bf16 UNet under ``'auto'`` (flash attention);
+   launch counts, SQNR against bf16 (>= 16 dB), bf16 auto against bf16
+   einsum (>= ``FLASH_SQNR_DB``) and each bf16 flash site against the
+   einsum chain (>= ``FLASH_SITE_SQNR_DB``), both failed by flash attention
+   that drops one block of keys, every attention module auto against
+   einsum with injected zero-point faults at ``sec_attention`` and
+   ``sec_attention_q`` sites, paired step medians and one profiled step
+   per path.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -66,6 +84,36 @@ FAULT_SITES = (
     "mid_block.attentions.0.transformer_blocks.0.attn2.to_out.0",
     "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_out.0")
 OUT_DIR = "chiprun_out"
+N_SDXL_REQUESTS = 2
+# zero-point faults at SDXL 1024 sites: sec_attention (attn1 at 32x32,
+# attn2 at 64x64) and sec_attention_q (attn2 at 32x32)
+SDXL_FAULT_SITES = (
+    "mid_block.attentions.0.transformer_blocks.0.attn1.to_out.0",
+    "down_blocks.1.attentions.0.transformer_blocks.0.attn2.to_out.0",
+    "up_blocks.0.attentions.0.transformer_blocks.0.attn2.to_out.0")
+# whole SDXL 1024 bf16 step, flash attention (auto) vs the einsum chain:
+# sound 34.96-35.28 dB, every flash site dropping one key block 32.23-33.00
+FLASH_SQNR_DB = 34.0
+# each bf16 flash site vs the einsum chain: sound 50.65-53.68 dB, one
+# site dropping one key block 38.63
+FLASH_SITE_SQNR_DB = 45.0
+# launches per SDXL 1024 step, B=1: 70 transformer blocks, 10 at T=4096
+# and 60 at T=1024, every norm materialized, the 60 to_q of the 32x32
+# level inside sec_attention_q
+SDXL_CALLS = {
+    "auto": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                 ln_quantize=210, geglu_qmatmul=70, qmatmul=414,
+                 sec_attention_qkv=0, sec_attention_q_out=0,
+                 flash_attention=10, sec_attention=70, sec_attention_q=60),
+    "einsum": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                   ln_quantize=210, geglu_qmatmul=70, qmatmul=474,
+                   sec_attention_qkv=0, sec_attention_q_out=0,
+                   flash_attention=0, sec_attention=0, sec_attention_q=0),
+    "bf16": dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
+                 geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
+                 sec_attention_q_out=0, flash_attention=10, sec_attention=0,
+                 sec_attention_q=0),
+}
 
 # every function of the JAX package that reaches pl.pallas_call
 TPU_KERNELS = [
@@ -78,13 +126,13 @@ TPU_KERNELS = [
     ("pallas_qmatmul.py:205 qmatmul_fused2", None),
     ("pallas_qmatmul.py:557 geglu_out_qmatmul", None),
     ("pallas_qmatmul.py:724 qmatmul_fused", None),
-    ("pallas_sec_attention.py:99 sec_attention", None),
-    ("pallas_sec_attention.py:223 sec_attention_q", None),
+    ("pallas_sec_attention.py:99 sec_attention", "sec_attention"),
+    ("pallas_sec_attention.py:223 sec_attention_q", "sec_attention_q"),
     ("pallas_sec_attention.py:409 sec_attention_qkv", "sec_attention_qkv"),
     ("pallas_sec_attention.py:647 sec_attention_qkv_out", None),
     ("pallas_sec_attention.py:814 sec_attention_q_out",
      "sec_attention_q_out"),
-    ("pallas_attention.py:83 flash_attention", None),
+    ("pallas_attention.py:83 flash_attention", "flash_attention"),
     ("pallas_attention.py:204 int8_flash_attention", None),
     ("pallas_attention.py:303 int8qkv_flash_attention", None),
     ("pallas_wq_matmul.py:96 wq4_matmul", None),
@@ -107,11 +155,20 @@ PORTED = {
                           "mixdq_tpu/ops/pallas_sec_attention.py:460"),
     "sec_attention_q_out": ("mixdq_tpu_torch/csrc/sec_attention.cu",
                             "mixdq_tpu/ops/pallas_sec_attention.py:927"),
+    "sec_attention": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+                      "mixdq_tpu/ops/pallas_sec_attention.py:151"),
+    "sec_attention_q": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+                        "mixdq_tpu/ops/pallas_sec_attention.py:271"),
+    "flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
+                        "mixdq_tpu/ops/pallas_attention.py:106"),
 }
 
 # what library_ms times, where a kernel has one
 LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
-                      "product without the epilogue"}
+                      "product without the epilogue",
+           "flash_attention": "torch.nn.functional.scaled_dot_product_"
+                              "attention on head-major views of the same "
+                              "q/k/v (output [B, heads, T, d])"}
 
 
 def log(*a):
@@ -169,8 +226,8 @@ def kernel_cases(torch, dev):
     """(kernel, shape label, kernel call, plain call, compare, bytes,
     [(ops, peak) per type], library call or None) at the main-path shapes;
     the first case of each kernel is its reported shape."""
-    from mixdq_tpu_torch.ops import (gn_quant, ln_quant, qconv, qmatmul,
-                                     sec_attention)
+    from mixdq_tpu_torch.ops import (attention, gn_quant, ln_quant, qconv,
+                                     qmatmul, sec_attention)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -283,7 +340,115 @@ def kernel_cases(torch, dev):
                       [(4 * T * C * C, INT8_OPS_PER_S),
                        (4 * T * 77 * C, BF16_OPS_PER_S),
                        (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
+    # SDXL 1024: flash at attn1 of the 64x64 level (T=4096, 10 heads),
+    # sec_attention at attn1 of the 32x32 level (T=1024, C=1280) and attn2
+    # of the 64x64 level (Tq=4096, Tk=77, C=640), sec_attention_q at attn2
+    # of the 32x32 level; each at B=1 and B=2
+    for B in (1, 2):
+        T, heads, d = 4096, 10, 64
+        C = heads * d
+        srcs, kw = attn_case(torch, g, dev, B, T, T, heads, d, bf16, False)
+
+        def sdpa(y=srcs[0], shape=(B, T, 3, heads, d)):
+            qkv = y.view(shape).permute(2, 0, 3, 1, 4)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qkv[0], qkv[1], qkv[2], scale=shape[-1] ** -0.5)
+        cases.append(("flash_attention", f"B={B} T={T} heads={heads} d={d}",
+                      lambda a=srcs, kw=kw: attention.flash_attention(*a,
+                                                                     **kw),
+                      lambda a=srcs, kw=kw:
+                          attention.flash_attention_plain(*a, **kw),
+                      flash_err, 8 * B * T * C,
+                      [(4 * B * T * T * C, BF16_OPS_PER_S)], sdpa))
+    for B in (1, 2):
+        for Tq, Tk, heads, cross in [(1024, 1024, 20, False),
+                                     (4096, 77, 10, True)]:
+            C = heads * 64
+            srcs, kw = attn_case(torch, g, dev, B, Tq, Tk, heads, 64, bf16,
+                                 cross)
+            args = (*srcs, 40.0, -3.0)
+            nbytes = (2 * B * Tq * C + 4 * B * Tk * C + B * Tq * C if cross
+                      else 6 * B * Tq * C + B * Tq * C)
+            cases.append(("sec_attention",
+                          f"B={B} Tq={Tq} Tk={Tk} C={C} heads={heads} "
+                          + ("cross" if cross else "self"),
+                          lambda a=args, kw=kw:
+                              sec_attention.sec_attention(*a, **kw),
+                          lambda a=args, kw=kw:
+                              sec_attention.sec_attention_plain(*a, **kw),
+                          codes_err, nbytes,
+                          [(4 * B * Tq * Tk * C, BF16_OPS_PER_S)], None))
+    for B in (1, 2):
+        Tq, heads, C = 1024, 20, 1280
+        args, kw = sec_q_case(torch, g, dev, B, Tq, 77, heads, 64, C, bf16)
+        cases.append(("sec_attention_q",
+                      f"B={B} Tq={Tq} Tk=77 C_in=C={C} heads={heads}",
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_q(*a, **kw),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_q_plain(*a, **kw),
+                      codes_err,
+                      2 * B * Tq * C + C * C + 8 * C + 4 * B * 77 * C,
+                      [(2 * B * Tq * C * C, INT8_OPS_PER_S),
+                       (4 * B * Tq * 77 * C, BF16_OPS_PER_S)], None))
     return cases
+
+
+def flash_err(torch, got, want):
+    """Flash attention's bf16 output against its plain version at the same
+    key block size: max |diff| <= 2 bf16 ulps of max |want| (the two sum
+    in other orders, so an element or a rounded ``p`` may land one ulp
+    apart) and |diff| / |want| <= 1e-2 (one block of keys dropped moves
+    it by several per cent)."""
+    got, want = got.float(), want.float()
+    d = got - want
+    err = d.abs().max().item()
+    tol = 2 * 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    rel = (d.norm() / want.norm()).item()
+    if not (err <= tol and rel <= 1e-2):
+        raise AssertionError(f"max |diff| {err} (limit {tol}), |diff|/|ref| "
+                             f"{rel} (limit 1e-2)")
+    return err
+
+
+def attn_case(torch, g, dev, B, Tq, Tk, heads, d, dtype, cross):
+    """q/k/v sources of one attention site, about unit size: self, the
+    fused to_qkv output ``[B, T, 3C]`` at 0/C/2C; cross, q ``[B, Tq, C]``
+    and a fused to_kv output ``[B, Tk, 2C]`` at 0/C whose first (BoS) row
+    is twice the others. Returns (sources, kwargs)."""
+    C = heads * d
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kw = dict(heads=heads, head_dim=d, scale=d ** -0.5)
+    if not cross:
+        y = (randn(B, Tq, 3 * C) * 1.5).to(dtype)
+        return (y, y, y), dict(kw, q_off=0, k_off=C, v_off=2 * C)
+    y = randn(B, Tk, 2 * C)
+    y[:, 0] *= 2
+    y = y.to(dtype)
+    return ((randn(B, Tq, C) * 1.5).to(dtype), y, y), dict(
+        kw, q_off=0, k_off=0, v_off=C)
+
+
+def sec_q_case(torch, g, dev, B, Tq, Tk, heads, d, C_in, dtype):
+    """Inputs of ``sec_attention_q`` at one attn2 site: to_q codes, a to_q
+    weight whose q comes out about unit size, and a fused to_kv output
+    with a BoS-like first row; returns (args, kwargs)."""
+    C = heads * d
+    x = torch.randint(-128, 128, (B, Tq, C_in), generator=g, device=dev,
+                      dtype=torch.int8)
+    wq = torch.randint(-128, 128, (C_in, C), generator=g, device=dev,
+                       dtype=torch.int8)
+    sq = (torch.rand(C, generator=g, device=dev) + 0.5) / (3000.0
+                                                            * C_in ** 0.5)
+    y = torch.randn((B, Tk, 2 * C), generator=g, device=dev)
+    y[:, 0] *= 2
+    args = (x, wq, sq, 3.0 * wq.int().sum(0).float(), y.to(dtype),
+            y.to(dtype), 40.0, -2.0)
+    return args, dict(heads=heads, head_dim=d, scale=d ** -0.5, k_off=0,
+                      v_off=C)
 
 
 def qkv_case(torch, g, dev, B, T, heads, d):
@@ -344,8 +509,8 @@ def phase_kernels(torch, dev, flush):
     from mixdq_tpu_torch import pipeline
     from mixdq_tpu_torch.models.configs import get_family
 
-    per_step = pipeline.expected_kernel_calls(get_family("sdxl-turbo").unet,
-                                              "auto")
+    per_step = {f: pipeline.expected_kernel_calls(get_family(f).unet, "auto")
+                for f in ("sdxl-turbo", "sdxl")}
     report = {}
     for name, label, fn, plain, cmp, nbytes, ops, lib in kernel_cases(
             torch, dev):
@@ -360,7 +525,8 @@ def phase_kernels(torch, dev, flush):
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
             f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
-            f" launches/step={per_step[name]}")
+            f" launches/step sdxl-turbo={per_step['sdxl-turbo'][name]}"
+            f" sdxl={per_step['sdxl'][name]}")
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
@@ -376,59 +542,61 @@ def to_device(qparams, dev):
 
 
 def phase_tiny_parity(torch, dev):
-    """Whole tiny-sdxl W8A8 step under each ``attn_impl``: GPU kernels vs
-    CPU plain versions."""
+    """Whole W8A8 step of ``tiny-sdxl`` and ``small-sdxl`` under each
+    ``attn_impl``: GPU kernels vs CPU plain versions."""
     import dataclasses
 
     from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.models import routing
     from mixdq_tpu_torch.quant.calibrate import calibrate
     from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
     from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
 
     f32 = torch.float32
-    cpu_m = pipeline.build_unet("tiny-sdxl", 0, f32, "cpu")
-    gpu_m = pipeline.build_unet("tiny-sdxl", 0, f32, dev)
-    gpu_m.load_state_dict(cpu_m.state_dict())
-    inp = pipeline.example_inputs("tiny-sdxl", 1, 0, f32, "cpu")
-    inp_gpu = tuple(x.to(dev) if torch.is_tensor(x) else
-                    {k: v.to(dev) for k, v in x.items()} for x in inp)
-    qp = calibrate(cpu_m, [inp], pipeline.WQ, pipeline.AQ)
-    ctrl = uniform_ctrl(list(quantizable_layers(cpu_m)))
-    cpu_ctx = deploy_unet_ctx(cpu_m, qp, ctrl, pipeline.WQ, fuse_qkv=True)
-    gpu_ctx = deploy_unet_ctx(gpu_m, to_device(qp, dev), ctrl, pipeline.WQ,
-                              fuse_qkv=True)
-    for impl in ("einsum", "auto"):
-        c_ctx = dataclasses.replace(cpu_ctx, attn_impl=impl)
-        g_ctx = dataclasses.replace(gpu_ctx, attn_impl=impl)
-        ref = pipeline.unet_step(cpu_m, inp, c_ctx)
-        ops.reset_counts()
-        got = pipeline.unet_step(gpu_m, inp_gpu, g_ctx).cpu()
-        if ops.launch_counts() != pipeline.expected_kernel_calls(
-                gpu_m.config, impl):
-            raise AssertionError(f"tiny-sdxl {impl} launches "
-                                 f"{ops.launch_counts()}")
-        rel = ((got - ref).norm() / ref.norm()).item()
-        mx = (got - ref).abs().max().item()
-        log(f"tiny-sdxl int8 step ({impl}) GPU vs CPU plain: rel={rel:.3e} "
-            f"max={mx:.3e}")
-        if impl == "einsum":
-            if not (math.isfinite(rel) and rel <= 1e-2 and mx < 0.3):
-                raise AssertionError(f"tiny-sdxl parity ({impl}): rel {rel} "
-                                     f"max {mx}")
-            continue
-        # The attention kernels sum in another order than the CPU; one
-        # act code that differs by one at one site can grow past the
-        # whole-step tolerance in this small UNet. So each attention
-        # module is held alone, on the input it had in the GPU step.
-        seen = record_attention_inputs(torch, gpu_m, inp_gpu, g_ctx)
-        err = 0.0
-        for name, (stream, ehs) in sorted(seen.items()):
-            g = attention_site(torch, gpu_m, name, stream, ehs, g_ctx)
-            c = attention_site(torch, cpu_m, name, stream.cpu(),
-                               None if ehs is None else ehs.cpu(), c_ctx)
-            err = max(err, float_err(torch, g.cpu(), c))
-        log(f"tiny-sdxl ({impl}): {len(seen)} attention modules, each on "
-            f"its GPU-step input, GPU vs CPU plain: max |d| {err:.3e}")
+    for label in ("tiny-sdxl", "small-sdxl"):
+        cpu_m = pipeline.build_unet(label, 0, f32, "cpu")
+        gpu_m = pipeline.build_unet(label, 0, f32, dev)
+        gpu_m.load_state_dict(cpu_m.state_dict())
+        inp = pipeline.example_inputs(label, 1, 0, f32, "cpu")
+        inp_gpu = tuple(x.to(dev) if torch.is_tensor(x) else
+                        {k: v.to(dev) for k, v in x.items()} for x in inp)
+        qp = calibrate(cpu_m, [inp], pipeline.WQ, pipeline.AQ)
+        ctrl = uniform_ctrl(list(quantizable_layers(cpu_m)))
+        cpu_ctx = deploy_unet_ctx(cpu_m, qp, ctrl, pipeline.WQ, fuse_qkv=True)
+        gpu_ctx = deploy_unet_ctx(gpu_m, to_device(qp, dev), ctrl,
+                                  pipeline.WQ, fuse_qkv=True)
+        for impl in ("einsum", "auto"):
+            c_ctx = dataclasses.replace(cpu_ctx, attn_impl=impl)
+            g_ctx = dataclasses.replace(gpu_ctx, attn_impl=impl)
+            ref = pipeline.unet_step(cpu_m, inp, c_ctx)
+            ops.reset_counts()
+            got = pipeline.unet_step(gpu_m, inp_gpu, g_ctx).cpu()
+            launches = ops.launch_counts()
+            if launches != pipeline.expected_kernel_calls(gpu_m.config, impl):
+                raise AssertionError(f"{label} {impl} launches {launches}")
+            rel = ((got - ref).norm() / ref.norm()).item()
+            mx = (got - ref).abs().max().item()
+            log(f"{label} int8 step ({impl}) GPU vs CPU plain: rel={rel:.3e} "
+                f"max={mx:.3e}; attention launches "
+                f"{ {k: launches[k] for k in routing.KERNELS} }")
+            if impl == "einsum":
+                if not (math.isfinite(rel) and rel <= 1e-2 and mx < 0.3):
+                    raise AssertionError(f"{label} parity ({impl}): rel {rel} "
+                                         f"max {mx}")
+                continue
+            # The attention kernels sum in another order than the CPU; one
+            # act code that differs by one at one site can grow past the
+            # whole-step tolerance in a small UNet. So each attention
+            # module is held alone, on the input it had in the GPU step.
+            seen = record_attention_inputs(torch, gpu_m, inp_gpu, g_ctx)
+            err = 0.0
+            for name, (stream, ehs) in sorted(seen.items()):
+                g = attention_site(torch, gpu_m, name, stream, ehs, g_ctx)
+                c = attention_site(torch, cpu_m, name, stream.cpu(),
+                                   None if ehs is None else ehs.cpu(), c_ctx)
+                err = max(err, float_err(torch, g.cpu(), c))
+            log(f"{label} ({impl}): {len(seen)} attention modules, each on "
+                f"its GPU-step input, GPU vs CPU plain: max |d| {err:.3e}")
 
 
 def sqnr_db(ref, got):
@@ -574,21 +742,23 @@ def step_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def run_path(torch, unet, requests, ctx, impl):
-    """One int8 path over ``requests`` with the launch counts set to 0
-    just before it and read just after; fails unless every kernel
-    launched as often as the structure implies."""
+def run_path(torch, unet, requests, ctx, label):
+    """One path (``ctx``: W8A8 or FP, either ``attn_impl``) over
+    ``requests`` with the launch counts set to 0 just before it and read
+    just after; fails unless every kernel launched as often as the
+    structure implies."""
     from mixdq_tpu_torch import ops, pipeline
 
     ops.reset_counts()
     outs = [pipeline.unet_step(unet, r, ctx) for r in requests]
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    per_step = pipeline.expected_kernel_calls(unet.config, impl)
+    per_step = pipeline.expected_kernel_calls(unet.config, ctx.attn_impl,
+                                              mode=ctx.mode)
     want = {k: v * len(requests) for k, v in per_step.items()}
-    log(f"{impl} path launches over {len(requests)} requests: {launches}")
+    log(f"{label} path launches over {len(requests)} requests: {launches}")
     if launches != want:
-        raise AssertionError(f"{impl} launch counts {launches}, expected "
+        raise AssertionError(f"{label} launch counts {launches}, expected "
                              f"{want}")
     return outs, launches
 
@@ -599,6 +769,7 @@ def phase_main_path(torch, dev, card):
     import dataclasses
 
     from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.state import FP_CTX
 
     bf16 = torch.bfloat16
     t0 = time.time()
@@ -612,15 +783,17 @@ def phase_main_path(torch, dev, card):
     if pipeline.expected_kernel_calls(unet.config, "auto") != {
             "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
             "ln_quantize": 140, "geglu_qmatmul": 70, "qmatmul": 264,
-            "sec_attention_qkv": 70, "sec_attention_q_out": 70}:
+            "sec_attention_qkv": 70, "sec_attention_q_out": 70,
+            "flash_attention": 0, "sec_attention": 0, "sec_attention_q": 0}:
         raise AssertionError("the structure's launch counts changed")
     requests = [pipeline.example_inputs("sdxl-turbo", 1, 100 + i, bf16, dev)
                 for i in range(N_REQUESTS)]
     for c in (ctx, ectx):  # warm-up outside the counts
         pipeline.unet_step(unet, requests[0], c)
     torch.cuda.synchronize()
-    outs, launches = run_path(torch, unet, requests, ctx, "auto")
-    e_outs, e_launches = run_path(torch, unet, requests, ectx, "einsum")
+    outs, launches = run_path(torch, unet, requests, ctx, "sdxl-turbo auto")
+    e_outs, e_launches = run_path(torch, unet, requests, ectx,
+                                  "sdxl-turbo einsum")
 
     refs = []
     sqnrs = {"auto": [], "einsum": [], "auto vs einsum": []}
@@ -646,19 +819,9 @@ def phase_main_path(torch, dev, card):
         if name == FAULT_LAYERS[-1] and max(s) >= MIN_SQNR_DB:
             raise AssertionError(f"the SQNR gate misses a fault in {name}")
 
-    times = {"bf16": [], "auto": [], "einsum": []}
-    for _ in range(TIMING_ROUNDS):
-        for r in requests:
-            times["bf16"].append(step_ms(
-                torch, lambda: pipeline.unet_step(unet, r)))
-            for k, c in (("auto", ctx), ("einsum", ectx)):
-                times[k].append(step_ms(
-                    torch, lambda: pipeline.unet_step(unet, r, c)))
-    med = {k: statistics.median(v) for k, v in times.items()}
-    log(f"step ms (median of {len(times['bf16'])} paired steps, CUDA events,"
-        f" {card}): bf16={med['bf16']:.3f} auto={med['auto']:.3f} "
-        f"einsum={med['einsum']:.3f} bf16/auto={med['bf16'] / med['auto']:.3f}"
-        f" bf16/einsum={med['bf16'] / med['einsum']:.3f}")
+    paired_step_ms(torch, unet, requests,
+                   (("bf16", FP_CTX), ("auto", ctx), ("einsum", ectx)), card,
+                   "sdxl-turbo")
     return unet, ctx, calib, requests[0], launches, e_launches
 
 
@@ -736,17 +899,28 @@ def zp_faulted_ctx(ctx, name):
         **ctx.deploy, name: e.replace(zp_shifted=e.zp_shifted + 8.0)})
 
 
-def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None):
+def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None,
+               kernels=None):
     """SQNR in dB of each attention module's output delta under ``ctx``
     against the same module under ``ref_ctx`` (default: ``ctx`` with
-    ``attn_impl='einsum'``), both teacher-forced on the FP-step input."""
+    ``attn_impl='einsum'``), both teacher-forced on the FP-step input.
+    ``kernels``: a dict that gets each module's attention kernel under
+    ``ctx`` (``'einsum'`` where none ran)."""
     import dataclasses
+
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.models import routing
 
     ref_ctx = ref_ctx or dataclasses.replace(ctx, attn_impl="einsum")
     out = {}
     for name in names or sorted(seen):
         stream, ehs = seen[name]
+        ops.reset_counts()
         got = attention_site(torch, unet, name, stream, ehs, ctx).float()
+        if kernels is not None:
+            calls = ops.call_counts()
+            kernels[name] = next((k for k in routing.KERNELS if calls[k]),
+                                 routing.EINSUM)
         ref = attention_site(torch, unet, name, stream, ehs, ref_ctx).float()
         signal = (ref - stream.float()).pow(2).sum().item()
         err = (got - ref).pow(2).sum().item()
@@ -754,26 +928,31 @@ def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None):
     return out
 
 
-def phase_attention_sites(torch, unet, ctx, req):
+def phase_attention_sites(torch, unet, ctx, req, fault_sites=FAULT_SITES):
     """Every attention module, teacher-forced on its FP-step input, under
     ``ctx`` (``attn_impl='auto'``) against ``attn_impl='einsum'`` on the
     same deploy: a fault at one attention kernel's site, which the
-    whole-step SQNR cannot see, shows here. Each of ``FAULT_SITES`` (a
+    whole-step SQNR cannot see, shows here. Each of ``fault_sites`` (a
     to_out entry whose act zero point the kernel sees shifted by 8 codes)
-    proves it."""
+    proves it. Returns {module: its attention kernel under ``ctx``}."""
     import dataclasses
 
     seen = record_attention_inputs(torch, unet, req)
-    s = site_sqnrs(torch, unet, ctx, seen)
+    kernels = {}
+    s = site_sqnrs(torch, unet, ctx, seen, kernels=kernels)
     low = sorted(s.items(), key=lambda kv: kv[1])
     log(f"attention sites auto vs einsum over {len(s)} modules (dB): min "
         f"{low[0][1]:.2f} median {statistics.median(s.values()):.2f}; "
         f"lowest {[(n, round(v, 2)) for n, v in low[:4]]}")
+    for k in sorted(set(kernels.values())):
+        v = [s[n] for n in s if kernels[n] == k]
+        log(f"  {k} sites: {len(v)}, min {min(v):.2f} median "
+            f"{statistics.median(v):.2f} dB")
     if low[0][1] < SITE_SQNR_DB:
         raise AssertionError(f"site {low[0][0]}: SQNR {low[0][1]} dB < "
                              f"{SITE_SQNR_DB}")
     einsum = dataclasses.replace(ctx, attn_impl="einsum")
-    for name in FAULT_SITES:
+    for name in fault_sites:
         site = name[:-len(".to_out.0")]
         f = site_sqnrs(torch, unet, zp_faulted_ctx(ctx, name), seen, [site],
                        ref_ctx=einsum)[site]
@@ -781,21 +960,19 @@ def phase_attention_sites(torch, unet, ctx, req):
             f"codes: {f:.2f} dB")
         if f >= SITE_SQNR_DB:
             raise AssertionError(f"the site check misses a fault in {name}")
+    return kernels
 
 
-def phase_profile(torch, unet, ctx, req):
-    """Device time by kernel over one step of each int8 path and of bf16."""
-    import dataclasses
-
+def phase_profile(torch, unet, req, paths):
+    """Device time by kernel over one step of each of ``paths`` ((tag,
+    context) pairs), written to ``chiprun_out/profile_{tag}.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from mixdq_tpu_torch import pipeline
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    for tag, c in (("auto", ctx),
-                   ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
-                   ("bf16", None)):
-        args = (unet, req) if c is None else (unet, req, c)
+    for tag, c in paths:
+        args = (unet, req, c)
         pipeline.unet_step(*args)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -826,13 +1003,155 @@ def phase_profile(torch, unet, ctx, req):
             log(f"  {ms:9.4f} ms x{n:5d} {key[:90]}")
 
 
+def paired_step_ms(torch, unet, requests, paths, card, label):
+    """Median step time of each of ``paths`` ((tag, context) pairs) over
+    ``TIMING_ROUNDS`` rounds of ``requests``, the paths in turn for each
+    request (CUDA events)."""
+    from mixdq_tpu_torch import pipeline
+
+    times = {tag: [] for tag, _ in paths}
+    for _ in range(TIMING_ROUNDS):
+        for r in requests:
+            for tag, c in paths:
+                times[tag].append(step_ms(
+                    torch, lambda: pipeline.unet_step(unet, r, c)))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    n = len(next(iter(times.values())))
+    log(f"{label} step ms (median of {n} paired steps, CUDA events, {card}): "
+        + " ".join(f"{k}={v:.3f}" for k, v in med.items()) + " "
+        + " ".join(f"bf16/{k}={med['bf16'] / v:.3f}" for k, v in med.items()
+                   if k != "bf16"))
+    return med
+
+
+@contextlib.contextmanager
+def flash_drops_key_block():
+    """Within the block, the UNet's flash attention drops the last block of
+    keys at every site (a kernel that skips one key block)."""
+    from mixdq_tpu_torch.models import attention as mod
+    from mixdq_tpu_torch.ops.attention import flash_block_keys
+
+    sound = mod.flash_attention
+
+    def faulted(q_src, k_src, v_src, **kw):
+        n = k_src.shape[1] - flash_block_keys(kw["head_dim"])
+        return sound(q_src, k_src[:, :n].contiguous(),
+                     v_src[:, :n].contiguous(), **kw)
+
+    mod.flash_attention = faulted
+    try:
+        yield
+    finally:
+        mod.flash_attention = sound
+
+
+def phase_flash_sites(torch, unet, ctx, req):
+    """Each flash attention site of the bf16 UNet under ``ctx``
+    (``attn_impl='auto'``), teacher-forced on its FP-step input, against
+    the einsum chain (>= ``FLASH_SITE_SQNR_DB``); with its last key block
+    dropped, the first site must fail that check."""
+    seen = record_attention_inputs(torch, unet, req)
+    kernels = {}
+    s = site_sqnrs(torch, unet, ctx, seen, kernels=kernels)
+    sites = sorted(n for n, k in kernels.items() if k == "flash_attention")
+    v = [s[n] for n in sites]
+    log(f"sdxl bf16 flash sites auto vs einsum: {len(v)}, min {min(v):.2f} "
+        f"median {statistics.median(v):.2f} dB")
+    if min(v) < FLASH_SITE_SQNR_DB:
+        raise AssertionError(f"sdxl bf16 flash site SQNR {min(v)} dB < "
+                             f"{FLASH_SITE_SQNR_DB}")
+    with flash_drops_key_block():
+        f = site_sqnrs(torch, unet, ctx, seen, sites[:1])[sites[0]]
+    log(f"sdxl bf16 flash site {sites[0]} with its last key block dropped: "
+        f"{f:.2f} dB")
+    if f >= FLASH_SITE_SQNR_DB:
+        raise AssertionError("the site check misses a dropped key block")
+
+
+def phase_sdxl(torch, dev, card):
+    """SDXL at 1024 px: the W8A8 deploy under ``'auto'`` and ``'einsum'``
+    and the bf16 UNet under ``'auto'``, each path's launches against the
+    structure (and ``SDXL_CALLS``), SQNR against bf16, bf16 auto (flash
+    attention) against bf16 einsum, whole and per flash site, with a
+    dropped key block that must fail both, every attention site auto
+    against einsum with zero-point faults, paired step medians and one
+    profiled step per path. Returns
+    ({path: launches per step}, {path: launches})."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.state import FP_CTX
+
+    bf16 = torch.bfloat16
+    t0 = time.time()
+    unet = pipeline.build_unet("sdxl", seed=0, dtype=bf16, device=dev)
+    calib = pipeline.example_inputs("sdxl", 1, 0, bf16, dev)
+    ctx = pipeline.quantize_w8a8(unet, calib)
+    paths = (("bf16", dataclasses.replace(FP_CTX, attn_impl="auto")),
+             ("auto", ctx), ("einsum", dataclasses.replace(
+                 ctx, attn_impl="einsum")))
+    torch.cuda.synchronize()
+    log(f"sdxl build+calibrate+deploy: {time.time() - t0:.1f}s, "
+        f"{len(ctx.deploy)} deploy entries")
+    for tag, c in paths:
+        if pipeline.expected_kernel_calls(unet.config, c.attn_impl,
+                                          mode=c.mode) != SDXL_CALLS[tag]:
+            raise AssertionError(f"sdxl {tag}: the structure's launch "
+                                 "counts changed")
+    requests = [pipeline.example_inputs("sdxl", 1, 200 + i, bf16, dev)
+                for i in range(N_SDXL_REQUESTS)]
+    for _, c in paths:  # warm-up outside the counts
+        pipeline.unet_step(unet, requests[0], c)
+    outs, launches = {}, {}
+    for tag, c in paths:
+        outs[tag], launches[f"sdxl {tag}"] = run_path(
+            torch, unet, requests, c, f"sdxl {tag}")
+    flash = "bf16 auto vs bf16 einsum"
+    dropped = "bf16 auto, flash dropping a key block, vs bf16 einsum"
+    sqnrs = {"auto": [], "einsum": [], flash: [], dropped: []}
+    for i, r in enumerate(requests):
+        ref = outs["bf16"][i]
+        for tag in ("auto", "einsum"):
+            x = outs[tag][i]
+            if x.shape != ref.shape or not torch.isfinite(x).all():
+                raise AssertionError(f"sdxl {tag}: bad output {x.shape}")
+            sqnrs[tag].append(sqnr_db(ref, x))
+        fp_einsum = pipeline.unet_step(unet, r)
+        sqnrs[flash].append(sqnr_db(fp_einsum, ref))
+        with flash_drops_key_block():
+            sqnrs[dropped].append(sqnr_db(
+                fp_einsum, pipeline.unet_step(unet, r, paths[0][1])))
+    for k, v in sqnrs.items():
+        log(f"sdxl SQNR {k if 'vs' in k else k + ' vs bf16 auto'} per "
+            f"request (dB): {[round(x, 2) for x in v]}")
+    if min(sqnrs["auto"] + sqnrs["einsum"]) < MIN_SQNR_DB:
+        raise AssertionError(f"sdxl SQNR {sqnrs} dB < {MIN_SQNR_DB}")
+    if min(sqnrs[flash]) < FLASH_SQNR_DB:
+        raise AssertionError(f"sdxl {flash}: {sqnrs[flash]} dB < "
+                             f"{FLASH_SQNR_DB}")
+    if max(sqnrs[dropped]) >= FLASH_SQNR_DB:
+        raise AssertionError(f"the {FLASH_SQNR_DB} dB gate on {flash} misses "
+                             f"a dropped key block: {sqnrs[dropped]} dB")
+    paired_step_ms(torch, unet, requests, paths, card, "sdxl")
+    phase_attention_sites(torch, unet, ctx, requests[0], SDXL_FAULT_SITES)
+    phase_flash_sites(torch, unet, paths[0][1], requests[0])
+    phase_profile(torch, unet, requests[0],
+                  [(f"sdxl_{tag}", c) for tag, c in paths])
+    return {p: {k: v // N_SDXL_REQUESTS for k, v in c.items()}
+            for p, c in launches.items()}, launches
+
+
 def main():
+    import dataclasses
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mixdq_tpu_torch.ops import _build
+    from mixdq_tpu_torch.quant.state import FP_CTX
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -854,7 +1173,8 @@ def main():
     del flush
     log("phase 1: every kernel matches its plain version")
     phase_tiny_parity(torch, dev)
-    log("phase 2: tiny-sdxl parity ok under both attn_impl values")
+    log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
+        "values")
     unet, ctx, calib, req, launches, e_launches = phase_main_path(
         torch, dev, card)
     log("phase 3: main paths ok (auto, einsum)")
@@ -862,8 +1182,22 @@ def main():
     log("phase 4: every deploy entry matches fake quantization")
     phase_attention_sites(torch, unet, ctx, req)
     log("phase 4: every attention site matches under auto and einsum")
-    phase_profile(torch, unet, ctx, req)
+    phase_profile(torch, unet, req, (
+        ("auto", ctx), ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
+        ("bf16", FP_CTX)))
     log("phase 5: profiles written")
+    del unet, ctx, calib, req
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {"sdxl-turbo auto": {k: v // N_REQUESTS
+                                    for k, v in launches.items()},
+                "sdxl-turbo einsum": {k: v // N_REQUESTS
+                                      for k, v in e_launches.items()}}
+    totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
+    sdxl_per_step, sdxl_totals = phase_sdxl(torch, dev, card)
+    per_step.update(sdxl_per_step)
+    totals.update(sdxl_totals)
+    log("phase 6: sdxl 1024 paths ok (auto, einsum, bf16 auto)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
@@ -875,12 +1209,18 @@ def main():
         first, extra = r["shapes"][0], {}
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
+        # the main path a kernel runs on: the SDXL-Turbo headline, else
+        # SDXL 1024 under auto
+        main_path, requests = (
+            ("sdxl-turbo auto", N_REQUESTS) if totals["sdxl-turbo auto"][name]
+            else ("sdxl auto", N_SDXL_REQUESTS))
+        if not totals[main_path][name]:
+            raise AssertionError(f"{name} never launched on a main path")
         kernels.append({
             **extra, "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "requests": N_REQUESTS,
-            "launches_per_step": launches[name] // N_REQUESTS,
-            "launches_einsum": e_launches[name],
+            "replaces": replaces, "launches": totals[main_path][name],
+            "launches_path": main_path, "requests": requests,
+            "launches_per_step": {p: c[name] for p, c in per_step.items()},
             "max_abs_err": r["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -1,8 +1,9 @@
 // Whole-attention int8 kernels of the attn_impl="auto" path.
 //
-// Replaces mixdq_tpu/ops/pallas_sec_attention.py:sec_attention_qkv
-// (pallas_call at :460) and :sec_attention_q_out (pallas_call at :927).
-// Both end in the JAX _attend_codes (:37-69), per head:
+// Replaces mixdq_tpu/ops/pallas_sec_attention.py:sec_attention (pallas_call
+// at :151), :sec_attention_q (:271), :sec_attention_qkv (:460) and
+// :sec_attention_q_out (:927). All four end in the JAX _attend_codes
+// (:37-69), per head:
 //
 //   s = (q . k^T) * scale           f32 logits, scale after the dot
 //   m = max_j s                     over ALL keys before any exp
@@ -15,133 +16,60 @@
 // KC through shared memory twice: pass 1 takes the row max, pass 2
 // recomputes the same logits (same mma order, bit for bit), forms p with
 // the final max, sums l and accumulates p.v. QK^T and PV run on
-// mma.sync m16n8k16 (bf16 x bf16 -> f32); f32 k/v (sec_attention_q_out
-// in f32 models) take a scalar path.
+// mma.sync m16n8k16 (bf16 x bf16 -> f32); f32 q/k/v (f32 models) take a
+// scalar path. q/k/v are read in place at their column offsets with their
+// sources' row strides, as the TPU's block index maps read them.
 //
-// sec_attention_qkv (every attn1): one cooperative launch. Phase 1 runs
-// the fused [C, 3C] QKV GEMM (int8 mma.sync, epilogue (f32(acc) - bias0)
-// * scale -> bf16) into a [B*T, 3C] workspace; one grid-wide sync; phase
-// 2 runs (batch, head, 64-row) attention tiles that read q/k/v from it
-// and write to_out's codes. Blocks walk both phases' tiles in a grid
-// stride; nothing depends on block order. Bound at T=1024 C=640 (10
-// heads): int8 GEMM 2.5 GOP and bf16 attention 2.7 GFLOP, ~1.3 + ~2.7 us
-// at the dense peaks.
+// sec_attention (attn1 at the 32x32 level of SDXL 1024, attn2 at its
+// 64x64 level, and "auto" without fused QKV/KV): a plain launch of one
+// block per (batch, head, 64-row) tile, q/k/v from their projections'
+// outputs. Bound at T=1024 C=1280 (20 heads): 5.4 GFLOP of bf16 attention,
+// ~5.4 us at the dense peak.
 //
-// sec_attention_q_out (every attn2): one cooperative launch of the same
-// shape, in grid-stride stages separated by grid-wide syncs: (LN-folded
-// mode) LayerNorm + to_q act-quantize of every row into a codes
-// workspace; the to_q GEMM into a q workspace (k's dtype); attention
-// tiles over the k/v panels of the fused to_kv output into a to_out
-// codes workspace; the to_out GEMM + bias + residual. The TPU's int32
-// acc_ref carried across the head grid has no counterpart: each to_out
-// tile sums the whole C in one block. One block per row tile across all
-// heads (every stage row-local, no grid sync) would leave one block to
-// run 2 (C_in/32)(C/64) GEMM k-steps in series, 1600 at the 16x16 level;
-// the stages spread them over the card instead. Bound at T=256 C=1280:
-// the weight bytes (3.3 MB, ~1 us) and 1.7 GOP of int8 (~0.8 us).
+// sec_attention_q (attn2 at SDXL 1024's 32x32 level): one cooperative
+// launch: the to_q GEMM (int8 mma.sync, epilogue (f32(acc) - bias0) *
+// scale, cast to k's dtype) into a q workspace, one grid-wide sync, then
+// the attention tiles over the k/v panels of the fused to_kv output. The
+// TPU kernel runs both per head panel in one grid step; a Hopper block
+// owning a head panel would run its (C_in/32) GEMM k-steps over the whole
+// Tq alone. Bound at Tq=1024 C_in=C=1280: 3.4 GOP of int8 (~1.7 us) plus
+// 0.4 GFLOP of bf16 attention.
+//
+// sec_attention_qkv (every attn1 of SDXL-Turbo): one cooperative launch.
+// Phase 1 runs the fused [C, 3C] QKV GEMM into a [B*T, 3C] bf16
+// workspace; one grid-wide sync; phase 2 runs (batch, head, 64-row)
+// attention tiles that read q/k/v from it and write to_out's codes.
+// Blocks walk both phases' tiles in a grid stride; nothing depends on
+// block order. Bound at T=1024 C=640 (10 heads): int8 GEMM 2.5 GOP and
+// bf16 attention 2.7 GFLOP, ~1.3 + ~2.7 us at the dense peaks.
+//
+// sec_attention_q_out (every attn2 of SDXL-Turbo): one cooperative launch
+// of the same shape, in grid-stride stages separated by grid-wide syncs:
+// (LN-folded mode) LayerNorm + to_q act-quantize of every row into a
+// codes workspace; the to_q GEMM into a q workspace (k's dtype);
+// attention tiles over the k/v panels of the fused to_kv output into a
+// to_out codes workspace; the to_out GEMM + bias + residual. The TPU's
+// int32 acc_ref carried across the head grid has no counterpart: each
+// to_out tile sums the whole C in one block. One block per row tile
+// across all heads (every stage row-local, no grid sync) would leave one
+// block to run 2 (C_in/32)(C/64) GEMM k-steps in series, 1600 at the
+// 16x16 level; the stages spread them over the card instead. Bound at
+// T=256 C=1280: the weight bytes (3.3 MB, ~1 us) and 1.7 GOP of int8
+// (~0.8 us).
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <type_traits>
 
-#include "mma_s8.cuh"
+#include "attn_mma.cuh"
 
 namespace cg = cooperative_groups;
 using namespace mixdq;
-typedef __nv_bfloat16 bf16;
 
 struct Quant {
   float sinv, zp, lo, hi;
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// One head's panels for a row tile: q/out at the tile's first row, k/v at
-// key 0, all at the head's first column.
-template <typename T>
-struct HeadPanels {
-  const T* q;
-  const T* k;
-  const T* v;
-  int8_t* out;
-};
-
-// Keys per shared-memory chunk: rows of k and columns of the transposed v.
-template <int D>
-struct Chunk {
-  static constexpr int KC = D <= 64 ? 64 : 32;
-  bf16 k[KC][D + 8];   // +8: fragment loads hit 32 distinct banks
-  bf16 vt[D][KC + 8];  // v transposed: PV's B fragments are key pairs
-};
-
-// Block-wide: keys [c0, c0 + KC) of k (and v) into shared memory,
-// 16-byte loads; keys >= Tk read as zero.
-template <int D>
-__device__ __forceinline__ void load_chunk(Chunk<D>& sm,
-                                           const HeadPanels<bf16>& h,
-                                           int ldk, int ldv, int Tk, int c0,
-                                           bool with_v) {
-  constexpr int KC = Chunk<D>::KC;
-  for (int i = threadIdx.x; i < KC * D / 8; i += blockDim.x) {
-    const int key = i / (D / 8), c = (i % (D / 8)) * 8;
-    int4 kv = make_int4(0, 0, 0, 0), vv = kv;
-    if (c0 + key < Tk) {
-      const size_t j = c0 + key;
-      kv = *reinterpret_cast<const int4*>(h.k + j * ldk + c);
-      if (with_v) vv = *reinterpret_cast<const int4*>(h.v + j * ldv + c);
-    }
-    *reinterpret_cast<int4*>(&sm.k[key][c]) = kv;
-    if (with_v) {
-      const bf16* e = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm.vt[c + j][key] = e[j];
-    }
-  }
-}
-
-// The warp's 16 x KC logits of one chunk (unscaled): A = q fragments,
-// B = k rows.
-template <int D>
-__device__ __forceinline__ void chunk_logits(
-    const Chunk<D>& sm, const uint32_t (&qf)[D / 16][4],
-    float (&s)[Chunk<D>::KC / 8][4], int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < Chunk<D>::KC / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* kr = &sm.k[nt * 8 + g][kk * 16 + 2 * t];
-      mma_bf16(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-    }
-  }
-}
 
 // Block-wide attention of one head over bf16 q/k/v for a 64-row tile
 // (nq valid rows): warp w takes query rows 16 w ..+16. Writes the
@@ -157,15 +85,7 @@ __device__ void attend_bf16(void* smem, const HeadPanels<bf16>& h, int ldq,
   const int ra = warp * 16 + g, rb = ra + 8;  // this thread's rows
 
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const bool oka = ra < nq, okb = rb < nq;
-    qf[kk][0] = oka ? ld32(h.q + static_cast<size_t>(ra) * ldq + c) : 0u;
-    qf[kk][1] = okb ? ld32(h.q + static_cast<size_t>(rb) * ldq + c) : 0u;
-    qf[kk][2] = oka ? ld32(h.q + static_cast<size_t>(ra) * ldq + c + 8) : 0u;
-    qf[kk][3] = okb ? ld32(h.q + static_cast<size_t>(rb) * ldq + c + 8) : 0u;
-  }
+  load_q_frags<D>(qf, h.q, ldq, ra, rb, nq, t);
 
   float s[KC / 8][4];
   float ma = -INFINITY, mb = -INFINITY;
@@ -204,19 +124,7 @@ __device__ void attend_bf16(void* smem, const HeadPanels<bf16>& h, int ldq,
         if (r < 2) la += p;
         else lb += p;
       }
-#pragma unroll
-    for (int kb = 0; kb < KC / 16; ++kb) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kb][0], s[2 * kb][1]),
-          pack_bf16(s[2 * kb][2], s[2 * kb][3]),
-          pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-          pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* vr = &sm.vt[dt * 8 + g][kb * 16 + 2 * t];
-        mma_bf16(o[dt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    chunk_pv<D>(sm, s, o, g, t);
     __syncthreads();
   }
   la = quad_sum(la);
@@ -231,20 +139,6 @@ __device__ void attend_bf16(void* smem, const HeadPanels<bf16>& h, int ldq,
       h.out[static_cast<size_t>(row) * ldo + dt * 8 + 2 * t + (r & 1)] =
           quant_code(val, oq.sinv, oq.zp, oq.lo, oq.hi);
     }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float dot_f32(const float* a, const float* b,
-                                         int n) {
-  float s = 0.f;
-  for (int i = 0; i < n; ++i) s += a[i] * b[i];
-  return s;
 }
 
 // The same attention over f32 q/k/v (p stays f32, as p.astype(f32)), by
@@ -371,6 +265,141 @@ static int cooperative_grid(K kernel, int tiles) {
 
 static int tiles64(int M, int N) {
   return (M + BM - 1) / BM * ((N + BN - 1) / BN);
+}
+
+// ---------------------------------------------------------------------------
+// sec_attention
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct AttnArgs {
+  const T* q;  // row 0, column q_off, of batch element 0
+  const T* k;
+  const T* v;
+  int8_t* out;  // [B*Tq, heads*D]
+  int ldq, ldk, ldv, B, Tq, Tk, heads;
+  float sm_scale;
+  Quant oq;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) sec_attn_kernel(const AttnArgs<T> a) {
+  // f32 q/k/v take the scalar path, which needs no shared memory
+  __shared__ __align__(16) char
+      smem[std::is_same<T, bf16>::value ? sizeof(Chunk<D>) : 16];
+  attn_stage<T, D>(smem, a.q, a.ldq, a.k, a.ldk, a.v, a.ldv, a.out,
+                   a.heads * D, a.B, a.Tq, a.Tk, a.heads, a.sm_scale, a.oq);
+}
+
+template <typename T, int D>
+static int launch_attn(const AttnArgs<T>& a, cudaStream_t stream) {
+  const int grid = a.B * a.heads * ((a.Tq + 63) / 64);
+  sec_attn_kernel<T, D><<<grid, THREADS, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int attn(const void* q, const void* k, const void* v, int ldq,
+                int ldk, int ldv, int8_t* out, int B, int Tq, int Tk,
+                int heads, int d, float sm_scale, Quant oq,
+                cudaStream_t stream) {
+  const AttnArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), out, ldq, ldk, ldv, B, Tq,
+                      Tk, heads, sm_scale, oq};
+  switch (d) {
+    case 16: return launch_attn<T, 16>(a, stream);
+    case 32: return launch_attn<T, 32>(a, stream);
+    case 64: return launch_attn<T, 64>(a, stream);
+    case 128: return launch_attn<T, 128>(a, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int mixdq_sec_attention(const void* q, const void* k,
+                                   const void* v, int ldq, int ldk, int ldv,
+                                   int8_t* out, int B, int Tq, int Tk,
+                                   int heads, int d, int is_bf16,
+                                   float sm_scale, float sinv, float zp,
+                                   float lo, float hi, cudaStream_t stream) {
+  auto fn = is_bf16 ? attn<bf16> : attn<float>;
+  return fn(q, k, v, ldq, ldk, ldv, out, B, Tq, Tk, heads, d, sm_scale,
+            Quant{sinv, zp, lo, hi}, stream);
+}
+
+// ---------------------------------------------------------------------------
+// sec_attention_q
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct QArgs {
+  const int8_t* x;  // [B*Tq, C_in] to_q codes
+  const int8_t* wq;  // [C_in, C]
+  const float* sq;
+  const float* b0q;
+  const T* k;  // key 0, column k_off, of batch element 0
+  const T* v;
+  int ldk, ldv;
+  T* q;         // [B*Tq, C] workspace
+  int8_t* out;  // [B*Tq, C]
+  int B, Tq, Tk, Cin, heads;
+  float sm_scale;
+  Quant oq;
+  bool avec, bvec;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) sec_q_kernel(const QArgs<T> a) {
+  __shared__ __align__(16) char
+      smem[smem_bytes<D, std::is_same<T, bf16>::value>()];
+  const int C = a.heads * D;
+  proj_stage<T>(smem, a.x, a.B * a.Tq, a.Cin, a.avec, a.wq, C, a.bvec, a.sq,
+                a.b0q, a.q);
+  cg::this_grid().sync();
+  attn_stage<T, D>(smem, a.q, C, a.k, a.ldk, a.v, a.ldv, a.out, C, a.B, a.Tq,
+                   a.Tk, a.heads, a.sm_scale, a.oq);
+}
+
+template <typename T, int D>
+static int launch_q(QArgs<T> a, cudaStream_t stream) {
+  const int tiles = std::max(tiles64(a.B * a.Tq, a.heads * D),
+                             a.B * a.heads * ((a.Tq + 63) / 64));
+  const int grid = cooperative_grid(sec_q_kernel<T, D>, tiles);
+  void* args[] = {&a};
+  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sec_q_kernel<T, D>),
+                              dim3(grid), dim3(THREADS), args, 0, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int attn_q(const int8_t* x, const int8_t* wq, const float* sq,
+                  const float* b0q, const void* k, const void* v, int ldk,
+                  int ldv, void* q, int8_t* out, int B, int Tq, int Tk,
+                  int Cin, int heads, int d, float sm_scale, Quant oq,
+                  cudaStream_t stream) {
+  const QArgs<T> a{x, wq, sq, b0q, static_cast<const T*>(k),
+                   static_cast<const T*>(v), ldk, ldv, static_cast<T*>(q),
+                   out, B, Tq, Tk, Cin, heads, sm_scale, oq, vec16(x, Cin),
+                   vec16(wq, heads * d)};
+  switch (d) {
+    case 16: return launch_q<T, 16>(a, stream);
+    case 32: return launch_q<T, 32>(a, stream);
+    case 64: return launch_q<T, 64>(a, stream);
+    case 128: return launch_q<T, 128>(a, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int mixdq_sec_attention_q(const int8_t* x, const int8_t* wq,
+                                     const float* sq, const float* b0q,
+                                     const void* k, const void* v, int ldk,
+                                     int ldv, void* q, int8_t* out, int B,
+                                     int Tq, int Tk, int Cin, int heads,
+                                     int d, int is_bf16, float sm_scale,
+                                     float sinv, float zp, float lo,
+                                     float hi, cudaStream_t stream) {
+  auto fn = is_bf16 ? attn_q<bf16> : attn_q<float>;
+  return fn(x, wq, sq, b0q, k, v, ldk, ldv, q, out, B, Tq, Tk, Cin, heads,
+            d, sm_scale, Quant{sinv, zp, lo, hi}, stream);
 }
 
 // ---------------------------------------------------------------------------

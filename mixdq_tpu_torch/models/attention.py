@@ -8,11 +8,12 @@ Attention projections run through fused QKV (self) / KV (cross) deploy
 entries when ``ctx.fuse_qkv``; cross-attention k/v keep the first (BoS)
 text token on the FP dequantized-weight path when ``ctx.bos_aware``.
 Under ``'einsum'`` the attention math is a matmul + f32 softmax chain.
-Under ``'auto'`` with fused entries, the configuration the JAX package
-takes by default (out-fusion at attn2 only, LN folded): every
-self-attention materializes its norm1 codes and runs
-``sec_attention_qkv``, then ``to_out``; every cross-attention runs one
-``sec_attention_q_out`` with norm2 folded in.
+Under ``'auto'`` each site runs the kernel the JAX package picks for its
+shape (``routing.attention_route``, with the JAX package's default
+out-fusion at attn2 only, LN folded): ``sec_attention_qkv`` or
+``sec_attention`` after the fused QKV GEMM, or flash attention at
+``Tq * Tk >= 2^22``, for self-attention; ``sec_attention_q_out``,
+``sec_attention_q`` or ``to_q`` + ``sec_attention`` for cross-attention.
 """
 
 from __future__ import annotations
@@ -26,14 +27,13 @@ from ..ops.gn_quant import gn_silu_quantize
 from ..ops.ln_quant import ln_quantize
 from ..ops.qmatmul import gelu
 from ..ops.qops import act_clip_range
-from ..ops.sec_attention import sec_attention_q_out, sec_attention_qkv
+from ..ops.attention import flash_attention
+from ..ops.sec_attention import (sec_attention, sec_attention_q,
+                                 sec_attention_q_out, sec_attention_qkv)
 from ..quant.state import FP_CTX, QuantCtx
+from . import routing
 from .layers import (GroupNorm, LayerNorm, QDense, bos_row, codes_of,
                      deploy_linear, name_layers)
-
-#: Tq * Tk from which the JAX package's ``attn_impl='auto'`` runs flash
-#: attention (``mixdq_tpu/models/attention.py:474-478``), not ported yet
-FLASH_TQ_TK = 2 ** 22
 
 
 def deploy_res_add(residual: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -96,43 +96,74 @@ class Attention(nn.Module):
                 ctx: QuantCtx = FP_CTX, residual=None, ln=None):
         """``residual``: when given, returns ``residual + attention``.
         ``ln`` = (LayerNorm module, consumer entry): ``hidden_states`` is
-        the raw stream and the LN + act-quantize still has to run."""
-        inner = self.heads * self.head_dim
+        the raw stream and the LN + act-quantize still has to run. The
+        kernel of the site is ``routing.attention_route``'s choice; the
+        deferred LayerNorm materializes where the JAX package's does."""
         is_cross = encoder_hidden_states is not None
         kv_input = encoder_hidden_states if is_cross else hidden_states
-        base = self.qname
-        dp_f = (ctx.entry(base + (".to_kv" if is_cross else ".to_qkv"))
+        dp_f = (ctx.entry(self.qname + (".to_kv" if is_cross else ".to_qkv"))
                 if ctx.fuse_qkv else None)
-        sec = dp_f is not None and self._sec_entries(ctx, is_cross)
-        if sec and not is_cross:
+        route = routing.attention_route(
+            mode=ctx.mode, attn_impl=ctx.attn_impl, fused=dp_f is not None,
+            cross=is_cross, heads=self.heads, head_dim=self.head_dim,
+            Tq=hidden_states.shape[1], Tk=kv_input.shape[1],
+            C_in=hidden_states.shape[-1],
+            codes=ln is not None or hidden_states.dtype == torch.int8,
+            out_entry=self._int8_entry(ctx, self.to_out[0]),
+            q_entry=self._int8_entry(ctx, self.to_q))
+        if route.kernel == routing.QKV:
             return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
+        if ln is not None and not (route.kernel == routing.Q_OUT
+                                   or is_cross and dp_f is not None):
+            # norm1 before the fused QKV GEMM, or any norm before the
+            # unfused projections (attention.py:280-285, :404-409)
+            hidden_states = materialize_ln_codes(hidden_states, ln)
+            kv_input = kv_input if is_cross else hidden_states
+            ln = None
         if dp_f is not None:
-            if not is_cross and ln is not None:
-                kv_input = hidden_states = materialize_ln_codes(
-                    hidden_states, ln)
-                ln = None
             y = deploy_linear(kv_input, dp_f, self.dtype)
             if is_cross and ctx.bos_aware and kv_input.ndim >= 3:
                 y = torch.cat([bos_row(kv_input.to(self.dtype), dp_f,
                                        self.dtype), y[..., 1:, :]], -2)
-            if sec:
+            if route.kernel == routing.Q_OUT:
                 return self._sec_cross(hidden_states, y, ctx, residual, ln)
             if is_cross:
-                if ln is not None:
+                if ln is not None:  # attention.py:378-381, :396-398
                     hidden_states = materialize_ln_codes(hidden_states, ln)
-                q = self.to_q(hidden_states, ctx)
-                k, v = y.split(inner, -1)
+                if route.kernel == routing.SEC_Q:
+                    return self._finish(self._sec_q(hidden_states, y, ctx),
+                                        ctx, residual)
+                srcs = (self.to_q(hidden_states, ctx), y, y)
             else:
-                q, k, v = y.split(inner, -1)
+                srcs = (y, y, y)
         else:
-            if ln is not None:
-                hidden_states = materialize_ln_codes(hidden_states, ln)
-                if not is_cross:
-                    kv_input = hidden_states
-            q = self.to_q(hidden_states, ctx)
-            k = self.to_k(kv_input, ctx, bos_aware=is_cross)
-            v = self.to_v(kv_input, ctx, bos_aware=is_cross)
+            srcs = (self.to_q(hidden_states, ctx),
+                    self.to_k(kv_input, ctx, bos_aware=is_cross),
+                    self.to_v(kv_input, ctx, bos_aware=is_cross))
+        kw = dict(heads=self.heads, head_dim=self.head_dim,
+                  scale=self.head_dim ** -0.5, q_off=route.offsets[0],
+                  k_off=route.offsets[1], v_off=route.offsets[2])
+        if route.kernel == routing.SEC:
+            dp_o = ctx.entry(self.to_out[0].qname)
+            out = sec_attention(*srcs, dp_o.scale_inv, dp_o.zp_shifted,
+                                clip=act_clip_range(dp_o.a_bits), **kw)
+        elif route.kernel == routing.FLASH:
+            out = flash_attention(*srcs, **kw).to(self.dtype)
+        else:
+            out = self._einsum(*srcs, route.offsets)
+        return self._finish(out, ctx, residual)
 
+    def _finish(self, out, ctx, residual):
+        """``to_out``, then the residual add."""
+        out = self.to_out[0](out, ctx)
+        return out if residual is None else deploy_res_add(residual, out)
+
+    def _einsum(self, q_src, k_src, v_src, offsets):
+        """Matmul + f32 softmax chain over the q/k/v panels at
+        ``offsets``."""
+        inner = self.heads * self.head_dim
+        q, k, v = (src[..., off:off + inner]
+                   for src, off in zip((q_src, k_src, v_src), offsets))
         B, Tq, _ = q.shape
         Tk = k.shape[1]
         qh = q.reshape(B, Tq, self.heads, self.head_dim).transpose(1, 2)
@@ -140,39 +171,24 @@ class Attention(nn.Module):
         vh = v.reshape(B, Tk, self.heads, self.head_dim).transpose(1, 2)
         logits = (qh @ kh.transpose(-1, -2)) * self.head_dim ** -0.5
         probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
-        out = (probs @ vh).transpose(1, 2).reshape(B, Tq, inner)
-        out = self.to_out[0](out, ctx)
-        return out if residual is None else deploy_res_add(residual, out)
+        return (probs @ vh).transpose(1, 2).reshape(B, Tq, inner)
 
-    def _sec_entries(self, ctx: QuantCtx, is_cross: bool) -> bool:
-        """Whether ``attn_impl='auto'`` runs this attention on the
-        whole-attention kernels: int8 act-quantized ``to_out`` (and, for
-        cross-attention, ``to_q``) entries, as the JAX package asks."""
-        if ctx.attn_impl != "auto":
-            return False
-        names = (".to_q", ".to_out.0") if is_cross else (".to_out.0",)
-        for n in names:
-            dp = ctx.entry(self.qname + n)
-            if dp is None or dp.kind != "linear" or dp.scale_inv is None:
-                return False
-        return True
+    @staticmethod
+    def _int8_entry(ctx: QuantCtx, layer) -> bool:
+        """Whether ``layer`` has an int8 act-quantized linear entry, as
+        the whole-attention kernels ask of ``to_q`` and ``to_out``."""
+        dp = ctx.entry(layer.qname)
+        return dp is not None and dp.kind == "linear" and \
+            dp.scale_inv is not None
 
     def _codes(self, x, dp):
         """``x`` as the act codes of entry ``dp`` (fp input in the model
         dtype first, as ``QDense`` does)."""
         return codes_of(x if x.dtype == torch.int8 else x.to(self.dtype), dp)
 
-    def _sec_check(self, Tq: int, Tk: int) -> None:
-        if Tq * Tk >= FLASH_TQ_TK:
-            raise NotImplementedError(
-                f"{self.qname}: Tq*Tk = {Tq * Tk} takes flash attention "
-                "under attn_impl='auto', not ported yet (ROADMAP Queue B10)")
-
     def _sec_self(self, hidden_states, ctx, residual, ln, dp_f):
         """Self-attention: norm1 codes -> ``sec_attention_qkv`` -> to_out's
         codes -> ``to_out`` -> residual add."""
-        T = hidden_states.shape[1]
-        self._sec_check(T, T)
         codes = (materialize_ln_codes(hidden_states, ln) if ln is not None
                  else self._codes(hidden_states, dp_f))
         dp_o = ctx.entry(self.to_out[0].qname)
@@ -180,15 +196,26 @@ class Attention(nn.Module):
             codes, dp_f.w_int, dp_f.scale, dp_f.bias0, dp_o.scale_inv,
             dp_o.zp_shifted, heads=self.heads, head_dim=self.head_dim,
             scale=self.head_dim ** -0.5, clip=act_clip_range(dp_o.a_bits))
-        out = self.to_out[0](codes, ctx)
-        return out if residual is None else deploy_res_add(residual, out)
+        return self._finish(codes, ctx, residual)
+
+    def _sec_q(self, codes, y, ctx):
+        """Cross-attention from to_q's codes in one ``sec_attention_q``
+        over the k/v panels of the fused ``to_kv`` output ``y``: to_out's
+        codes."""
+        dp_q = ctx.entry(self.to_q.qname)
+        dp_o = ctx.entry(self.to_out[0].qname)
+        return sec_attention_q(
+            codes, dp_q.w_int, dp_q.scale, dp_q.bias0, y, y, dp_o.scale_inv,
+            dp_o.zp_shifted, heads=self.heads, head_dim=self.head_dim,
+            scale=self.head_dim ** -0.5, k_off=0,
+            v_off=self.heads * self.head_dim,
+            clip=act_clip_range(dp_o.a_bits))
 
     def _sec_cross(self, hidden_states, y, ctx, residual, ln):
         """Cross-attention in one ``sec_attention_q_out`` over the k/v
         panels of the fused ``to_kv`` output ``y``: LN-folded when the
         deferred LayerNorm's raw input is the residual, else on to_q's
         codes plus the explicit residual."""
-        self._sec_check(hidden_states.shape[1], y.shape[1])
         dp_q = ctx.entry(self.to_q.qname)
         dp_o = ctx.entry(self.to_out[0].qname)
         if ln is not None and residual is hidden_states:

@@ -1,6 +1,9 @@
 """UNet configurations of the families this port runs (the SDXL UNet
-architecture at full width, and the ``tiny-sdxl`` cut used by the CPU
-tests). Field names and values follow ``mixdq_tpu.models.configs``."""
+architecture at full width: ``sdxl-turbo`` at 512 px and ``sdxl`` at
+1024 px; the ``tiny-sdxl`` cut used by the CPU tests, and ``small-sdxl``,
+a cut whose cross-attention level is two heads of 64, so that the
+whole-attention kernels run on it). Field names and values follow
+``mixdq_tpu.models.configs``."""
 
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ class ModelFamilyConfig:
     pooled_dim: int
 
 
+SDXL_UNET = UNetConfig(sample_size=128)
 SDXL_TURBO_UNET = UNetConfig(sample_size=64)
 
 TINY_SDXL_UNET = UNetConfig(
@@ -60,9 +64,30 @@ TINY_SDXL_UNET = UNetConfig(
     norm_num_groups=16,
 )
 
+#: the cross-attention level is C=128 as two heads of 64: the JAX package's
+#: gates admit ``sec_attention_qkv`` and ``sec_attention_q_out`` there,
+#: where ``tiny-sdxl``'s 2 heads of 16 route every attention site to the
+#: einsum chain under ``attn_impl='auto'``
+SMALL_SDXL_UNET = UNetConfig(
+    sample_size=16,
+    block_out_channels=(32, 128),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+    layers_per_block=1,
+    transformer_layers_per_block=(1, 1),
+    num_attention_heads=(1, 2),
+    attention_head_dim=64,
+    cross_attention_dim=64,
+    addition_time_embed_dim=16,
+    projection_class_embeddings_input_dim=16 * 6 + 32,
+    norm_num_groups=16,
+)
+
 FAMILIES = {
     "sdxl-turbo": ModelFamilyConfig("sdxl-turbo", SDXL_TURBO_UNET, 1280),
+    "sdxl": ModelFamilyConfig("sdxl", SDXL_UNET, 1280),
     "tiny-sdxl": ModelFamilyConfig("tiny-sdxl", TINY_SDXL_UNET, 64),
+    "small-sdxl": ModelFamilyConfig("small-sdxl", SMALL_SDXL_UNET, 32),
 }
 
 

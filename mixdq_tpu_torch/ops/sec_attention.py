@@ -1,21 +1,27 @@
 """Whole-attention int8 kernels of the ``attn_impl='auto'`` path (ports of
 ``mixdq_tpu/ops/pallas_sec_attention.py``).
 
+* ``sec_attention`` (port of ``sec_attention``): per-head softmax
+  attention over q/k/v read at column offsets of their sources (the
+  fused ``to_qkv`` output, or ``to_q``'s output and the fused ``to_kv``
+  output, or three projections), and the ``to_out`` act-quantize,
+  emitting ``to_out``'s int8 codes.
+* ``sec_attention_q`` (port of ``sec_attention_q``): the ``to_q`` GEMM
+  with its dequant epilogue (q cast to k's dtype), then the same
+  attention over the k/v panels of the fused ``to_kv`` output.
 * ``sec_attention_qkv`` (port of ``sec_attention_qkv``): self-attention
   from the norm1 codes: the fused ``[C, 3C]`` QKV GEMM with its dequant
-  epilogue, q/k/v cast to bf16, per-head softmax attention, and the
-  ``to_out`` act-quantize, emitting ``to_out``'s int8 codes.
+  epilogue, q/k/v cast to bf16, then the same attention.
 * ``sec_attention_q_out`` (port of ``sec_attention_q_out``): the whole
   cross-attention sub-block: the pre-LayerNorm + act-quantize (LN-folded
-  mode) or given codes, the ``to_q`` GEMM, attention over the k/v panels
-  of the fused ``to_kv`` output, the ``to_out`` act-quantize, the
-  ``to_out`` GEMM, its bias and the residual add.
+  mode) or given codes, ``sec_attention_q``'s work, the ``to_out`` GEMM,
+  its bias and the residual add.
 
-Kernels: ``csrc/sec_attention.cu``. Plain versions:
-``sec_attention_qkv_plain`` and ``sec_attention_q_out_plain``, which share
-``_attend_codes_plain``, a step-by-step copy of the JAX ``_attend_codes``.
-The kernels take every shape with ``head_dim`` in ``HEAD_DIMS``; there is
-no counterpart of the TPU's VMEM gates.
+Kernels: ``csrc/sec_attention.cu``. Plain versions: the ``*_plain``
+functions, which share ``_attend_codes_plain``, a step-by-step copy of
+the JAX ``_attend_codes``. The kernels take every shape with
+``head_dim`` in ``HEAD_DIMS``; which of them runs at a site is the
+router's choice (``models/routing.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from . import _build, check_cuda_args, qops, register, use_kernel
 from .ln_quant import ln_quantize_plain
 
+SEC_COUNT = register("sec_attention")
+Q_COUNT = register("sec_attention_q")
 QKV_COUNT = register("sec_attention_qkv")
 Q_OUT_COUNT = register("sec_attention_q_out")
 
@@ -73,6 +81,29 @@ def _proj_plain(x_codes, w_int8, scale, bias0, dtype):
     return y.to(dtype).reshape(*x_codes.shape[:-1], -1)
 
 
+def sec_attention_plain(q_src, k_src, v_src, out_scale_inv: float,
+                        out_zp_shifted: float, *, heads: int, head_dim: int,
+                        scale: float, q_off: int = 0, k_off: int = 0,
+                        v_off: int = 0, clip=(-128.0, 127.0)):
+    C = heads * head_dim
+    return _attend_codes_plain(q_src[..., q_off:q_off + C],
+                               k_src[..., k_off:k_off + C],
+                               v_src[..., v_off:v_off + C], heads, head_dim,
+                               scale, out_scale_inv, out_zp_shifted, clip)
+
+
+def sec_attention_q_plain(x_codes, wq_int8, wq_scale, bias0, k_src, v_src,
+                          out_scale_inv: float, out_zp_shifted: float, *,
+                          heads: int, head_dim: int, scale: float,
+                          k_off: int = 0, v_off: int = 0,
+                          clip=(-128.0, 127.0)):
+    q = _proj_plain(x_codes, wq_int8, wq_scale, bias0, k_src.dtype)
+    return sec_attention_plain(q, k_src, v_src, out_scale_inv,
+                               out_zp_shifted, heads=heads,
+                               head_dim=head_dim, scale=scale, k_off=k_off,
+                               v_off=v_off, clip=clip)
+
+
 def sec_attention_qkv_plain(x_codes, w_int8, w_scale, bias0,
                             out_scale_inv: float, out_zp_shifted: float, *,
                             heads: int, head_dim: int, scale: float,
@@ -91,18 +122,16 @@ def sec_attention_q_out_plain(x, wq_int8, wq_scale, bias0, k_src, v_src,
                               scale: float, k_off: int = 0, v_off: int = 0,
                               out_dtype=torch.bfloat16,
                               clip=(-128.0, 127.0), ln=None):
-    C = heads * head_dim
     if ln is not None:
         gamma, beta, x_sinv, x_zp, x_clip, eps = ln
         codes = ln_quantize_plain(x, gamma, beta, x_sinv, x_zp, eps, x_clip)
         residual = x
     else:
         codes = x
-    q = _proj_plain(codes, wq_int8, wq_scale, bias0, k_src.dtype)
-    o_codes = _attend_codes_plain(q, k_src[..., k_off:k_off + C],
-                                  v_src[..., v_off:v_off + C], heads,
-                                  head_dim, scale, mid_scale_inv,
-                                  mid_zp_shifted, clip)
+    o_codes = sec_attention_q_plain(
+        codes, wq_int8, wq_scale, bias0, k_src, v_src, mid_scale_inv,
+        mid_zp_shifted, heads=heads, head_dim=head_dim, scale=scale,
+        k_off=k_off, v_off=v_off, clip=clip)
     out = _proj_plain(o_codes, wout_int8, out_scale, out_bias0, torch.float32)
     if out_bias is not None:
         out = out + out_bias.float()
@@ -121,7 +150,119 @@ def _lib():
         f = lib.mixdq_sec_attention_q_out
         f.argtypes = [P] * 8 + [I] * 2 + [P] * 9 + [I] * 8 + [F] * 10 + [P]
         f.restype = I
+        f = lib.mixdq_sec_attention
+        f.argtypes = [P] * 3 + [I] * 3 + [P] + [I] * 6 + [F] * 5 + [P]
+        f.restype = I
+        f = lib.mixdq_sec_attention_q
+        f.argtypes = [P] * 6 + [I] * 2 + [P] * 2 + [I] * 7 + [F] * 5 + [P]
+        f.restype = I
     return lib
+
+
+def _panel_ptr(t: torch.Tensor, off: int) -> int:
+    return t.data_ptr() + off * t.element_size()
+
+
+def check_panels(name: str, C: int, *panels) -> torch.dtype:
+    """The q/k/v sources a kernel reads in place, as ``(tensor, column
+    offset)`` pairs: contiguous ``[B, T, >= offset + C]`` of one dtype,
+    bf16 or f32; a bf16 panel starts on 16 bytes and its rows are a
+    multiple of 16 bytes (the kernels' vector loads). Returns the dtype."""
+    dt = panels[0][0].dtype
+    if dt not in _FLOAT_TYPES:
+        raise TypeError(f"{name}: q/k/v must be bf16 or f32, not {dt}")
+    for t, off in panels:
+        if t.dtype != dt or t.ndim != 3 or t.shape[-1] < off + C:
+            raise ValueError(f"{name}: panel at {off} of {tuple(t.shape)} "
+                             f"{t.dtype} out of range for {C} {dt} columns")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: q/k/v sources must be contiguous")
+        if dt == torch.bfloat16 and (_panel_ptr(t, off) % 16
+                                     or t.shape[-1] % 8):
+            raise ValueError(f"{name}: bf16 panels must start on 16 bytes "
+                             "with rows a multiple of 16 bytes")
+    return dt
+
+
+def sec_attention(q_src: torch.Tensor, k_src: torch.Tensor,
+                  v_src: torch.Tensor, out_scale_inv: float,
+                  out_zp_shifted: float, *, heads: int, head_dim: int,
+                  scale: float, q_off: int = 0, k_off: int = 0,
+                  v_off: int = 0, clip=(-128.0, 127.0)) -> torch.Tensor:
+    """Softmax attention over q ``[B, Tq, >= q_off + C]`` and k/v ``[B,
+    Tk, >= off + C]`` read at their column offsets (bf16 or f32, one
+    dtype) -> ``to_out``'s int8 codes ``[B, Tq, C]``, C = heads *
+    head_dim."""
+    SEC_COUNT.calls += 1
+    check_head_dim(head_dim)
+    if not use_kernel(q_src, k_src, v_src):
+        return sec_attention_plain(
+            q_src, k_src, v_src, out_scale_inv, out_zp_shifted, heads=heads,
+            head_dim=head_dim, scale=scale, q_off=q_off, k_off=k_off,
+            v_off=v_off, clip=clip)
+    C = heads * head_dim
+    dt = check_panels("sec_attention", C, (q_src, q_off), (k_src, k_off),
+                      (v_src, v_off))
+    B, Tq = q_src.shape[:2]
+    Tk = k_src.shape[1]
+    if k_src.shape[0] != B or v_src.shape[:2] != (B, Tk):
+        raise ValueError("sec_attention: q/k/v batch or key counts differ")
+    out = torch.empty((B, Tq, C), dtype=torch.int8, device=q_src.device)
+    lib = _lib()
+    err = lib.mixdq_sec_attention(
+        _panel_ptr(q_src, q_off), _panel_ptr(k_src, k_off),
+        _panel_ptr(v_src, v_off), q_src.shape[-1], k_src.shape[-1],
+        v_src.shape[-1], _build.ptr(out), B, Tq, Tk, heads, head_dim,
+        int(dt == torch.bfloat16), scale, out_scale_inv, out_zp_shifted,
+        clip[0], clip[1], _build.stream(q_src.device))
+    _build.check(lib, err, "sec_attention")
+    SEC_COUNT.launches += 1
+    return out
+
+
+def sec_attention_q(x_codes: torch.Tensor, wq_int8: torch.Tensor,
+                    wq_scale: torch.Tensor, bias0: torch.Tensor,
+                    k_src: torch.Tensor, v_src: torch.Tensor,
+                    out_scale_inv: float, out_zp_shifted: float, *,
+                    heads: int, head_dim: int, scale: float, k_off: int = 0,
+                    v_off: int = 0, clip=(-128.0, 127.0)) -> torch.Tensor:
+    """Cross-attention from to_q's codes ``x_codes`` ``[B, Tq, C_in]``:
+    the to_q GEMM (``wq_int8`` ``[C_in, C]``, f32 ``[C]`` scale and
+    ``bias0``; q in k's dtype), then attention over the k/v panels of
+    ``k_src``/``v_src`` ``[B, Tk, >= off + C]`` (the fused ``to_kv``
+    output) -> ``to_out``'s int8 codes ``[B, Tq, C]``."""
+    Q_COUNT.calls += 1
+    check_head_dim(head_dim)
+    if not use_kernel(x_codes, wq_int8, wq_scale, bias0, k_src, v_src):
+        return sec_attention_q_plain(
+            x_codes, wq_int8, wq_scale, bias0, k_src, v_src, out_scale_inv,
+            out_zp_shifted, heads=heads, head_dim=head_dim, scale=scale,
+            k_off=k_off, v_off=v_off, clip=clip)
+    B, Tq, C_in = x_codes.shape
+    C = heads * head_dim
+    dt = check_panels("sec_attention_q", C, (k_src, k_off), (v_src, v_off))
+    Tk = k_src.shape[1]
+    if x_codes.dtype != torch.int8 or k_src.shape[0] != B or \
+            v_src.shape[:2] != (B, Tk):
+        raise ValueError("sec_attention_q: int8 codes [B, Tq, C_in] and k/v "
+                         "[B, Tk, ...] expected")
+    _check_weight("sec_attention_q", wq_int8, C_in, C, wq_scale, bias0)
+    check_cuda_args("sec_attention_q", x=x_codes, wq=wq_int8,
+                    wq_scale=wq_scale, bias0=bias0)
+    dev = x_codes.device
+    q_ws = torch.empty((B, Tq, C), dtype=dt, device=dev)
+    out = torch.empty((B, Tq, C), dtype=torch.int8, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.mixdq_sec_attention_q(
+        p(x_codes), p(wq_int8), p(wq_scale), p(bias0),
+        _panel_ptr(k_src, k_off), _panel_ptr(v_src, v_off), k_src.shape[-1],
+        v_src.shape[-1], p(q_ws), p(out), B, Tq, Tk, C_in, heads, head_dim,
+        int(dt == torch.bfloat16), scale, out_scale_inv, out_zp_shifted,
+        clip[0], clip[1], _build.stream(dev))
+    _build.check(lib, err, "sec_attention_q")
+    Q_COUNT.launches += 1
+    return out
 
 
 def _check_weight(name, w, k, n, scale, bias0):
@@ -170,10 +311,6 @@ def sec_attention_qkv(x_codes: torch.Tensor, w_int8: torch.Tensor,
     return out
 
 
-def _panel_ptr(t: torch.Tensor, off: int) -> int:
-    return t.data_ptr() + off * t.element_size()
-
-
 def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
                         wq_scale: torch.Tensor, bias0: torch.Tensor,
                         k_src: torch.Tensor, v_src: torch.Tensor,
@@ -211,18 +348,14 @@ def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
     B, Tq, C_in = x.shape
     C = heads * head_dim
     Tk = k_src.shape[1]
-    dt = k_src.dtype
-    if dt not in _FLOAT_TYPES or v_src.dtype != dt or out_dtype != dt:
-        raise TypeError(f"sec_attention_q_out: k/v {dt}/{v_src.dtype} and "
-                        f"out {out_dtype} must be one of bf16/f32")
-    if k_src.shape[:2] != (B, Tk) or v_src.shape[:2] != (B, Tk) or \
-            k_src.shape[-1] < k_off + C or v_src.shape[-1] < v_off + C:
-        raise ValueError("sec_attention_q_out: k/v panels out of range")
-    if dt == torch.bfloat16 and any(
-            _panel_ptr(t, off) % 16 or t.shape[-1] % 8
-            for t, off in ((k_src, k_off), (v_src, v_off))):
-        raise ValueError("sec_attention_q_out: bf16 k/v panels must start "
-                         "on 16 bytes with rows a multiple of 16 bytes")
+    dt = check_panels("sec_attention_q_out", C, (k_src, k_off),
+                      (v_src, v_off))
+    if out_dtype != dt:
+        raise TypeError(f"sec_attention_q_out: out {out_dtype} must be k/v's "
+                        f"{dt}")
+    if k_src.shape[0] != B or v_src.shape[:2] != (B, Tk):
+        raise ValueError("sec_attention_q_out: k/v batch or key counts "
+                         "differ")
     if ln is not None:
         gamma, beta, x_sinv, x_zp, x_clip, eps = ln
         if x.dtype != dt:
@@ -251,8 +384,8 @@ def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
     if out_bias is not None:
         out_bias = out_bias.float().contiguous()
     check_cuda_args("sec_attention_q_out", x=x, gamma=gamma, beta=beta,
-                    wq=wq_int8, wq_scale=wq_scale, bias0=bias0, k=k_src,
-                    v=v_src, wout=wout_int8, out_scale=out_scale,
+                    wq=wq_int8, wq_scale=wq_scale, bias0=bias0,
+                    wout=wout_int8, out_scale=out_scale,
                     out_bias0=out_bias0, residual=residual)
     dev = x.device
     q_ws = torch.empty((B, Tq, C), dtype=dt, device=dev)

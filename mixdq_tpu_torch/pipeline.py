@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .models import routing
 from .models.configs import get_family
 from .models.unet import UNet2DConditionModel
 from .quant.calibrate import calibrate
@@ -25,6 +26,9 @@ from .quant.state import FP_CTX, QuantCtx, quantizable_layers, uniform_ctrl
 #: weight / activation quantizers of the W8A8 deploy (bench.py:110-111)
 WQ = QuantSpec(sym=True, channel_wise=True, round_mode="nearest")
 AQ = QuantSpec(running_stat=True)
+
+#: text tokens of ``example_inputs``
+TEXT_TOKENS = 77
 
 Inputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                Optional[Dict[str, torch.Tensor]]]
@@ -63,7 +67,7 @@ def example_inputs(family: str = "sdxl-turbo", batch: int = 1, seed: int = 0,
             dev, dtype)
 
     sample = normal(batch, H, H, cfg.in_channels)
-    ehs = normal(batch, 77, cfg.cross_attention_dim)
+    ehs = normal(batch, TEXT_TOKENS, cfg.cross_attention_dim)
     added = None
     if cfg.addition_embed_type == "text_time":
         px = float(H * 8)
@@ -102,41 +106,93 @@ def _resnet_channels(cfg):
     return out
 
 
-def expected_kernel_calls(cfg, attn_impl: str) -> Dict[str, int]:
-    """Kernel calls of one W8A8 step implied by the UNet structure: two
-    3x3 convs and two GN producers per resnet, conv_in/conv_out, one conv
-    per resampler, one GN per transformer (``proj_in``) plus
-    ``conv_norm_out``, one GEGLU per transformer block; LN producers:
-    norm1/2/3 of every block under ``'einsum'``, norm1/3 under ``'auto'``
-    (norm2 folds into ``sec_attention_q_out``). ``qmatmul`` runs every
-    other dense layer and 1x1 conv: the time (and SDXL added-condition)
-    embeddings, each resnet's ``time_emb_proj`` and ``conv_shortcut``
-    (where its channels change), each transformer's ``proj_in`` /
-    ``proj_out``, and per block ``to_qkv``, ``to_out`` (attn1), ``to_kv``,
-    ``to_q``, ``to_out`` (attn2) and ``ff.net.2``, less ``to_qkv``,
-    ``to_q`` and attn2's ``to_out``, which the attention kernels run
-    under ``'auto'``."""
+#: the kernels whose launches ``expected_kernel_calls`` counts
+KERNELS = ("qconv2d", "qconv2d_s2", "gn_silu_quantize", "ln_quantize",
+           "geglu_qmatmul", "qmatmul") + routing.KERNELS
+
+
+def _transformer_levels(cfg):
+    """(tokens, heads, head_dim, transformers, blocks each) of every level
+    that holds transformers, in the UNet's build order."""
     n, L = len(cfg.block_out_channels), cfg.layers_per_block
-    tl = cfg.transformer_layers_per_block
-    down_x = [i for i, b in enumerate(cfg.down_block_types)
-              if b.startswith("CrossAttn")]
-    up_x = [i for i, b in enumerate(cfg.up_block_types)
-            if b.startswith("CrossAttn")]
+    out = []
+
+    def level(i, count):
+        h = cfg.num_attention_heads[i]
+        d = cfg.attention_head_dim or cfg.block_out_channels[i] // h
+        side = cfg.sample_size // 2 ** i
+        out.append((side * side, h, d, count,
+                    cfg.transformer_layers_per_block[i]))
+
+    for i, b in enumerate(cfg.down_block_types):
+        if b.startswith("CrossAttn"):
+            level(i, L)
+    level(n - 1, 1)
+    for i, b in enumerate(cfg.up_block_types):
+        if b.startswith("CrossAttn"):
+            level(n - 1 - i, L + 1)
+    return out
+
+
+def _block_calls(T, heads, d, attn_impl, mode):
+    """Kernel calls of one transformer block: both attention sites as
+    ``routing.attention_route`` sends them, the deferred norms where they
+    materialize, the GEGLU kernel and ``qmatmul`` for every other dense
+    layer of the block."""
+    calls = dict.fromkeys(KERNELS, 0)
+    int8 = mode == "int8"  # the FP UNet has no deploy entries
+    # qmatmul launches at the fused projections, to_q and to_out, by route
+    dense = {routing.QKV: 1, routing.Q_OUT: 1, routing.SEC_Q: 2}
+    for cross in (False, True):
+        r = routing.attention_route(
+            mode=mode, attn_impl=attn_impl, fused=int8, cross=cross,
+            heads=heads, head_dim=d, Tq=T, Tk=TEXT_TOKENS if cross else T,
+            C_in=heads * d)
+        if r.kernel != routing.EINSUM:
+            calls[r.kernel] += 1
+        if not int8:
+            continue
+        calls["qmatmul"] += dense.get(r.kernel, 3 if cross else 2)
+        calls["ln_quantize"] += r.kernel != routing.Q_OUT  # norm2 folds
+    if not int8:
+        return calls
+    calls["ln_quantize"] += 1  # norm3 -> ff.net.0.proj
+    calls["geglu_qmatmul"] += 1
+    calls["qmatmul"] += 1  # ff.net.2
+    return calls
+
+
+def expected_kernel_calls(cfg, attn_impl: str,
+                          mode: str = "int8") -> Dict[str, int]:
+    """Kernel calls of one UNet step of ``example_inputs`` implied by the
+    UNet structure, W8A8 (``mode='int8'``: the deploy of
+    ``quantize_w8a8``) or the FP UNet (``mode='fp'``: the attention
+    kernels only).
+
+    W8A8: two 3x3 convs and two GN producers per resnet, conv_in /
+    conv_out, one conv per resampler, one GN per transformer
+    (``proj_in``) plus ``conv_norm_out``; ``qmatmul`` for the time (and
+    SDXL added-condition) embeddings, each resnet's ``time_emb_proj`` and
+    ``conv_shortcut`` (where its channels change), each transformer's
+    ``proj_in`` / ``proj_out``; and per transformer block what
+    ``_block_calls`` counts at its level's shape."""
+    calls = dict.fromkeys(KERNELS, 0)
+    for T, heads, d, count, blocks in _transformer_levels(cfg):
+        per = _block_calls(T, heads, d, attn_impl, mode)
+        for k, v in per.items():
+            calls[k] += v * count * blocks
+    if mode != "int8":
+        return calls
+    n = len(cfg.block_out_channels)
     res = _resnet_channels(cfg)
     resnets, shortcuts = len(res), sum(a != b for a, b in res)
-    transformers = L * len(down_x) + 1 + (L + 1) * len(up_x)
-    blocks = (sum(L * tl[i] for i in down_x) + tl[-1]
-              + sum((L + 1) * tl[n - 1 - i] for i in up_x))
+    transformers = sum(t[3] for t in _transformer_levels(cfg))
     embeddings = 2 + (2 if cfg.addition_embed_type == "text_time" else 0)
-    dense = embeddings + resnets + shortcuts + 2 * transformers + 6 * blocks
-    auto = attn_impl == "auto"
-    return {"qconv2d": 2 * resnets + 2 + (n - 1), "qconv2d_s2": n - 1,
-            "gn_silu_quantize": 2 * resnets + transformers + 1,
-            "ln_quantize": (2 if auto else 3) * blocks,
-            "geglu_qmatmul": blocks,
-            "qmatmul": dense - (3 * blocks if auto else 0),
-            "sec_attention_qkv": blocks if auto else 0,
-            "sec_attention_q_out": blocks if auto else 0}
+    calls["qconv2d"] += 2 * resnets + 2 + (n - 1)
+    calls["qconv2d_s2"] += n - 1
+    calls["gn_silu_quantize"] += 2 * resnets + transformers + 1
+    calls["qmatmul"] += embeddings + resnets + shortcuts + 2 * transformers
+    return calls
 
 
 @torch.inference_mode()

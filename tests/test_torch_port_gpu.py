@@ -222,3 +222,71 @@ def test_sec_attention_q_out_kernel(dev, B, Tq, heads, d, C_in, dtype, ln):
     assert got.dtype == dtype and got.shape == (B, Tq, C_in)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,heads,d,dtype,self_attn", [
+    (1, 4096, 4096, 10, 64, torch.bfloat16, True),  # SDXL 1024 attn1, 64x64
+    (2, 300, 300, 3, 64, torch.bfloat16, True),     # ragged Tq/Tk, odd heads
+    (1, 200, 77, 2, 128, torch.bfloat16, False),    # d=128, masked tail
+    (2, 130, 130, 4, 16, torch.bfloat16, True),
+    (1, 100, 90, 2, 32, torch.float32, False),      # f32 scalar path
+    (2, 70, 70, 2, 128, torch.float32, True),
+])
+def test_flash_attention_kernel(dev, B, Tq, Tk, heads, d, dtype, self_attn):
+    from mixdq_tpu_torch.ops.attention import (flash_attention,
+                                               flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    srcs, kw = smoke().attn_case(torch, g, dev, B, Tq, Tk, heads, d, dtype,
+                                 not self_attn)
+    got = flash_attention(*srcs, **kw)
+    want = flash_attention_plain(*srcs, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Tq, heads * d)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
+    else:  # p rounds to bf16 against a running max (chip_smoke.py)
+        smoke().flash_err(torch, got, want)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,heads,d,dtype,cross", [
+    (1, 1024, 1024, 20, 64, torch.bfloat16, False),  # SDXL 1024 attn1, 32x32
+    (1, 4096, 77, 10, 64, torch.bfloat16, True),     # attn2 at 64x64
+    (2, 100, 100, 3, 32, torch.bfloat16, False),     # ragged, odd heads
+    (2, 50, 77, 2, 128, torch.bfloat16, True),
+    (1, 70, 70, 2, 16, torch.float32, False),        # f32 scalar path
+    (2, 33, 77, 5, 64, torch.float32, True),
+])
+def test_sec_attention_kernel(dev, B, Tq, Tk, heads, d, dtype, cross):
+    from mixdq_tpu_torch.ops.sec_attention import (sec_attention,
+                                                   sec_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    srcs, kw = smoke().attn_case(torch, g, dev, B, Tq, Tk, heads, d, dtype,
+                                 cross)
+    got = sec_attention(*srcs, 40.0, -3.0, **kw)
+    want = sec_attention_plain(*srcs, 40.0, -3.0, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == (B, Tq, heads * d)
+    assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("B,Tq,heads,d,C_in,dtype", [
+    (1, 1024, 20, 64, 1280, torch.bfloat16),  # SDXL 1024 attn2, 32x32
+    (2, 1024, 20, 64, 1280, torch.bfloat16),
+    (2, 50, 3, 32, 96, torch.bfloat16),       # ragged Tq, odd heads
+    (1, 64, 2, 128, 320, torch.bfloat16),     # C_in != heads * d
+    (2, 33, 5, 64, 320, torch.float32),       # f32 (k/v dtype) path
+])
+def test_sec_attention_q_kernel(dev, B, Tq, heads, d, C_in, dtype):
+    from mixdq_tpu_torch.ops.sec_attention import (sec_attention_q,
+                                                   sec_attention_q_plain)
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    args, kw = smoke().sec_q_case(torch, g, dev, B, Tq, 77, heads, d, C_in,
+                                  dtype)
+    got = sec_attention_q(*args, **kw)
+    want = sec_attention_q_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == (B, Tq, heads * d)
+    assert_codes_close(got, want)

@@ -15,6 +15,7 @@ int8 codes max |diff| <= 1 on < 1% (other float summation orders);
 whole modules as ``tests/test_torch_port_model.py`` (rel 1e-2, max 0.3).
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -34,7 +35,8 @@ from mixdq_tpu.ops import qops as jq  # noqa: E402
 
 from mixdq_tpu_torch import ops, pipeline  # noqa: E402
 from mixdq_tpu_torch.models.attention import Transformer2DModel  # noqa: E402
-from mixdq_tpu_torch.models.configs import UNetConfig  # noqa: E402
+from mixdq_tpu_torch.models.configs import (UNetConfig,  # noqa: E402
+                                            get_family)
 from mixdq_tpu_torch.models.unet import UNet2DConditionModel  # noqa: E402
 from mixdq_tpu_torch.ops import qops as tq  # noqa: E402
 from mixdq_tpu_torch.ops import sec_attention as tsa  # noqa: E402
@@ -258,35 +260,76 @@ def test_attn2_pre_coded_matches_ln_folded():
     torch.testing.assert_close(pre, folded, rtol=0, atol=0)
 
 
-def test_auto_refuses_flash_shapes():
-    """Tq * Tk >= 2^22 takes flash attention in the JAX package, which the
-    port does not have yet: a real error, not a fallback."""
-    tm, ctx, ehs, rng = _port_transformer()
-    x = T(rng.standard_normal((1, 32, 64, 128)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="B10"), torch.no_grad():
-        tm(x, ehs, ctx=ctx)
+def _transformer_pair(rng, in_ch, heads, head_dim, layers, cross_dim, H,
+                      W, seed, bos=1.0):
+    """The same Transformer2DModel in both packages (perturbed flax
+    params converted for the port), an input map ``[1, H, W, in_ch]`` and
+    unit encoder states whose first token is ``bos`` times larger;
+    returns (JAX module, its variables, port module, input, encoder
+    states). Over thousands of tokens an act code one apart somewhere
+    upstream is all but sure, and a BoS-sized outlier makes to_out's act
+    step, and so what one such code moves, large; the maps that large use
+    ``bos=1``."""
+    jm = jattn.Transformer2DModel(in_channels=in_ch, heads=heads,
+                                  head_dim=head_dim, num_layers=layers,
+                                  cross_attention_dim=cross_dim,
+                                  norm_num_groups=16)
+    x = rng.standard_normal((1, H, W, in_ch)).astype(np.float32)
+    ehs = rng.standard_normal((1, 77, cross_dim)).astype(np.float32)
+    ehs[:, 0] *= bos
+    variables = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x),
+                        jnp.asarray(ehs))
+    params = perturb(np_tree(variables["params"]), rng)
+    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    tm = load(Transformer2DModel(in_ch, heads, head_dim, layers, cross_dim,
+                                 norm_num_groups=16), params)
+    return jm, variables, tm, x, ehs
 
 
-def _port_auto(module, jqparams, args):
-    """Port module under ``'auto'`` on the JAX calibration; returns
-    (output, the kernel call counts)."""
+def test_auto_routes_flash_shapes(interpret):
+    """The input that the port refused before flash attention was ported
+    (a 32x64 map, C=128 as 2 heads of 64: Tq * Tk = 2^22 at attn1) now
+    runs attn1 on flash attention and matches the JAX package (which, on
+    the CPU, takes its einsum chain at flash sites)."""
+    rng = np.random.default_rng(15)
+    jm, variables, tm, x, ehs = _transformer_pair(rng, 128, 2, 64, 1, 64,
+                                                  32, 64, 4)
+    want, jqp, jaxpr = _jax_auto(jm, variables,
+                                 (jnp.asarray(x), jnp.asarray(ehs)))
+    assert "sec_attention_q_lnout" in jaxpr
+    got, calls = _port_auto(tm, jqp, (T(x), T(ehs)))
+    assert calls["flash_attention"] == calls["sec_attention_q_out"] == 1
+    assert calls["sec_attention_qkv"] == calls["sec_attention"] == 0
+    assert_int8_close(got, want)
+
+
+def port_auto_ctx(module, jqparams, fuse_qkv=True):
+    """The port's W8A8 deploy of ``module`` on the JAX calibration, under
+    ``'auto'``."""
     from mixdq_tpu_torch import convert
     from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
     from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
 
     qp = convert.qparams_from_numpy(qparams_np(jqparams))
     ctx = deploy_unet_ctx(module, qp, uniform_ctrl(list(
-        quantizable_layers(module))), pipeline.WQ, fuse_qkv=True)
-    ctx = dataclasses.replace(ctx, attn_impl="auto")
+        quantizable_layers(module))), pipeline.WQ, fuse_qkv=fuse_qkv)
+    return dataclasses.replace(ctx, attn_impl="auto")
+
+
+def _port_auto(module, jqparams, args, fuse_qkv=True):
+    """Port module under ``'auto'`` on the JAX calibration; returns
+    (output, the kernel call counts)."""
+    ctx = port_auto_ctx(module, jqparams, fuse_qkv)
     ops.reset_counts()
     with torch.no_grad():
         out = module(*args, ctx=ctx)
     return out, ops.call_counts()
 
 
-def _jax_auto(model, variables, args):
-    """JAX int8 output under ``'auto'`` (fused QKV/KV), its calibration
-    and its jaxpr."""
+def _jax_auto(model, variables, args, fuse_qkv=True, capture=False):
+    """JAX int8 output under ``'auto'`` (fused QKV/KV unless told not),
+    its calibration and its jaxpr; with ``capture``, also every module's
+    output by its canonical name."""
     from mixdq_tpu.quant import calibrate as jcal
     from mixdq_tpu.quant.deploy import deploy_unet_ctx, deployed_params
     from mixdq_tpu.quant.state import quantizable_layers, uniform_ctrl
@@ -295,7 +338,7 @@ def _jax_auto(model, variables, args):
     ctrl = uniform_ctrl(quantizable_layers(variables["params"]), w_bits=8,
                         a_bits=8)
     ctx = deploy_unet_ctx(model, variables, jqp, ctrl, JWQ, JAQ,
-                          fuse_qkv=True).replace(**AUTO)
+                          fuse_qkv=fuse_qkv).replace(**AUTO)
     pruned = deployed_params(variables, ctx)
 
     def run(v, c, *a):
@@ -303,7 +346,18 @@ def _jax_auto(model, variables, args):
 
     jaxpr = repr(jax.make_jaxpr(run)(pruned, ctx, *args))
     out = np.asarray(jax.jit(run)(pruned, ctx, *args))
-    return out, jqp, jaxpr
+    if not capture:
+        return out, jqp, jaxpr
+    from mixdq_tpu.quant.state import canonical_name
+
+    _, state = jax.jit(lambda v, c, *a: model.apply(
+        v, *a, c, capture_intermediates=True, mutable=["intermediates"]))(
+            pruned, ctx, *args)
+    flat = jax.tree_util.tree_flatten_with_path(state["intermediates"])[0]
+    outs = {canonical_name(tuple(k.key for k in path[:-2])): np.asarray(v)
+            for path, v in flat
+            if getattr(path[-2], "key", None) == "__call__"}
+    return out, jqp, jaxpr, outs
 
 
 def test_transformer_auto_parity(interpret):
@@ -333,16 +387,9 @@ def test_transformer_auto_parity(interpret):
     assert_int8_close(got, want)
 
 
-#: a small SDXL-form UNet whose cross-attention level is C=128 as two
-#: heads of 64, so the JAX package's gates let its kernels run
-SMALL = dict(sample_size=16, block_out_channels=(32, 128),
-             down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
-             up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
-             layers_per_block=1, transformer_layers_per_block=(1, 1),
-             num_attention_heads=(1, 2), attention_head_dim=64,
-             cross_attention_dim=64, addition_time_embed_dim=16,
-             projection_class_embeddings_input_dim=16 * 6 + 32,
-             norm_num_groups=16)
+#: the ``small-sdxl`` UNet: its cross-attention level is C=128 as two heads
+#: of 64, so the JAX package's gates let its kernels run
+SMALL = dataclasses.asdict(get_family("small-sdxl").unet)
 
 
 def test_small_unet_auto_parity(interpret):
@@ -374,14 +421,19 @@ def test_small_unet_auto_parity(interpret):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chip_smoke_attention_sites(dtype):
-    """``chip_smoke.py``'s per-site check on tiny-sdxl: every attention
-    module under ``'auto'`` passes it against ``'einsum'``, and each
-    injected to_out zero-point fault fails it."""
+    """``chip_smoke.py``'s per-site check on the ``small-sdxl`` UNet, whose
+    sites take ``sec_attention_qkv`` and ``sec_attention_q_out`` under
+    ``'auto'`` (``tiny-sdxl``'s 2 heads of 16 route every site to the
+    einsum chain, as in the JAX package): every attention module passes
+    it against ``'einsum'``, and each injected to_out zero-point fault
+    fails it."""
     smoke = load_smoke()
     dt = getattr(torch, dtype)
-    unet = pipeline.build_unet("tiny-sdxl", 0, dt, "cpu")
-    calib = pipeline.example_inputs("tiny-sdxl", 1, 0, dt, "cpu")
+    unet = pipeline.build_unet("small-sdxl", 0, dt, "cpu")
+    calib = pipeline.example_inputs("small-sdxl", 1, 0, dt, "cpu")
     ctx = pipeline.quantize_w8a8(unet, calib)
     assert ctx.attn_impl == "auto"
-    req = pipeline.example_inputs("tiny-sdxl", 1, 100, dt, "cpu")
-    smoke.phase_attention_sites(torch, unet, ctx, req)
+    req = pipeline.example_inputs("small-sdxl", 1, 100, dt, "cpu")
+    kernels = smoke.phase_attention_sites(torch, unet, ctx, req)
+    assert collections.Counter(kernels.values()) == {
+        "sec_attention_qkv": 4, "sec_attention_q_out": 4}
