@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: W8A8 SDXL-Turbo (512 px)
-and SDXL (1024 px) UNet steps through the hand-written kernels.
+"""Smoke run of the PyTorch/CUDA port on one GPU: W8A8 and mixed-precision
+SDXL-Turbo (512 px) and W8A8 SDXL (1024 px) UNet steps through the
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    with the kernel's and the plain version's time, the card's bound for
    the same work and, where one PyTorch call computes the same function,
    its time (``torch._int_mm`` for ``qmatmul``, the product alone;
-   ``scaled_dot_product_attention`` for flash attention).
+   ``scaled_dot_product_attention`` for flash attention; ``torch.matmul``
+   on the weight dequantized beforehand for ``wq4_matmul`` /
+   ``wq_matmul``, whose check is flash attention's).
 2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
    take the whole-attention kernels), W8A8 steps in float32
    under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
@@ -41,7 +44,20 @@ Phases (none catches its own failure; any failure exits non-zero):
    faults must fail these checks.
 5. A per-kernel device-time breakdown of one step of each int8 path and
    of bf16 from torch.profiler (written to ``chiprun_out/``).
-6. SDXL at 1024 px (128x128 latent), full width and depth, built in
+6. The mixed-precision deploys of the same UNet from the repo's elected
+   maps (``configs/mp/sdxl_turbo``: W5.04, A7.43, act-protect list), on
+   the phase 3 requests: ``int8_sec`` under ``'auto'`` and the weight-only
+   ``'dequant'`` and ``'pallas_dequant'`` (``wq4_matmul`` for every packed
+   entry, ``wq_matmul`` for the int8 ones). Launch counts (``MP_CALLS``),
+   SQNR against bf16 (>= ``MP_SQNR_DB``), ``pallas_dequant`` against
+   ``dequant`` (>= ``WONLY_SQNR_DB``), every deploy entry against fake
+   quantization at its bits and every attention site auto against
+   einsum, each failed by a planted fault (swapped nibble halves, an A4
+   entry clipped at A8, zero points at the ``sec_attention`` sites the
+   protect list makes); paired step medians with bf16 and W8A8 auto,
+   resident weight bytes, peak memory over a step, and one profiled step
+   per path (``chiprun_out/profile_mp_*.txt``).
+7. SDXL at 1024 px (128x128 latent), full width and depth, built in
    place of SDXL-Turbo: the same deploy under ``'auto'`` (flash
    attention, ``sec_attention`` and ``sec_attention_q``) and
    ``'einsum'``, and the bf16 UNet under ``'auto'`` (flash attention);
@@ -57,6 +73,7 @@ Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -78,6 +95,7 @@ LAYER_SQNR_DB = 30.0   # each deploy entry vs fake quantization
 FAULT_LAYERS = ("mid_block.attentions.0.transformer_blocks.0.attn2.to_kv",
                 "time_embedding.linear_1")
 SITE_SQNR_DB = 25.0    # each attention module, auto vs einsum
+SITE_DB_PER_BIT = 3.0  # lower for each bit of to_out's act codes below 8
 # to_out entries whose act zero point the attention kernels see shifted
 # by 8 codes (the to_out GEMM's bias0 keeps the sound one)
 FAULT_SITES = (
@@ -104,16 +122,57 @@ SDXL_CALLS = {
     "auto": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
                  ln_quantize=210, geglu_qmatmul=70, qmatmul=414,
                  sec_attention_qkv=0, sec_attention_q_out=0,
-                 flash_attention=10, sec_attention=70, sec_attention_q=60),
+                 flash_attention=10, sec_attention=70, sec_attention_q=60,
+                 wq4_matmul=0, wq_matmul=0),
     "einsum": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
                    ln_quantize=210, geglu_qmatmul=70, qmatmul=474,
                    sec_attention_qkv=0, sec_attention_q_out=0,
-                   flash_attention=0, sec_attention=0, sec_attention_q=0),
+                   flash_attention=0, sec_attention=0, sec_attention_q=0,
+                   wq4_matmul=0, wq_matmul=0),
     "bf16": dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
                  geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
                  sec_attention_q_out=0, flash_attention=10, sec_attention=0,
-                 sec_attention_q=0),
+                 sec_attention_q=0, wq4_matmul=0, wq_matmul=0),
 }
+# launches per mixed-precision SDXL-Turbo step (W5.04 / A7.43 +
+# act-protect, B=1) under each deploy compute: int8_sec unfuses the 22 attn2
+# sites whose to_k is protected or whose to_k and to_v differ in act bits
+# (sec_attention there and at the protected to_q); the weight-only deploys
+# run every packed dense entry on wq4_matmul, pallas_dequant every
+# act-quantized W8 one on wq_matmul and its eight act-quantized 1x1 convs
+# on qmatmul
+_NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
+             geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
+             sec_attention_q_out=0, flash_attention=0, sec_attention=0,
+             sec_attention_q=0, wq4_matmul=0, wq_matmul=0)
+MP_CALLS = {
+    "int8_sec": dict(_NONE, qconv2d=37, qconv2d_s2=2, gn_silu_quantize=46,
+                     ln_quantize=160, geglu_qmatmul=68, qmatmul=324,
+                     sec_attention_qkv=70, sec_attention_q_out=48,
+                     sec_attention=22),
+    "dequant": dict(_NONE, wq4_matmul=376),
+    "pallas_dequant": dict(_NONE, qmatmul=8, wq4_matmul=376, wq_matmul=365),
+}
+MP_DIR = os.path.join("configs", "mp", "sdxl_turbo")
+MP_PATHS = {"int8_sec": "sdxl-turbo mp auto",
+            "dequant": "sdxl-turbo w-only dequant",
+            "pallas_dequant": "sdxl-turbo w-only pallas_dequant"}
+# each mixed path vs bf16 (random weights: 28 W2 and 6 A2 layers; the W8A8
+# gate of 16 dB does not apply): sound 0.48-5.70 dB on an H100 80GB HBM3 at
+# 700 W, an all-zero output reads 0 dB
+MP_SQNR_DB = 0.25
+# whole step, pallas_dequant vs dequant: one deploy, the scale rounded
+# before (kernels) or after (plain product) the W8 products, and the 1x1
+# convs act-quantized under pallas_dequant: sound 26.84-29.38 dB, swapped
+# nibbles in time_embedding.linear_1 -0.65-4.04 dB (H100 80GB HBM3, 700 W)
+WONLY_SQNR_DB = 20.0
+# a packed W4 entry whose output feeds every resnet
+MP_FAULT_PACKED = "time_embedding.linear_1"
+# to_out entries of two sec_attention sites the protect list makes: attn2
+# with its to_k protected (to_kv unfused) and with its to_q protected
+MP_FAULT_SITES = (
+    "mid_block.attentions.0.transformer_blocks.2.attn2.to_out.0",
+    "mid_block.attentions.0.transformer_blocks.6.attn2.to_out.0")
 
 # every function of the JAX package that reaches pl.pallas_call
 TPU_KERNELS = [
@@ -135,8 +194,8 @@ TPU_KERNELS = [
     ("pallas_attention.py:83 flash_attention", "flash_attention"),
     ("pallas_attention.py:204 int8_flash_attention", None),
     ("pallas_attention.py:303 int8qkv_flash_attention", None),
-    ("pallas_wq_matmul.py:96 wq4_matmul", None),
-    ("pallas_wq_matmul.py:164 wq_matmul", None),
+    ("pallas_wq_matmul.py:96 wq4_matmul", "wq4_matmul"),
+    ("pallas_wq_matmul.py:164 wq_matmul", "wq_matmul"),
 ]
 PORTED = {
     "qconv2d": ("mixdq_tpu_torch/csrc/qconv.cu",
@@ -161,6 +220,10 @@ PORTED = {
                         "mixdq_tpu/ops/pallas_sec_attention.py:271"),
     "flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
                         "mixdq_tpu/ops/pallas_attention.py:106"),
+    "wq4_matmul": ("mixdq_tpu_torch/csrc/wq_matmul.cu",
+                   "mixdq_tpu/ops/pallas_wq_matmul.py:133"),
+    "wq_matmul": ("mixdq_tpu_torch/csrc/wq_matmul.cu",
+                  "mixdq_tpu/ops/pallas_wq_matmul.py:208"),
 }
 
 # what library_ms times, where a kernel has one
@@ -168,7 +231,11 @@ LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
                       "product without the epilogue",
            "flash_attention": "torch.nn.functional.scaled_dot_product_"
                               "attention on head-major views of the same "
-                              "q/k/v (output [B, heads, T, d])"}
+                              "q/k/v (output [B, heads, T, d])",
+           "wq4_matmul": "torch.matmul(x, w) on the weight dequantized to "
+                         "bf16 before the timed region",
+           "wq_matmul": "torch.matmul(x, w) on the weight dequantized to "
+                        "bf16 before the timed region"}
 
 
 def log(*a):
@@ -227,7 +294,7 @@ def kernel_cases(torch, dev):
     [(ops, peak) per type], library call or None) at the main-path shapes;
     the first case of each kernel is its reported shape."""
     from mixdq_tpu_torch.ops import (attention, gn_quant, ln_quant, qconv,
-                                     qmatmul, sec_attention)
+                                     qmatmul, sec_attention, wq_matmul)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -391,7 +458,39 @@ def kernel_cases(torch, dev):
                       2 * B * Tq * C + C * C + 8 * C + 4 * B * 77 * C,
                       [(2 * B * Tq * C * C, INT8_OPS_PER_S),
                        (4 * B * Tq * 77 * C, BF16_OPS_PER_S)], None))
+    # the weight-only step: ff.net.0.proj at 32x32, ff.net.2 at 16x16,
+    # attn2 to_k/to_v at 16x16, time_emb_proj, and a ragged N; library:
+    # torch.matmul on the weight dequantized to bf16 beforehand
+    for w4 in (True, False):
+        for M, K, N in [(1024, 640, 5120), (256, 5120, 1280),
+                        (77, 2048, 1280), (1, 1280, 1280), (77, 2048, 1000)]:
+            x = randn(M, K, dtype=bf16)
+            lim = 8 if w4 else 128
+            w = torch.randint(-lim, lim, (K, N), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = (torch.rand(N, generator=g, device=dev) + 0.5) / (
+                lim * K ** 0.5)
+            w_dq = wq_matmul.dequant_bf16(w, s)
+            if w4:
+                args, name = (x, wq_matmul.pack_w4_halves(w), s), "wq4_matmul"
+                fn, plain = wq_matmul.wq4_matmul, wq_matmul.wq4_matmul_plain
+            else:
+                args, name = (x, w, s), "wq_matmul"
+                fn, plain = wq_matmul.wq_matmul, wq_matmul.wq_matmul_plain
+            cases.append((
+                name, f"M={M} K={K} N={N}", lambda f=fn, a=args: f(*a),
+                lambda f=plain, a=args: f(*a), wq_err,
+                2 * M * K + K * N // (2 if w4 else 1) + 4 * N + 2 * M * N,
+                [(2 * M * K * N, BF16_OPS_PER_S), (K * N, F32_OPS_PER_S)],
+                lambda x=x, w=w_dq: torch.matmul(x, w)))
     return cases
+
+
+def wq_err(torch, got, want):
+    """A weight-only GEMM against its plain version: max |diff| <= 2 bf16
+    ulps of max |want| (the same bf16 products summed in f32 in other
+    orders, then rounded to bf16) and |diff| / |want| <= 1e-2."""
+    return flash_err(torch, got, want)
 
 
 def flash_err(torch, got, want):
@@ -605,27 +704,35 @@ def sqnr_db(ref, got):
                             ).item())
 
 
-def fake_quant_layer(torch, m, x, kw, qp_w, qp_a, bos=False):
-    """What the W8A8 deploy of layer ``m`` should give for its FP input
-    ``x`` (call kwargs ``kw``), from the quantizers' definition in f32:
-    the input as its dequantized 8-bit act codes under ``qp_a`` (rounding
-    ``x * (1 / delta)``, as the deploy does; the BoS token kept FP when
-    ``bos``), the weight as its dequantized codes under ``qp_w``, then
-    bias, ``extra_bias`` and ``residual``. Shares no code with the deploy
-    path (fused scales, ``bias0``, padded int8 GEMMs, kernels). Returns
-    (output, output without the residual)."""
+def fake_quant_layer(torch, m, x, kw, qp_w, qp_a, bos=False, w_bits=8,
+                     a_bits=8):
+    """What the deploy of layer ``m`` at ``w_bits`` / ``a_bits`` should
+    give for its FP input ``x`` (call kwargs ``kw``), from the quantizers'
+    definition in f32: the input as its dequantized ``a_bits`` act codes
+    under ``qp_a`` (rounding ``x * (1 / delta)``, as the deploy does; the
+    BoS token kept FP when ``bos``; the input itself for ``a_bits`` None,
+    a weight-only layer), the weight as its dequantized codes under
+    ``qp_w`` (2-bit deltas on the 4-bit code range, as the deploy stores
+    them), then bias, ``extra_bias`` and ``residual``. Shares no code with
+    the deploy path (fused scales, ``bias0``, packing, padded GEMMs,
+    kernels). Returns (output, output without the residual)."""
     import torch.nn.functional as F
 
     from mixdq_tpu_torch.pipeline import WQ
 
-    b = WQ.candidate_bits.index(8)
-    ad, az = qp_a.a_delta[b].float(), qp_a.a_zp[b].float()
+    cb = WQ.candidate_bits
     xf = x.float()
-    xq = ((xf * (1 / ad)).round() + az).clamp(0, 255).sub(az).mul(ad)
-    if bos:
-        xq[..., :1, :] = xf[..., :1, :]
-    wd = qp_w.w_delta[b].float()
-    w = (m.weight.float() / wd).round().clamp(-128, 127) * wd
+    xq = xf
+    if a_bits is not None:
+        b = cb.index(a_bits)
+        ad, az = qp_a.a_delta[b].float(), qp_a.a_zp[b].float()
+        xq = ((xf * (1 / ad)).round() + az).clamp(0, 2 ** a_bits - 1).sub(
+            az).mul(ad)
+        if bos:
+            xq[..., :1, :] = xf[..., :1, :]
+    wd = qp_w.w_delta[cb.index(w_bits)].float()
+    lim = 2 ** (max(w_bits, 4) - 1)
+    w = (m.weight.float() / wd).round().clamp(-lim, lim - 1) * wd
     if w.ndim == 2:
         y = xq @ w
     else:
@@ -661,22 +768,40 @@ def record_layer_inputs(torch, unet, req):
     return seen
 
 
-def layer_sqnrs(torch, unet, ctx, qparams, seen, names):
+def layer_sqnrs(torch, unet, ctx, qparams, seen, names, bits=None):
     """SQNR in dB of each deploy entry in ``names``, run alone on the
-    input its layer saw in the FP step, against ``fake_quant_layer``; the
-    signal is the layer's own output (without a fused residual). A fused
-    QKV/KV entry runs as the attention runs it (anchor's codes, FP BoS
-    row for cross-attention k/v); ``ff.net.0.proj`` also runs the GEGLU
-    kernel, whose codes must match the reference within one code."""
+    input its layer saw in the FP step, against ``fake_quant_layer`` at
+    the layer's ``bits`` ({name: (w_bits, a_bits or None)}, default W8A8);
+    the signal is the layer's own output (without a fused residual). Acts
+    count as FP where the deploy's compute runs the entry weight-only. An
+    entry with acts below 8 bits runs on that input doubled, so that its
+    act clip takes effect. A fused QKV/KV entry runs as the attention runs
+    it (anchor's codes, FP BoS row for cross-attention k/v); an
+    ``ff.net.0.proj`` whose GEGLU kernel runs also runs it, whose codes
+    must match the reference within one code."""
     import torch.nn.functional as F
 
-    from mixdq_tpu_torch.models.layers import bos_row, deploy_linear
+    from mixdq_tpu_torch.models.attention import geglu_fusable
+    from mixdq_tpu_torch.models.layers import (bos_row, deploy_linear,
+                                               layer_compute)
     from mixdq_tpu_torch.pipeline import WQ
     from mixdq_tpu_torch.quant.state import quantizable_layers
 
     layers = quantizable_layers(unet)
-    b = WQ.candidate_bits.index(8)
+    bits = bits or {}
     out = {}
+
+    def act_bits(name, e):
+        """The layer's act bits where ``ctx`` quantizes its acts, else
+        None (weight-only)."""
+        quantized = (not e.act_off and ctx.deploy_compute != "dequant"
+                     if e.kind == "conv" else
+                     layer_compute(ctx.deploy_compute, e) == "int8")
+        return bits.get(name, (8, 8))[1] if quantized else None
+
+    def stress(x, a_bits):
+        return x * 2 if a_bits is not None and a_bits < 8 else x
+
     with torch.inference_mode():
         for name in names:
             e = ctx.deploy[name]
@@ -685,31 +810,44 @@ def layer_sqnrs(torch, unet, ctx, qparams, seen, names):
                 members = [f"{prefix}.{n}" for n in (
                     ("to_q", "to_k", "to_v") if leaf == "to_qkv"
                     else ("to_k", "to_v"))]
-                x = seen[members[0]][0]
+                a_bits = act_bits(members[0], e)
+                x = stress(seen[members[0]][0], a_bits)
                 bos = leaf == "to_kv" and ctx.bos_aware
-                got = deploy_linear(x, e, unet.dtype)
+                got = deploy_linear(x, e, layer_compute(ctx.deploy_compute, e),
+                                    unet.dtype)
                 if bos:
                     got = torch.cat([bos_row(x, e, unet.dtype),
                                      got[..., 1:, :]], -2)
                 ref = torch.cat([fake_quant_layer(
                     torch, layers[n], x, {}, qparams[n], qparams[members[0]],
-                    bos)[0] for n in members], -1)
+                    bos, bits.get(n, (8, 8))[0], a_bits)[0]
+                    for n in members], -1)
                 signal = ref
             else:
                 m = layers[name]
+                w_bits, a_bits = bits.get(name, (8, 8))[0], act_bits(name, e)
                 x, kw = seen[name]
+                x = stress(x, a_bits)
                 got = m(x, ctx, **kw)
+                # an unfused cross-attention k/v keeps its BoS row FP
+                bos = (bool(kw.get("bos_aware")) and ctx.bos_aware
+                       and a_bits is not None)
                 ref, signal = fake_quant_layer(torch, m, x, kw, qparams[name],
-                                               qparams[name])
-                if name.endswith(".ff.net.0.proj"):
-                    consumer = name[:-len("0.proj")] + "2"
+                                               qparams[name], bos, w_bits,
+                                               a_bits)
+                consumer = name[:-len("0.proj")] + "2"
+                if name.endswith(".ff.net.0.proj") and geglu_fusable(
+                        ctx.deploy_compute, e, ctx.entry(consumer)):
+                    c_bits = bits.get(consumer, (8, 8))[1]
+                    b = WQ.candidate_bits.index(c_bits)
                     c_qp = qparams[consumer]
                     codes = m(x, ctx, geglu_out=ctx.entry(consumer))
                     h, g = ref.chunk(2, -1)
                     a = h * F.gelu(g, approximate=(
                         "tanh" if ctx.gelu == "tanh" else "none"))
                     want = ((a * (1 / c_qp.a_delta[b])).round()
-                            + c_qp.a_zp[b]).clamp(0, 255) - 128
+                            + c_qp.a_zp[b]).clamp(0, 2 ** c_bits - 1) - (
+                                2 ** (c_bits - 1))
                     codes_err(torch, codes, want, f"{name} GEGLU codes")
             err = (got.float() - ref).pow(2).sum().item()
             out[name] = (math.inf if err == 0 else 10 * math.log10(
@@ -732,6 +870,193 @@ def faulted_ctx(ctx, name):
                                             name: e.replace(scale=scale)})
 
 
+def nibble_swapped_ctx(ctx, name):
+    """``ctx`` with the packed entry ``name``'s nibble halves swapped
+    (rows k and k + K/2 of its weight exchanged)."""
+    import dataclasses
+
+    e = ctx.deploy[name]
+    p = e.w_packed
+    return dataclasses.replace(ctx, deploy={
+        **ctx.deploy, name: e.replace(w_packed=(p >> 4) | (p << 4))})
+
+
+def a8_clip_ctx(ctx, name):
+    """``ctx`` with the A4/A2 entry ``name``'s codes clipped at A8."""
+    import dataclasses
+
+    return dataclasses.replace(ctx, deploy={
+        **ctx.deploy, name: ctx.deploy[name].replace(a_bits=8)})
+
+
+def resident_weight_bytes(unet, deploy):
+    """(total, deploy) bytes of the weights a deploy keeps resident once
+    the fp weights it replaces are pruned: every parameter the deploy does
+    not replace, plus its entries' tensors (codes, packed codes, scales,
+    ``bias0``, BoS weights)."""
+    def nbytes(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    dep = sum(nbytes(getattr(e, f)) for e in deploy.values()
+              for f in ("w_int", "w_packed", "scale", "bias0", "bos_w"))
+    fp = sum(nbytes(p) for n, p in unet.named_parameters()
+             if not (n.endswith(".weight") and n[:-len(".weight")] in deploy))
+    return fp + dep, dep
+
+
+def step_peak_bytes(torch, unet, req, ctx):
+    """``torch.cuda.max_memory_allocated`` over one step, and its rise
+    above what was allocated before the step."""
+    from mixdq_tpu_torch import pipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    pipeline.unet_step(unet, req, ctx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - before
+
+
+def phase_mixed(torch, unet, calib, requests, w8a8_ctx, qparams, seen,
+                card):
+    """The three mixed-precision SDXL-Turbo paths (W5.04 / A7.43 +
+    act-protect, ``MP_CALLS``) on the phase 3 UNet and requests: launch
+    counts (every packed entry on ``wq4_matmul``), SQNR against bf16
+    (>= ``MP_SQNR_DB``), ``pallas_dequant`` against ``dequant`` (>=
+    ``WONLY_SQNR_DB``, failed by one packed entry with its nibble halves
+    swapped), every deploy entry against fake quantization at its bits
+    (>= ``LAYER_SQNR_DB``, failed by the swapped nibbles and by an A4
+    entry clipped at A8), every attention site of the mixed int8 deploy
+    auto against einsum (>= ``SITE_SQNR_DB``, with zero-point faults at
+    the ``sec_attention`` sites the protect list makes), paired step
+    medians, resident weight bytes and peak memory, and one profiled step
+    per path. Returns {path: launches}."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant import bitmaps
+    from mixdq_tpu_torch.quant.deploy import layer_bits_from_ctrl
+    from mixdq_tpu_torch.quant.state import (FP_CTX, apply_bitwidth_config,
+                                             protect_layers,
+                                             quantizable_layers,
+                                             uniform_ctrl)
+
+    wmap = bitmaps.load_bit_map(os.path.join(MP_DIR, "final_config",
+                                             "weight", "5.04.yaml"))
+    amap = bitmaps.load_bit_map(os.path.join(MP_DIR, "final_config", "act",
+                                             "7.43.yaml"))
+    protect = bitmaps.load_layer_list(os.path.join(MP_DIR,
+                                                   "act_protect.yaml"))
+    t0 = time.time()
+    ctxs = {c: pipeline.quantize_mixed(unet, calib, wmap, amap, protect,
+                                       deploy_compute=c) for c in MP_CALLS}
+    torch.cuda.synchronize()
+    log(f"sdxl-turbo mixed deploys (calibrate + deploy, x{len(ctxs)}): "
+        f"{time.time() - t0:.1f}s, entries "
+        f"{ {c: len(x.deploy) for c, x in ctxs.items()} }")
+    ctrl = uniform_ctrl(list(quantizable_layers(unet)))
+    ctrl = apply_bitwidth_config(ctrl, wmap, "weight")
+    ctrl = apply_bitwidth_config(protect_layers(ctrl, protect), amap, "act")
+    bits = layer_bits_from_ctrl(ctrl)
+    labels = {c: MP_PATHS[c] for c in ctxs}
+    for c, ctx in ctxs.items():
+        if pipeline.expected_kernel_calls(
+                unet.config, "auto", deploy=ctx.deploy,
+                compute=c) != MP_CALLS[c]:
+            raise AssertionError(f"{labels[c]}: the deploy's launch counts "
+                                 "are not MP_CALLS")
+    for ctx in ctxs.values():  # warm-up outside the counts
+        pipeline.unet_step(unet, requests[0], ctx)
+    outs, launches = {}, {}
+    for c, ctx in ctxs.items():
+        outs[c], launches[labels[c]] = run_path(torch, unet, requests, ctx,
+                                                labels[c])
+        packed = sum(e.w_packed is not None for e in ctx.deploy.values())
+        if launches[labels[c]]["wq4_matmul"] != packed * len(requests):
+            raise AssertionError(f"{labels[c]}: {packed} packed entries, "
+                                 f"{launches[labels[c]]['wq4_matmul']} "
+                                 "wq4_matmul launches")
+
+    refs = [pipeline.unet_step(unet, r) for r in requests]
+    sqnrs = {labels[c]: [] for c in ctxs}
+    wonly = "pallas_dequant vs dequant"
+    swapped = f"pallas_dequant, {MP_FAULT_PACKED} nibbles swapped, vs dequant"
+    sqnrs.update({wonly: [], swapped: []})
+    bad = nibble_swapped_ctx(ctxs["pallas_dequant"], MP_FAULT_PACKED)
+    for i, (r, ref) in enumerate(zip(requests, refs)):
+        for c in ctxs:
+            x = outs[c][i]
+            if x.shape != ref.shape or not torch.isfinite(x).all():
+                raise AssertionError(f"{labels[c]}: bad output {x.shape}")
+            sqnrs[labels[c]].append(sqnr_db(ref, x))
+        sqnrs[wonly].append(sqnr_db(outs["dequant"][i],
+                                    outs["pallas_dequant"][i]))
+        sqnrs[swapped].append(sqnr_db(outs["dequant"][i],
+                                      pipeline.unet_step(unet, r, bad)))
+    for k, v in sqnrs.items():
+        log(f"SQNR {k if 'vs' in k else k + ' vs bf16'} per request (dB): "
+            f"{[round(x, 2) for x in v]}")
+    if min(min(sqnrs[labels[c]]) for c in ctxs) < MP_SQNR_DB:
+        raise AssertionError(f"mixed SQNR vs bf16 < {MP_SQNR_DB} dB")
+    if min(sqnrs[wonly]) < WONLY_SQNR_DB:
+        raise AssertionError(f"{wonly}: {sqnrs[wonly]} dB < {WONLY_SQNR_DB}")
+    if max(sqnrs[swapped]) >= WONLY_SQNR_DB:
+        raise AssertionError(f"the {WONLY_SQNR_DB} dB gate misses swapped "
+                             f"nibbles: {sqnrs[swapped]}")
+
+    # every entry against fake quantization at its bits, and the faults
+    a4 = next(n for n, e in sorted(ctxs["int8_sec"].deploy.items())
+              if e.kind == "linear" and e.a_bits == 4 and not e.act_off
+              and not n.endswith(("to_qkv", "to_kv", ".ff.net.0.proj")))
+    faults = {"pallas_dequant": (nibble_swapped_ctx, MP_FAULT_PACKED),
+              "int8_sec": (a8_clip_ctx, a4)}
+    for c, ctx in ctxs.items():
+        names = [n for n, e in ctx.deploy.items() if e.kind != "fused_away"]
+        s = layer_sqnrs(torch, unet, ctx, qparams, seen, names, bits)
+        low = sorted(s.items(), key=lambda kv: kv[1])
+        log(f"{labels[c]}: per-entry SQNR vs fake quantization over {len(s)}"
+            f" entries (dB): min {low[0][1]:.2f} median "
+            f"{statistics.median(s.values()):.2f}; lowest "
+            f"{[(n, round(v, 2)) for n, v in low[:3]]}")
+        for kind, test in (("weight-only", lambda e: e.act_off),
+                           ("packed", lambda e: e.w_packed is not None),
+                           ("A2/A4", lambda e: not e.act_off
+                            and e.a_bits < 8)):
+            v = [s[n] for n in names if test(ctx.deploy[n])]
+            if v:
+                log(f"  {kind} entries: {len(v)}, min {min(v):.2f} dB")
+        if low[0][1] < LAYER_SQNR_DB:
+            raise AssertionError(f"{labels[c]} entry {low[0][0]}: SQNR "
+                                 f"{low[0][1]} dB < {LAYER_SQNR_DB}")
+        if c in faults:
+            fault, name = faults[c]
+            f = layer_sqnrs(torch, unet, fault(ctx, name), qparams, seen,
+                            [name], bits)[name]
+            log(f"{labels[c]}: per-entry SQNR of {name} with its "
+                f"{fault.__name__[:-4]} fault: {f:.2f} dB")
+            if f >= LAYER_SQNR_DB:
+                raise AssertionError(f"the per-entry check misses the fault "
+                                     f"in {name}")
+    kernels = phase_attention_sites(torch, unet, ctxs["int8_sec"],
+                                    requests[0], MP_FAULT_SITES)
+    log(f"{labels['int8_sec']} attention kernels: "
+        f"{dict(collections.Counter(kernels.values()))}")
+
+    paths = (("bf16", FP_CTX), ("w8a8_auto", w8a8_ctx),
+             *((f"mp_{c}", ctxs[c]) for c in ctxs))
+    paired_step_ms(torch, unet, requests, paths, card, "sdxl-turbo mixed")
+    for tag, ctx in paths:
+        total, dep = resident_weight_bytes(
+            unet, ctx.deploy if ctx.mode == "int8" else {})
+        peak, rise = step_peak_bytes(torch, unet, requests[0], ctx)
+        log(f"{tag}: resident weights {total / 2**20:.1f} MiB (deploy "
+            f"entries {dep / 2**20:.1f} MiB); one step: "
+            f"max_memory_allocated {peak / 2**20:.1f} MiB, "
+            f"{rise / 2**20:.1f} MiB above the step's start")
+    phase_profile(torch, unet, requests[0],
+                  [(f"mp_{c}", ctxs[c]) for c in ctxs])
+    return launches
+
+
 def step_ms(torch, fn):
     a, b = (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
@@ -743,23 +1068,25 @@ def step_ms(torch, fn):
 
 
 def run_path(torch, unet, requests, ctx, label):
-    """One path (``ctx``: W8A8 or FP, either ``attn_impl``) over
-    ``requests`` with the launch counts set to 0 just before it and read
-    just after; fails unless every kernel launched as often as the
-    structure implies."""
+    """One path (``ctx``: a deploy under its compute, or FP; either
+    ``attn_impl``) over ``requests`` with the launch counts set to 0 just
+    before it and read just after; fails unless every kernel launched as
+    often as the structure and the deploy imply, and every wrapper call
+    launched its kernel."""
     from mixdq_tpu_torch import ops, pipeline
 
     ops.reset_counts()
     outs = [pipeline.unet_step(unet, r, ctx) for r in requests]
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    per_step = pipeline.expected_kernel_calls(unet.config, ctx.attn_impl,
-                                              mode=ctx.mode)
+    per_step = pipeline.expected_kernel_calls(
+        unet.config, ctx.attn_impl, mode=ctx.mode, deploy=ctx.deploy,
+        compute=ctx.deploy_compute)
     want = {k: v * len(requests) for k, v in per_step.items()}
     log(f"{label} path launches over {len(requests)} requests: {launches}")
-    if launches != want:
-        raise AssertionError(f"{label} launch counts {launches}, expected "
-                             f"{want}")
+    if launches != want or ops.call_counts() != launches:
+        raise AssertionError(f"{label} launch counts {launches}, calls "
+                             f"{ops.call_counts()}, expected {want}")
     return outs, launches
 
 
@@ -784,7 +1111,8 @@ def phase_main_path(torch, dev, card):
             "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
             "ln_quantize": 140, "geglu_qmatmul": 70, "qmatmul": 264,
             "sec_attention_qkv": 70, "sec_attention_q_out": 70,
-            "flash_attention": 0, "sec_attention": 0, "sec_attention_q": 0}:
+            "flash_attention": 0, "sec_attention": 0, "sec_attention_q": 0,
+            "wq4_matmul": 0, "wq_matmul": 0}:
         raise AssertionError("the structure's launch counts changed")
     requests = [pipeline.example_inputs("sdxl-turbo", 1, 100 + i, bf16, dev)
                 for i in range(N_REQUESTS)]
@@ -822,7 +1150,7 @@ def phase_main_path(torch, dev, card):
     paired_step_ms(torch, unet, requests,
                    (("bf16", FP_CTX), ("auto", ctx), ("einsum", ectx)), card,
                    "sdxl-turbo")
-    return unet, ctx, calib, requests[0], launches, e_launches
+    return unet, ctx, calib, requests, launches, e_launches
 
 
 def phase_layers(torch, unet, ctx, calib, req):
@@ -851,6 +1179,7 @@ def phase_layers(torch, unet, ctx, calib, req):
         if f >= LAYER_SQNR_DB:
             raise AssertionError(f"the per-layer check misses a fault in "
                                  f"{name}")
+    return qparams, seen
 
 
 def record_attention_inputs(torch, unet, req, ctx=None):
@@ -928,13 +1257,24 @@ def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None,
     return out
 
 
+def site_gate(ctx, site):
+    """The per-site SQNR limit: ``SITE_SQNR_DB`` where ``to_out`` takes
+    8-bit act codes, ``SITE_DB_PER_BIT`` lower for each bit below 8 (one
+    code apart between two kernels costs a step that doubles per bit
+    dropped, at half the rate)."""
+    e = ctx.entry(f"{site}.to_out.0")
+    a_bits = 8 if e is None or e.act_off else e.a_bits
+    return SITE_SQNR_DB - SITE_DB_PER_BIT * (8 - a_bits)
+
+
 def phase_attention_sites(torch, unet, ctx, req, fault_sites=FAULT_SITES):
     """Every attention module, teacher-forced on its FP-step input, under
     ``ctx`` (``attn_impl='auto'``) against ``attn_impl='einsum'`` on the
-    same deploy: a fault at one attention kernel's site, which the
-    whole-step SQNR cannot see, shows here. Each of ``fault_sites`` (a
-    to_out entry whose act zero point the kernel sees shifted by 8 codes)
-    proves it. Returns {module: its attention kernel under ``ctx``}."""
+    same deploy (>= ``site_gate``): a fault at one attention kernel's
+    site, which the whole-step SQNR cannot see, shows here. Each of
+    ``fault_sites`` (a to_out entry whose act zero point the kernel sees
+    shifted by 8 codes) proves it. Returns {module: its attention kernel
+    under ``ctx``}."""
     import dataclasses
 
     seen = record_attention_inputs(torch, unet, req)
@@ -948,9 +1288,12 @@ def phase_attention_sites(torch, unet, ctx, req, fault_sites=FAULT_SITES):
         v = [s[n] for n in s if kernels[n] == k]
         log(f"  {k} sites: {len(v)}, min {min(v):.2f} median "
             f"{statistics.median(v):.2f} dB")
-    if low[0][1] < SITE_SQNR_DB:
-        raise AssertionError(f"site {low[0][0]}: SQNR {low[0][1]} dB < "
-                             f"{SITE_SQNR_DB}")
+    for gate in sorted({site_gate(ctx, n) for n in s}):
+        v = [s[n] for n in s if site_gate(ctx, n) == gate]
+        log(f"  sites with limit {gate:.1f} dB: {len(v)}, min {min(v):.2f}")
+    bad = [(n, v) for n, v in low if v < site_gate(ctx, n)]
+    if bad:
+        raise AssertionError(f"sites below their SQNR limit: {bad}")
     einsum = dataclasses.replace(ctx, attn_impl="einsum")
     for name in fault_sites:
         site = name[:-len(".to_out.0")]
@@ -958,7 +1301,7 @@ def phase_attention_sites(torch, unet, ctx, req, fault_sites=FAULT_SITES):
                        ref_ctx=einsum)[site]
         log(f"attention site SQNR with the {name} zero point shifted by 8 "
             f"codes: {f:.2f} dB")
-        if f >= SITE_SQNR_DB:
+        if f >= site_gate(ctx, site):
             raise AssertionError(f"the site check misses a fault in {name}")
     return kernels
 
@@ -1175,10 +1518,11 @@ def main():
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
         "values")
-    unet, ctx, calib, req, launches, e_launches = phase_main_path(
+    unet, ctx, calib, requests, launches, e_launches = phase_main_path(
         torch, dev, card)
+    req = requests[0]
     log("phase 3: main paths ok (auto, einsum)")
-    phase_layers(torch, unet, ctx, calib, req)
+    qparams, seen = phase_layers(torch, unet, ctx, calib, req)
     log("phase 4: every deploy entry matches fake quantization")
     phase_attention_sites(torch, unet, ctx, req)
     log("phase 4: every attention site matches under auto and einsum")
@@ -1186,18 +1530,20 @@ def main():
         ("auto", ctx), ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
         ("bf16", FP_CTX)))
     log("phase 5: profiles written")
-    del unet, ctx, calib, req
+    totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
+    totals.update(phase_mixed(torch, unet, calib, requests, ctx, qparams,
+                              seen, card))
+    log("phase 6: mixed-precision paths ok (mp auto, w-only dequant, "
+        "w-only pallas_dequant)")
+    del unet, ctx, calib, req, requests, qparams, seen
     gc.collect()
     torch.cuda.empty_cache()
-    per_step = {"sdxl-turbo auto": {k: v // N_REQUESTS
-                                    for k, v in launches.items()},
-                "sdxl-turbo einsum": {k: v // N_REQUESTS
-                                      for k, v in e_launches.items()}}
-    totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
+    per_step = {p: {k: v // N_REQUESTS for k, v in c.items()}
+                for p, c in totals.items()}
     sdxl_per_step, sdxl_totals = phase_sdxl(torch, dev, card)
     per_step.update(sdxl_per_step)
     totals.update(sdxl_totals)
-    log("phase 6: sdxl 1024 paths ok (auto, einsum, bf16 auto)")
+    log("phase 7: sdxl 1024 paths ok (auto, einsum, bf16 auto)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
@@ -1209,13 +1555,14 @@ def main():
         first, extra = r["shapes"][0], {}
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
-        # the main path a kernel runs on: the SDXL-Turbo headline, else
-        # SDXL 1024 under auto
-        main_path, requests = (
-            ("sdxl-turbo auto", N_REQUESTS) if totals["sdxl-turbo auto"][name]
-            else ("sdxl auto", N_SDXL_REQUESTS))
-        if not totals[main_path][name]:
+        # the main path a kernel runs on: the SDXL-Turbo headline, else the
+        # weight-only pallas_dequant step, else SDXL 1024 under auto
+        main_path = next((p for p in ("sdxl-turbo auto",
+                                      MP_PATHS["pallas_dequant"], "sdxl auto")
+                          if totals[p][name]), None)
+        if main_path is None:
             raise AssertionError(f"{name} never launched on a main path")
+        requests = N_SDXL_REQUESTS if main_path == "sdxl auto" else N_REQUESTS
         kernels.append({
             **extra, "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": totals[main_path][name],

@@ -33,7 +33,7 @@ from ..ops.sec_attention import (sec_attention, sec_attention_q,
 from ..quant.state import FP_CTX, QuantCtx
 from . import routing
 from .layers import (GroupNorm, LayerNorm, QDense, bos_row, codes_of,
-                     deploy_linear, name_layers)
+                     deploy_linear, layer_compute, name_layers)
 
 
 def deploy_res_add(residual: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -60,22 +60,23 @@ def ln_fold_args(ln):
 
 def fused_entry(ctx: QuantCtx, name: Optional[str], kind: str = "linear"):
     """The deploy entry of ``name`` if its norm producer can emit its
-    codes (int8 mode, act-quantized entry of ``kind``)."""
-    if name is None:
+    codes (``int8_sec`` compute, act-quantized entry of ``kind``; the JAX
+    package's ``fused_ln_entry`` / ``fused_gn_entry``)."""
+    if name is None or ctx.deploy_compute != "int8_sec":
         return None
     dp = ctx.entry(name)
-    if dp is None or dp.kind != kind or dp.scale_inv is None:
+    if (dp is None or dp.kind != kind or dp.scale_inv is None
+            or dp.act_off):
         return None
     return dp
 
 
-def geglu_fusable(ctx: QuantCtx, dp_p, dp_c) -> bool:
+def geglu_fusable(compute: str, dp_p, dp_c) -> bool:
     """Whether proj GEMM + gate + the consumer's act-quantize run as one
-    ``geglu_qmatmul``: plain int8 linear entries on both sides."""
-    return (dp_p is not None and dp_p.kind == "linear"
-            and dp_p.w_int is not None
-            and dp_c is not None and dp_c.kind == "linear"
-            and dp_c.scale_inv is not None)
+    ``geglu_qmatmul``: ``int8_sec`` compute, act-quantized int8 linear
+    entries on both sides, the proj's codes unpacked."""
+    return (compute == "int8_sec" and routing.act_entry(dp_p)
+            and dp_p.w_int is not None and routing.act_entry(dp_c))
 
 
 class Attention(nn.Module):
@@ -103,14 +104,18 @@ class Attention(nn.Module):
         kv_input = encoder_hidden_states if is_cross else hidden_states
         dp_f = (ctx.entry(self.qname + (".to_kv" if is_cross else ".to_qkv"))
                 if ctx.fuse_qkv else None)
+        dp_q, dp_o = ctx.entry(self.to_q.qname), ctx.entry(self.to_out[0].qname)
         route = routing.attention_route(
             mode=ctx.mode, attn_impl=ctx.attn_impl, fused=dp_f is not None,
             cross=is_cross, heads=self.heads, head_dim=self.head_dim,
             Tq=hidden_states.shape[1], Tk=kv_input.shape[1],
             C_in=hidden_states.shape[-1],
             codes=ln is not None or hidden_states.dtype == torch.int8,
-            out_entry=self._int8_entry(ctx, self.to_out[0]),
-            q_entry=self._int8_entry(ctx, self.to_q))
+            out_entry=routing.act_entry(dp_o), q_entry=routing.act_entry(dp_q),
+            compute=ctx.deploy_compute,
+            fused_codes=dp_f is not None and dp_f.w_int is not None,
+            q_codes=dp_q is not None and dp_q.w_int is not None,
+            out_codes=dp_o is not None and dp_o.w_int is not None)
         if route.kernel == routing.QKV:
             return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
         if ln is not None and not (route.kernel == routing.Q_OUT
@@ -121,8 +126,10 @@ class Attention(nn.Module):
             kv_input = kv_input if is_cross else hidden_states
             ln = None
         if dp_f is not None:
-            y = deploy_linear(kv_input, dp_f, self.dtype)
-            if is_cross and ctx.bos_aware and kv_input.ndim >= 3:
+            compute = layer_compute(ctx.deploy_compute, dp_f)
+            y = deploy_linear(kv_input, dp_f, compute, self.dtype)
+            if (is_cross and compute == "int8" and ctx.bos_aware
+                    and kv_input.ndim >= 3):
                 y = torch.cat([bos_row(kv_input.to(self.dtype), dp_f,
                                        self.dtype), y[..., 1:, :]], -2)
             if route.kernel == routing.Q_OUT:
@@ -172,14 +179,6 @@ class Attention(nn.Module):
         logits = (qh @ kh.transpose(-1, -2)) * self.head_dim ** -0.5
         probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
         return (probs @ vh).transpose(1, 2).reshape(B, Tq, inner)
-
-    @staticmethod
-    def _int8_entry(ctx: QuantCtx, layer) -> bool:
-        """Whether ``layer`` has an int8 act-quantized linear entry, as
-        the whole-attention kernels ask of ``to_q`` and ``to_out``."""
-        dp = ctx.entry(layer.qname)
-        return dp is not None and dp.kind == "linear" and \
-            dp.scale_inv is not None
 
     def _codes(self, x, dp):
         """``x`` as the act codes of entry ``dp`` (fp input in the model
@@ -248,7 +247,7 @@ class GEGLU(nn.Module):
         """``consumer_dp``: the ``ff.net.2`` entry; when the fused kernel
         applies, returns that consumer's int8 codes ``[..., inner]``."""
         if consumer_dp is not None and geglu_fusable(
-                ctx, ctx.entry(self.proj.qname), consumer_dp):
+                ctx.deploy_compute, ctx.entry(self.proj.qname), consumer_dp):
             return self.proj(x, ctx, geglu_out=consumer_dp)
         h, gate = self.proj(x, ctx).chunk(2, -1)
         return (h.float() * gelu(gate.float(), ctx.gelu == "tanh")).to(

@@ -5,8 +5,10 @@ Layouts follow the JAX package: activations NHWC, conv weights HWIO
 ``[kh, kw, C, K]``, dense weights ``[K, N]`` (in, out). Quantization is
 driven by the ``QuantCtx`` passed to ``forward``: in ``'fp'`` mode the
 layers run their fp weights; in ``'int8'`` mode a layer with a deploy
-entry (``ctx.deploy[name]``, name = the module's dotted name) runs int8
-math instead and never reads its fp weight.
+entry (``ctx.deploy[name]``, name = the module's dotted name) runs that
+entry instead and never reads its fp weight: act-quantized int8 math, or
+weight-only math (``layer_compute``) for act-protected entries and under
+the ``'dequant'`` / ``'pallas_dequant'`` computes.
 
 An int8 tensor passed as input holds THIS layer's activation codes
 already (emitted upstream by ``ln_quantize`` / ``gn_silu_quantize``).
@@ -24,6 +26,7 @@ from torch import nn
 from ..ops.qconv import qconv2d, qconv2d_s2
 from ..ops.qmatmul import geglu_qmatmul
 from ..ops.qops import act_clip_range, qlinear, quantize_per_tensor
+from ..ops.wq_matmul import wq4_matmul, wq_matmul
 from ..quant.state import FP_CTX, QuantCtx
 
 
@@ -51,12 +54,42 @@ def codes_of(x: torch.Tensor, dp) -> torch.Tensor:
                                *act_clip_range(dp.a_bits))
 
 
-def deploy_linear(x: torch.Tensor, dp, dtype) -> torch.Tensor:
-    """Int8 matmul of one deploy entry (no bias, no BoS handling)."""
-    if x.dtype != torch.int8:
-        x = x.to(dtype)
-    return qlinear(codes_of(x, dp), dp.w_int, dp.scale, dp.bias0,
-                   out_dtype=dtype)
+def layer_compute(compute: str, dp) -> str:
+    """How one dense entry runs under the context's ``deploy_compute``
+    (``mixdq_tpu/models/layers.py:54-70``, ``:250-255``): ``'int8'``
+    (act-quantized int8 GEMM), ``'dequant'`` (weight-only: act-protected
+    entries under every compute, and every entry under ``'dequant'``) or
+    ``'pallas_dequant'``."""
+    if dp.act_off:
+        return "dequant"
+    return "int8" if compute == "int8_sec" else compute
+
+
+def deploy_linear(x: torch.Tensor, dp, compute: str, dtype) -> torch.Tensor:
+    """One dense deploy entry under ``compute`` (``layer_compute``), no
+    bias, no BoS handling (``mixdq_tpu/models/layers.py:90-161``):
+    ``'int8'`` quantizes ``x`` (unless it holds the codes already) and runs
+    ``qmatmul``, a packed entry unpacked first; the weight-only computes
+    run a packed entry on ``wq4_matmul``, an int8 one on ``wq_matmul``
+    (``'pallas_dequant'``) or as ``x @ codes`` times the per-column scale
+    (``'dequant'``)."""
+    if x.dtype == torch.int8 or compute == "int8":
+        if dp.w_packed is not None:
+            dp = dp.replace(w_int=dp.codes(), w_packed=None)
+        if compute != "int8":
+            raise ValueError(f"{compute}: a weight-only entry takes no codes")
+        return qlinear(codes_of(x.to(dtype) if x.dtype != torch.int8 else x,
+                                dp), dp.w_int, dp.scale, dp.bias0,
+                       out_dtype=dtype)
+    x = x.to(dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if dp.w_packed is not None:
+        y = wq4_matmul(x2, dp.w_packed, dp.w_delta(), out_dtype=dtype)
+    elif compute == "pallas_dequant":
+        y = wq_matmul(x2, dp.w_int, dp.w_delta(), out_dtype=dtype)
+    else:
+        return (x @ dp.w_int.to(dtype)) * dp.w_delta().to(dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def bos_row(x: torch.Tensor, dp, dtype) -> torch.Tensor:
@@ -102,8 +135,11 @@ class QDense(nn.Module):
                 bias=self.bias, gelu_tanh=(ctx.gelu == "tanh"),
                 clip=act_clip_range(geglu_out.a_bits))
             return out.reshape(*codes.shape[:-1], out.shape[-1])
-        y = deploy_linear(x, dp, self.dtype)
-        if bos_aware and ctx.bos_aware and x.ndim >= 3:
+        compute = layer_compute(ctx.deploy_compute, dp)
+        y = deploy_linear(x, dp, compute, self.dtype)
+        # the weight-only routes quantize no acts: the BoS token needs no
+        # protection there
+        if compute == "int8" and bos_aware and ctx.bos_aware and x.ndim >= 3:
             if pre_codes:
                 raise ValueError(f"{self.qname}: BoS protection needs the "
                                  "fp input")
@@ -147,12 +183,21 @@ class QConv(nn.Module):
         """``split``: channel count of the first half of a concatenated
         input (calibration records the halves' ranges apart). ``extra_bias``
         ``[B, features]`` and ``residual`` ``[B, P, Q, features]`` are
-        added exactly once — in the conv kernel's epilogue on the int8
-        path."""
+        added exactly once — in the conv kernel's epilogue on the
+        ``int8_sec`` path."""
         dp = ctx.entry(self.qname)
-        if dp is not None:
-            return self._conv_int8(x, dp, extra_bias, residual)
-        y = self._conv(x.to(self.dtype), self.weight)
+        if dp is None:
+            w, scale = self.weight, None
+        elif dp.act_off or ctx.deploy_compute == "dequant":
+            # weight-only: the codes as the conv weight, the per-column
+            # scale on the output (mixdq_tpu/models/layers.py:458-473)
+            w, scale = dp.w_int.to(self.dtype), dp.w_delta().to(self.dtype)
+        else:
+            return self._conv_int8(x, dp, extra_bias, residual,
+                                   fuse=ctx.deploy_compute == "int8_sec")
+        y = self._conv(x.to(self.dtype), w)
+        if scale is not None:
+            y = y * scale
         if self.bias is not None:
             y = y + self.bias
         if extra_bias is not None:
@@ -161,8 +206,11 @@ class QConv(nn.Module):
             y = y + residual.to(self.dtype)
         return y
 
-    def _conv_int8(self, x, e, eb, res):
-        """One int8 conv of entry ``e`` with every add fused in."""
+    def _conv_int8(self, x, e, eb, res, fuse):
+        """One int8 conv of entry ``e``. ``fuse`` (``int8_sec``): every add
+        in the conv kernel's epilogue; else (``'pallas_dequant'``, whose
+        convs keep the JAX package's act-quantized int8 path) the bias
+        alone, then the adds in the model dtype."""
         if x.dtype != torch.int8:
             x = x.to(self.dtype)
         codes, b = codes_of(x, e), self.bias
@@ -171,17 +219,22 @@ class QConv(nn.Module):
             y = qlinear(codes.reshape(-1, C), e.w_int.reshape(C, -1),
                         e.scale, e.bias0, bias=b, out_dtype=self.dtype)
             y = y.reshape(B, H, W, -1)
-            if eb is not None:
-                y = y + eb.to(self.dtype)[:, None, None, :]
-            return y if res is None else y + res.to(self.dtype)
-        if self.strides not in ((1, 1), (2, 2)):
-            raise NotImplementedError(f"{self.qname}: stride {self.strides}")
-        conv = qconv2d if self.strides == (1, 1) else qconv2d_s2
-        if res is not None:
-            res = res.to(self.dtype).contiguous()
-        return conv(codes.contiguous(), e.w_int, e.scale, e.bias0,
-                    e.zp_shifted, bias=b, extra_bias=eb, residual=res,
-                    padding=self.padding, out_dtype=self.dtype)
+        else:
+            if self.strides not in ((1, 1), (2, 2)):
+                raise NotImplementedError(f"{self.qname}: stride "
+                                          f"{self.strides}")
+            conv = qconv2d if self.strides == (1, 1) else qconv2d_s2
+            if res is not None:
+                res = res.to(self.dtype).contiguous()
+            y = conv(codes.contiguous(), e.w_int, e.scale, e.bias0,
+                     e.zp_shifted, bias=b, extra_bias=eb if fuse else None,
+                     residual=res if fuse else None, padding=self.padding,
+                     out_dtype=self.dtype)
+            if fuse:
+                return y
+        if eb is not None:
+            y = y + eb.to(self.dtype)[:, None, None, :]
+        return y if res is None else y + res.to(self.dtype)
 
 
 class GroupNorm(nn.Module):

@@ -122,33 +122,49 @@ class Route(NamedTuple):
 def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
                     heads: int, head_dim: int, Tq: int, Tk: int, C_in: int,
                     codes: bool = True, out_entry: bool = True,
-                    q_entry: bool = True) -> Route:
+                    q_entry: bool = True, compute: str = "int8_sec",
+                    fused_codes: bool = True, q_codes: bool = True,
+                    out_codes: bool = True) -> Route:
     """The JAX package's choice for one attention site.
 
-    ``mode``: the context's ``'fp'`` / ``'int8'``; ``fused``: a fused
-    QKV (self) / KV (cross) deploy entry runs the projections; ``codes``:
-    the site's input is int8 codes or a deferred LayerNorm that can emit
-    them; ``out_entry`` / ``q_entry``: ``to_out`` / ``to_q`` have int8
-    act-quantized deploy entries. The q/k/v sources: the fused
+    ``mode``: the context's ``'fp'`` / ``'int8'``; ``compute``: its
+    ``deploy_compute`` (the attention kernels run under ``'int8_sec'``
+    only); ``fused``: a fused QKV (self) / KV (cross) deploy entry runs
+    the projections; ``codes``: the site's input is int8 codes or a
+    deferred LayerNorm that can emit them; ``out_entry`` / ``q_entry``:
+    ``to_out`` / ``to_q`` have act-quantized (not weight-only) int8
+    deploy entries; ``fused_codes`` / ``q_codes`` / ``out_codes``: the
+    fused entry / ``to_q`` / ``to_out`` hold unpacked int8 codes, which a
+    whole-attention kernel reads itself (``mixdq_tpu/models/attention.py``
+    :219-225, :340-347, :355-356). The q/k/v sources: the fused
     ``to_qkv`` output (0/C/2C), ``to_q``'s output and the fused ``to_kv``
     output (0 / 0/C), or three projections (0/0/0)."""
     C = heads * head_dim
-    int8, auto = mode == "int8", attn_impl == "auto"
+    sec = mode == "int8" and compute == "int8_sec" and attn_impl == "auto"
     if fused and not cross:
         offsets = (0, C, 2 * C)
     else:
         offsets = (0, 0, C) if fused else (0, 0, 0)
-    if int8 and auto and fused and codes and out_entry:
-        if not cross and sec_attention_qkv_ok(heads, head_dim, Tq, C_in):
+    if sec and fused and codes and out_entry:
+        if not cross and fused_codes and sec_attention_qkv_ok(
+                heads, head_dim, Tq, C_in):
             return Route(QKV, offsets)
-        if cross and q_entry:
-            if sec_attention_q_out_ok(heads, head_dim, Tq, Tk, C_in, 0, C):
+        if cross and q_entry and q_codes:
+            if out_codes and sec_attention_q_out_ok(heads, head_dim, Tq, Tk,
+                                                    C_in, 0, C):
                 return Route(Q_OUT, offsets)
             if sec_attention_q_ok(heads, head_dim, Tq, Tk, C_in, 0, C):
                 return Route(SEC_Q, offsets)
-    if int8 and auto and out_entry and sec_attention_ok(
-            heads, head_dim, Tq, Tk, *offsets):
+    if sec and out_entry and sec_attention_ok(heads, head_dim, Tq, Tk,
+                                              *offsets):
         return Route(SEC, offsets)
-    if auto and Tq * Tk >= FLASH_TQ_TK:
+    if attn_impl == "auto" and Tq * Tk >= FLASH_TQ_TK:
         return Route(FLASH, offsets)
     return Route(EINSUM, offsets)
+
+
+def act_entry(dp) -> bool:
+    """Whether deploy entry ``dp`` is an act-quantized (not weight-only)
+    int8 linear entry."""
+    return (dp is not None and dp.kind == "linear"
+            and dp.scale_inv is not None and not dp.act_off)

@@ -23,7 +23,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("qconv.cu", "geglu_qmatmul.cu", "gn_quant.cu", "ln_quant.cu",
-           "qmatmul.cu", "sec_attention.cu", "flash_attention.cu")
+           "qmatmul.cu", "sec_attention.cu", "flash_attention.cu",
+           "wq_matmul.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

@@ -1,12 +1,14 @@
 """Quantization state and context (port of the parts of
-``mixdq_tpu/quant/state.py`` the W8A8 deploy path reads).
+``mixdq_tpu/quant/state.py`` the deploy paths read).
 
 * ``canonical_name`` maps a flax module path to the diffusers dotted name
   (``resnets_0`` -> ``resnets.0``); the port's ``nn.Module`` tree already
   carries those names, and ``convert.py`` uses this to map JAX params.
 * ``LayerQParams`` holds one layer's multi-bit ``delta``/``zero_point``
   stacks (``*0`` twins for channel-split convs).
-* ``LayerCtrl`` holds one layer's enable flags and bit indices.
+* ``LayerCtrl`` holds one layer's enable flags and bit indices;
+  ``apply_bitwidth_config`` / ``protect_layers`` set them from a per-layer
+  bit map and an act-protect list.
 * ``QuantCtx`` is threaded through every module's ``forward``.
 """
 
@@ -84,6 +86,56 @@ def uniform_ctrl(layer_names: Sequence[str], w_bits: int = 8,
     return {n: c for n in layer_names}
 
 
+#: bit-widths a bit map uses for "leave this tensor FP"
+FP_BITS = (0, 16, 32)
+
+
+def apply_bitwidth_config(ctrl: Dict[str, LayerCtrl], bit_config: Dict[str, int],
+                          which: str,
+                          candidate_bits: Sequence[int] = DEFAULT_CANDIDATE_BITS
+                          ) -> Dict[str, LayerCtrl]:
+    """Apply a per-layer bit map ``{layer: bits}`` to the weight
+    (``which='weight'``) or act (``'act'``) controls: bits 0/16/32 turn
+    that tensor's quantization off, any other bits (a candidate) turn it
+    on at those bits. A layer the controls do not hold raises
+    ``KeyError``."""
+    if which not in ("weight", "act"):
+        raise ValueError(f"which {which!r}: 'weight' or 'act'")
+    cb = list(candidate_bits)
+    out = dict(ctrl)
+    for name, bits in bit_config.items():
+        if name not in out:
+            raise KeyError(f"bitwidth config references unknown layer: {name}")
+        c = out[name]
+        on = bits not in FP_BITS
+        idx = cb.index(bits) if on else None
+        if which == "weight":
+            out[name] = dataclasses.replace(
+                c, w_on=on, w_idx=c.w_idx if idx is None else idx)
+        else:
+            out[name] = dataclasses.replace(
+                c, a_on=on, a_idx=c.a_idx if idx is None else idx)
+    return out
+
+
+def protect_layers(ctrl: Dict[str, LayerCtrl], names: Sequence[str]
+                   ) -> Dict[str, LayerCtrl]:
+    """Turn act quantization off for the listed layers (the act-protect
+    list: weight-only layers). A layer the controls do not hold raises
+    ``KeyError``."""
+    out = dict(ctrl)
+    for n in names:
+        if n not in out:
+            raise KeyError(f"protect list references unknown layer: {n}")
+        out[n] = dataclasses.replace(out[n], a_on=False)
+    return out
+
+
+#: deploy compute strategies (``mixdq_tpu/models/layers.py:51``) that the
+#: port runs; the JAX package's plain ``'int8'`` (XLA convs) is not ported
+DEPLOY_COMPUTE = ("int8_sec", "dequant", "pallas_dequant")
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantCtx:
     """What the model needs to know about quantization. ``mode``: ``'fp'``
@@ -99,7 +151,16 @@ class QuantCtx:
     every cross-attention ``sec_attention_q_out`` with its pre-LayerNorm
     folded in; the JAX package's defaults of its ``MIXDQ_SEC_OUTFUSE`` /
     ``MIXDQ_SEC_LNFOLD`` knobs, which the port does not read).
-    ``gelu``: ``'tanh'`` or ``'exact'``."""
+    ``gelu``: ``'tanh'`` or ``'exact'``.
+
+    ``deploy_compute`` (int8 mode): ``'int8_sec'`` as above;
+    ``'dequant'`` (weight-only: acts stay in the model dtype, packed-W4
+    dense entries run ``wq4_matmul``, the others the product with the
+    int8 codes and then the per-channel scale, 1x1 convs likewise) or
+    ``'pallas_dequant'`` (the same, with ``wq_matmul`` for the int8 dense
+    entries; convs keep their act-quantized int8 path, as the JAX package's
+    ``resolve_compute`` sends them). Act-protected entries (``act_off``)
+    run weight-only under every compute."""
 
     deploy: Any = None  # Dict[str, DeployEntry]
     mode: str = "fp"
@@ -107,6 +168,7 @@ class QuantCtx:
     fuse_qkv: bool = False
     gelu: str = "tanh"
     attn_impl: str = "einsum"
+    deploy_compute: str = "int8_sec"
 
     def __post_init__(self):
         if self.mode not in ("fp", "int8"):
@@ -116,6 +178,9 @@ class QuantCtx:
         if self.attn_impl not in ("einsum", "auto"):
             raise ValueError(f"attn_impl {self.attn_impl!r}: this port runs "
                              "'einsum' or 'auto'")
+        if self.deploy_compute not in DEPLOY_COMPUTE:
+            raise ValueError(f"deploy_compute {self.deploy_compute!r}: this "
+                             f"port runs {DEPLOY_COMPUTE}")
 
     def entry(self, name: str):
         """The deploy entry of layer ``name`` in int8 mode, else None."""

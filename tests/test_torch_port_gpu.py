@@ -290,3 +290,51 @@ def test_sec_attention_q_kernel(dev, B, Tq, heads, d, C_in, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.int8 and got.shape == (B, Tq, heads * d)
     assert_codes_close(got, want)
+
+
+#: wq4/wq_matmul shapes of the weight-only SDXL-Turbo step: ff.net.0.proj
+#: at 32x32, ff.net.2 at 16x16, to_k/to_v on the text, time_emb_proj, and
+#: ragged N / K / M
+WQ_SHAPES = [(1024, 640, 5120), (256, 5120, 1280), (77, 2048, 1280),
+             (1, 1280, 1280), (77, 2048, 1000), (33, 72, 20), (5, 100, 37)]
+
+
+def wq_err(got, want):
+    """max |d| <= 2 bf16 ulps of max |want| and |d| / |want| <= 1e-2 (the
+    two sum the same bf16 products in f32 in other orders)."""
+    import math
+
+    d = (got.float() - want.float())
+    lim = 2 * 2.0 ** (math.floor(math.log2(want.float().abs().max().item()))
+                      - 7)
+    assert d.abs().max().item() <= lim, (d.abs().max().item(), lim)
+    assert (d.norm() / want.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", WQ_SHAPES)
+@pytest.mark.parametrize("w4", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wq_matmul_kernels(dev, M, K, N, w4, dtype):
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops import wq_matmul as wq
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(M, K, generator=g).to(dev, dtype)
+    lo = -8 if w4 else -128
+    w = torch.randint(lo, -lo, (K, N), generator=g, dtype=torch.int8).to(dev)
+    s = ((torch.rand(N, generator=g) + 0.5) / (K ** 0.5 * -lo)).to(dev)
+    bias = None if w4 else torch.randn(N, generator=g).to(dev)
+    ops.reset_counts()
+    if w4:
+        packed = wq.pack_w4_halves(w)
+        got = wq.wq4_matmul(x, packed, s, out_dtype=dtype)
+        want = wq.wq4_matmul_plain(x, packed, s, out_dtype=dtype)
+    else:
+        got = wq.wq_matmul(x, w, s, bias, out_dtype=dtype)
+        want = wq.wq_matmul_plain(x, w, s, bias, out_dtype=dtype)
+    torch.cuda.synchronize()
+    name = "wq4_matmul" if w4 else "wq_matmul"
+    # a CUDA tensor launches the kernel; the plain version is never taken
+    assert ops.launch_counts()[name] == ops.call_counts()[name] == 1
+    assert got.dtype == dtype and got.shape == (M, N) and got.is_cuda
+    wq_err(got, want)
