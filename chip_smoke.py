@@ -115,24 +115,65 @@ FLASH_SQNR_DB = 34.0
 # each bf16 flash site vs the einsum chain: sound 50.65-53.68 dB, one
 # site dropping one key block 38.63
 FLASH_SITE_SQNR_DB = 45.0
+# whole SDXL-Turbo step, each out-fusion set against the default one (one
+# deploy, the same integer sums; the whole-block kernels round the output
+# once where the default route rounds to_out and the residual add apart,
+# and one bf16 ulp flips act codes downstream): sound 22.79-24.42 dB, one
+# attn1 dropping its residual -3.87-3.33 (H100 80GB HBM3, 700 W)
+OUTFUSE_STEP_SQNR_DB = 15.0
+# each attn1 / ff module teacher-forced under out-fusion against the same
+# module on the default route: sound 41.86-45.77 dB, mid zero points
+# shifted by 8 codes 12.58 (attn1) / 1.25 (ff)
+OUTFUSE_SITE_SQNR_DB = 30.0
+# the whole-block faults: an attn1 site and an ff site whose mid act
+# quantizer (to_out's, ff.net.2's) sees its zero point shifted by 8 codes;
+# for the whole step, one attn1 site that drops its residual
+OUTFUSE_FAULT_SITES = (
+    "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_out.0",
+    "mid_block.attentions.0.transformer_blocks.0.ff.net.2")
+# each int8 flash site of the SDXL 1024 deploy against its bf16 flash site
+# on the same input: sound qk 40.12-48.16, qkv 39.71-47.09 dB; the q scale
+# doubled 12.94 / 12.50
+INT8_FLASH_SITE_SQNR_DB = {"qk": 30.0, "qkv": 30.0}
+_NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
+             geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
+             sec_attention_q_out=0, flash_attention=0, sec_attention=0,
+             sec_attention_q=0, wq4_matmul=0, wq_matmul=0,
+             sec_attention_qkv_out=0, geglu_out_qmatmul=0,
+             int8_flash_attention=0, int8qkv_flash_attention=0)
+# launches per SDXL-Turbo W8A8 step, B=1, under the default kernel options
+# (out-fusion at attn2, LN folded)
+TURBO_CALLS = dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                   ln_quantize=140, geglu_qmatmul=70, qmatmul=264,
+                   sec_attention_qkv=70, sec_attention_q_out=70)
+# ... under the other out-fusion sets: every site whole-block (LN folded or
+# materialized at the block: 70 ln_quantize each for norm1, norm2, norm3),
+# and none (attn2 on sec_attention_q, to_out and ff.net.2 on qmatmul)
+ALL_SITES = frozenset({"attn1", "attn2", "ff"})
+OUTFUSE_PATHS = {"all": dict(out_fuse=ALL_SITES),
+                 "all_nofold": dict(out_fuse=ALL_SITES, ln_fold=False),
+                 "none": dict(out_fuse=frozenset())}
+_WHOLE = dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+              qmatmul=124, sec_attention_qkv_out=70, sec_attention_q_out=70,
+              geglu_out_qmatmul=70)
+OUTFUSE_CALLS = {
+    "all": _WHOLE, "all_nofold": dict(_WHOLE, ln_quantize=210),
+    "none": dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                 ln_quantize=210, geglu_qmatmul=70, qmatmul=334,
+                 sec_attention_qkv=70, sec_attention_q=70)}
 # launches per SDXL 1024 step, B=1: 70 transformer blocks, 10 at T=4096
 # and 60 at T=1024, every norm materialized, the 60 to_q of the 32x32
-# level inside sec_attention_q
+# level inside sec_attention_q; int8_flash moves the 10 int8 flash sites
+_SDXL_AUTO = dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                  ln_quantize=210, geglu_qmatmul=70, qmatmul=414,
+                  sec_attention=70, sec_attention_q=60)
 SDXL_CALLS = {
-    "auto": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
-                 ln_quantize=210, geglu_qmatmul=70, qmatmul=414,
-                 sec_attention_qkv=0, sec_attention_q_out=0,
-                 flash_attention=10, sec_attention=70, sec_attention_q=60,
-                 wq4_matmul=0, wq_matmul=0),
-    "einsum": dict(qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
-                   ln_quantize=210, geglu_qmatmul=70, qmatmul=474,
-                   sec_attention_qkv=0, sec_attention_q_out=0,
-                   flash_attention=0, sec_attention=0, sec_attention_q=0,
-                   wq4_matmul=0, wq_matmul=0),
-    "bf16": dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
-                 geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
-                 sec_attention_q_out=0, flash_attention=10, sec_attention=0,
-                 sec_attention_q=0, wq4_matmul=0, wq_matmul=0),
+    "auto": dict(_SDXL_AUTO, flash_attention=10),
+    "einsum": dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
+                   ln_quantize=210, geglu_qmatmul=70, qmatmul=474),
+    "bf16": dict(_NONE, flash_attention=10),
+    "int8_qk": dict(_SDXL_AUTO, int8_flash_attention=10),
+    "int8_qkv": dict(_SDXL_AUTO, int8qkv_flash_attention=10),
 }
 # launches per mixed-precision SDXL-Turbo step (W5.04 / A7.43 +
 # act-protect, B=1) under each deploy compute: int8_sec unfuses the 22 attn2
@@ -141,10 +182,6 @@ SDXL_CALLS = {
 # run every packed dense entry on wq4_matmul, pallas_dequant every
 # act-quantized W8 one on wq_matmul and its eight act-quantized 1x1 convs
 # on qmatmul
-_NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
-             geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
-             sec_attention_q_out=0, flash_attention=0, sec_attention=0,
-             sec_attention_q=0, wq4_matmul=0, wq_matmul=0)
 MP_CALLS = {
     "int8_sec": dict(_NONE, qconv2d=37, qconv2d_s2=2, gn_silu_quantize=46,
                      ln_quantize=160, geglu_qmatmul=68, qmatmul=324,
@@ -183,17 +220,20 @@ TPU_KERNELS = [
     ("pallas_qmatmul.py:352 geglu_qmatmul", "geglu_qmatmul"),
     ("pallas_qmatmul.py:67 qmatmul", "qmatmul"),
     ("pallas_qmatmul.py:205 qmatmul_fused2", None),
-    ("pallas_qmatmul.py:557 geglu_out_qmatmul", None),
+    ("pallas_qmatmul.py:557 geglu_out_qmatmul", "geglu_out_qmatmul"),
     ("pallas_qmatmul.py:724 qmatmul_fused", None),
     ("pallas_sec_attention.py:99 sec_attention", "sec_attention"),
     ("pallas_sec_attention.py:223 sec_attention_q", "sec_attention_q"),
     ("pallas_sec_attention.py:409 sec_attention_qkv", "sec_attention_qkv"),
-    ("pallas_sec_attention.py:647 sec_attention_qkv_out", None),
+    ("pallas_sec_attention.py:647 sec_attention_qkv_out",
+     "sec_attention_qkv_out"),
     ("pallas_sec_attention.py:814 sec_attention_q_out",
      "sec_attention_q_out"),
     ("pallas_attention.py:83 flash_attention", "flash_attention"),
-    ("pallas_attention.py:204 int8_flash_attention", None),
-    ("pallas_attention.py:303 int8qkv_flash_attention", None),
+    ("pallas_attention.py:204 int8_flash_attention",
+     "int8_flash_attention"),
+    ("pallas_attention.py:303 int8qkv_flash_attention",
+     "int8qkv_flash_attention"),
     ("pallas_wq_matmul.py:96 wq4_matmul", "wq4_matmul"),
     ("pallas_wq_matmul.py:164 wq_matmul", "wq_matmul"),
 ]
@@ -224,6 +264,14 @@ PORTED = {
                    "mixdq_tpu/ops/pallas_wq_matmul.py:133"),
     "wq_matmul": ("mixdq_tpu_torch/csrc/wq_matmul.cu",
                   "mixdq_tpu/ops/pallas_wq_matmul.py:208"),
+    "sec_attention_qkv_out": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+                              "mixdq_tpu/ops/pallas_sec_attention.py:757"),
+    "geglu_out_qmatmul": ("mixdq_tpu_torch/csrc/geglu_qmatmul.cu",
+                          "mixdq_tpu/ops/pallas_qmatmul.py:702"),
+    "int8_flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
+                             "mixdq_tpu/ops/pallas_attention.py:228"),
+    "int8qkv_flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
+                                "mixdq_tpu/ops/pallas_attention.py:330"),
 }
 
 # what library_ms times, where a kernel has one
@@ -407,6 +455,42 @@ def kernel_cases(torch, dev):
                       [(4 * T * C * C, INT8_OPS_PER_S),
                        (4 * T * 77 * C, BF16_OPS_PER_S),
                        (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
+    # attn1 whole-block at the same levels: LN-folded (the main path) and
+    # pre-coded + residual (ln_fold off)
+    for T, heads, ln in [(1024, 10, True), (256, 20, True), (1024, 10, False),
+                         (256, 20, False)]:
+        C = heads * 64
+        args, kw = qkv_out_case(torch, g, dev, 1, T, heads, 64, bf16, ln)
+        cases.append(("sec_attention_qkv_out",
+                      f"T={T} C={C} heads={heads} "
+                      + ("LN-folded" if ln else "pre-coded + residual"),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_qkv_out(*a, **kw),
+                      lambda a=args, kw=kw:
+                          sec_attention.sec_attention_qkv_out_plain(*a, **kw),
+                      float_err,
+                      T * C * (2 if ln else 3) + 4 * C * C + 2 * T * C
+                      + 30 * C,
+                      [(8 * T * C * C, INT8_OPS_PER_S),
+                       (4 * T * T * C, BF16_OPS_PER_S),
+                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
+    # the whole feed-forward at both levels, LN-folded and pre-coded
+    for M, C, ln in [(1024, 640, True), (256, 1280, True), (1024, 640, False),
+                     (256, 1280, False)]:
+        H = 4 * C
+        args, kw = geglu_out_case(torch, g, dev, M, C, H, C, bf16, ln)
+        cases.append(("geglu_out_qmatmul",
+                      f"M={M} K=C={C} H={H} "
+                      + ("LN-folded" if ln else "pre-coded + residual"),
+                      lambda a=args, kw=kw: qmatmul.geglu_out_qmatmul(*a,
+                                                                     **kw),
+                      lambda a=args, kw=kw:
+                          qmatmul.geglu_out_qmatmul_plain(*a, **kw),
+                      float_err,
+                      M * C * (2 if ln else 3) + 3 * C * H + 2 * M * C
+                      + 12 * H + 20 * C,
+                      [(4 * M * C * H + 2 * M * H * C, INT8_OPS_PER_S),
+                       (8 * M * C if ln else 0, F32_OPS_PER_S)], None))
     # SDXL 1024: flash at attn1 of the 64x64 level (T=4096, 10 heads),
     # sec_attention at attn1 of the 32x32 level (T=1024, C=1280) and attn2
     # of the 64x64 level (Tq=4096, Tk=77, C=640), sec_attention_q at attn2
@@ -427,6 +511,29 @@ def kernel_cases(torch, dev):
                           attention.flash_attention_plain(*a, **kw),
                       flash_err, 8 * B * T * C,
                       [(4 * B * T * T * C, BF16_OPS_PER_S)], sdpa))
+    # int8 flash at the same sites: the kernels on the codes and scales
+    # that the wrappers' quantize (plain PyTorch ops) makes
+    for name in ("int8_flash_attention", "int8qkv_flash_attention"):
+        for B in (1, 2):
+            T, heads, d = 4096, 10, 64
+            C = heads * d
+            srcs, kw = attn_case(torch, g, dev, B, T, T, heads, d, bf16, False)
+            qkv = name.startswith("int8qkv")
+            qi, ki, vi, s_qk, sv = attention._int8_operands(
+                *srcs, heads, d, 0, C, 2 * C, qkv)
+            args = (qi, ki, vi if qkv else srcs[2], s_qk * d ** -0.5, sv)
+            ckw = dict(heads=heads, head_dim=d, v_off=0 if qkv else 2 * C,
+                       out_dtype=bf16)
+            matmuls = ([(4 * B * T * T * C, INT8_OPS_PER_S)] if qkv else
+                       [(2 * B * T * T * C, INT8_OPS_PER_S),
+                        (2 * B * T * T * C, BF16_OPS_PER_S)])
+            cases.append((name, f"B={B} T={T} heads={heads} d={d} on codes",
+                          lambda a=args, kw=ckw:
+                              attention.int8_flash_codes(*a, **kw),
+                          lambda a=args, kw=ckw:
+                              attention.int8_flash_codes_plain(*a, **kw),
+                          flash_err, B * T * C * (5 if qkv else 6), matmuls,
+                          None))
     for B in (1, 2):
         for Tq, Tk, heads, cross in [(1024, 1024, 20, False),
                                      (4096, 77, 10, True)]:
@@ -604,12 +711,70 @@ def q_out_case(torch, g, dev, B, Tq, Tk, heads, d, C_in, dtype, ln):
     return args, kw
 
 
+def qkv_out_case(torch, g, dev, B, T, heads, d, dtype, ln):
+    """Inputs of ``sec_attention_qkv_out`` at one attn1 site: the raw stream
+    (LN-folded) or the to_qkv codes + a residual, ``qkv_case``'s fused QKV
+    weight, a to_out weight and constants at sizes where |out| < 2;
+    returns (args, kwargs)."""
+    C = heads * d
+    (codes, w, scale, bias0, _, _), kw = qkv_case(torch, g, dev, B, T, heads,
+                                                  d)
+    wout = torch.randint(-128, 128, (C, C), generator=g, device=dev,
+                         dtype=torch.int8)
+    so = (torch.rand(C, generator=g, device=dev) + 0.5) * 2e-6
+    stream = (torch.randn((B, T, C), generator=g, device=dev) * 0.25).to(
+        dtype)
+    fold = None
+    if ln:
+        fold = (torch.rand(C, generator=g, device=dev) + 0.5,
+                torch.randn(C, generator=g, device=dev) * 0.2, 25.0, 2.0,
+                (-128.0, 127.0), 1e-5)
+    args = (stream if ln else codes, w, scale, bias0, 200.0, -3.0, wout, so,
+            -6.0 * wout.int().sum(0).float(),
+            (torch.randn(C, generator=g, device=dev) * 0.1).to(dtype),
+            None if ln else stream)
+    return args, dict(kw, out_dtype=dtype, ln=fold)
+
+
+def geglu_out_case(torch, g, dev, M, K, H, C, dtype, ln):
+    """Inputs of ``geglu_out_qmatmul`` at one ff site: the raw stream [M, K]
+    (LN-folded, K == C) or proj codes + a residual, weights whose gate
+    input and output stay a few units, constants; returns (args,
+    kwargs)."""
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    w, w2 = codes(K, 2 * H), codes(H, C)
+    stream = (torch.randn((M, C), generator=g, device=dev) * 0.25).to(dtype)
+    fold = ((rand(K) + 0.5, torch.randn(K, generator=g, device=dev) * 0.2,
+             25.0, 2.0, (-128.0, 127.0), 1e-5) if ln else None)
+    args = (stream if ln else codes(M, K), w,
+            (rand(2 * H) + 0.5) / (2500.0 * K ** 0.5),
+            5.0 * w.int().sum(0).float(), 25.0, 4.0, w2,
+            (rand(C) + 0.5) / (4e4 * H ** 0.5),
+            -4.0 * w2.int().sum(0).float())
+    kw = dict(bias=torch.randn(2 * H, generator=g, device=dev) * 0.3,
+              out_bias=(torch.randn(C, generator=g, device=dev) * 0.1).to(
+                  dtype),
+              residual=None if ln else stream, out_dtype=dtype, ln=fold)
+    return args, kw
+
+
 def phase_kernels(torch, dev, flush):
     from mixdq_tpu_torch import pipeline
     from mixdq_tpu_torch.models.configs import get_family
 
-    per_step = {f: pipeline.expected_kernel_calls(get_family(f).unet, "auto")
-                for f in ("sdxl-turbo", "sdxl")}
+    per_step = {
+        f"{f}{tag}": pipeline.expected_kernel_calls(get_family(f).unet, "auto",
+                                                    **kw)
+        for f, tag, kw in (("sdxl-turbo", "", {}), ("sdxl", "", {}),
+                           ("sdxl-turbo", " all", OUTFUSE_PATHS["all"]),
+                           ("sdxl", " qk", dict(int8_flash="qk")),
+                           ("sdxl", " qkv", dict(int8_flash="qkv")))}
     report = {}
     for name, label, fn, plain, cmp, nbytes, ops, lib in kernel_cases(
             torch, dev):
@@ -624,8 +789,7 @@ def phase_kernels(torch, dev, flush):
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
             f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
-            f" launches/step sdxl-turbo={per_step['sdxl-turbo'][name]}"
-            f" sdxl={per_step['sdxl'][name]}")
+            f" launches/step {({p: c[name] for p, c in per_step.items()})}")
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
@@ -642,7 +806,8 @@ def to_device(qparams, dev):
 
 def phase_tiny_parity(torch, dev):
     """Whole W8A8 step of ``tiny-sdxl`` and ``small-sdxl`` under each
-    ``attn_impl``: GPU kernels vs CPU plain versions."""
+    ``attn_impl``, and of ``small-sdxl`` with every site out-fused (LN
+    folded and not): GPU kernels vs CPU plain versions."""
     import dataclasses
 
     from mixdq_tpu_torch import ops, pipeline
@@ -652,6 +817,8 @@ def phase_tiny_parity(torch, dev):
     from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
 
     f32 = torch.float32
+    paths = [("einsum", dict(attn_impl="einsum")),
+             ("auto", dict(attn_impl="auto"))]
     for label in ("tiny-sdxl", "small-sdxl"):
         cpu_m = pipeline.build_unet(label, 0, f32, "cpu")
         gpu_m = pipeline.build_unet(label, 0, f32, dev)
@@ -664,20 +831,24 @@ def phase_tiny_parity(torch, dev):
         cpu_ctx = deploy_unet_ctx(cpu_m, qp, ctrl, pipeline.WQ, fuse_qkv=True)
         gpu_ctx = deploy_unet_ctx(gpu_m, to_device(qp, dev), ctrl,
                                   pipeline.WQ, fuse_qkv=True)
-        for impl in ("einsum", "auto"):
-            c_ctx = dataclasses.replace(cpu_ctx, attn_impl=impl)
-            g_ctx = dataclasses.replace(gpu_ctx, attn_impl=impl)
+        if label == "small-sdxl":
+            paths += [(f"auto outfuse {t}", dict(attn_impl="auto", **o))
+                      for t, o in OUTFUSE_PATHS.items() if t != "none"]
+        for impl, opts in paths:
+            c_ctx = dataclasses.replace(cpu_ctx, **opts)
+            g_ctx = dataclasses.replace(gpu_ctx, **opts)
             ref = pipeline.unet_step(cpu_m, inp, c_ctx)
             ops.reset_counts()
             got = pipeline.unet_step(gpu_m, inp_gpu, g_ctx).cpu()
             launches = ops.launch_counts()
-            if launches != pipeline.expected_kernel_calls(gpu_m.config, impl):
+            if launches != pipeline.ctx_kernel_calls(gpu_m.config, g_ctx):
                 raise AssertionError(f"{label} {impl} launches {launches}")
             rel = ((got - ref).norm() / ref.norm()).item()
             mx = (got - ref).abs().max().item()
             log(f"{label} int8 step ({impl}) GPU vs CPU plain: rel={rel:.3e} "
                 f"max={mx:.3e}; attention launches "
-                f"{ {k: launches[k] for k in routing.KERNELS} }")
+                f"{ {k: launches[k] for k in routing.KERNELS} }, "
+                f"geglu_out_qmatmul {launches['geglu_out_qmatmul']}")
             if impl == "einsum":
                 if not (math.isfinite(rel) and rel <= 1e-2 and mx < 0.3):
                     raise AssertionError(f"{label} parity ({impl}): rel {rel} "
@@ -685,17 +856,19 @@ def phase_tiny_parity(torch, dev):
                 continue
             # The attention kernels sum in another order than the CPU; one
             # act code that differs by one at one site can grow past the
-            # whole-step tolerance in a small UNet. So each attention
-            # module is held alone, on the input it had in the GPU step.
-            seen = record_attention_inputs(torch, gpu_m, inp_gpu, g_ctx)
+            # whole-step tolerance in a small UNet. So each attention (and
+            # out-fused feed-forward) module is held alone, on the input it
+            # had in the GPU step.
+            seen = record_attention_inputs(torch, gpu_m, inp_gpu, g_ctx,
+                                           ff="outfuse" in impl)
             err = 0.0
             for name, (stream, ehs) in sorted(seen.items()):
                 g = attention_site(torch, gpu_m, name, stream, ehs, g_ctx)
                 c = attention_site(torch, cpu_m, name, stream.cpu(),
                                    None if ehs is None else ehs.cpu(), c_ctx)
                 err = max(err, float_err(torch, g.cpu(), c))
-            log(f"{label} ({impl}): {len(seen)} attention modules, each on "
-                f"its GPU-step input, GPU vs CPU plain: max |d| {err:.3e}")
+            log(f"{label} ({impl}): {len(seen)} modules, each on its "
+                f"GPU-step input, GPU vs CPU plain: max |d| {err:.3e}")
 
 
 def sqnr_db(ref, got):
@@ -1068,8 +1241,8 @@ def step_ms(torch, fn):
 
 
 def run_path(torch, unet, requests, ctx, label):
-    """One path (``ctx``: a deploy under its compute, or FP; either
-    ``attn_impl``) over ``requests`` with the launch counts set to 0 just
+    """One path (``ctx``: a deploy under its compute and kernel options, or
+    FP; either ``attn_impl``) over ``requests`` with the launch counts set to 0 just
     before it and read just after; fails unless every kernel launched as
     often as the structure and the deploy imply, and every wrapper call
     launched its kernel."""
@@ -1079,9 +1252,7 @@ def run_path(torch, unet, requests, ctx, label):
     outs = [pipeline.unet_step(unet, r, ctx) for r in requests]
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    per_step = pipeline.expected_kernel_calls(
-        unet.config, ctx.attn_impl, mode=ctx.mode, deploy=ctx.deploy,
-        compute=ctx.deploy_compute)
+    per_step = pipeline.ctx_kernel_calls(unet.config, ctx)
     want = {k: v * len(requests) for k, v in per_step.items()}
     log(f"{label} path launches over {len(requests)} requests: {launches}")
     if launches != want or ops.call_counts() != launches:
@@ -1107,12 +1278,7 @@ def phase_main_path(torch, dev, card):
     torch.cuda.synchronize()
     log(f"sdxl-turbo build+calibrate+deploy: {time.time() - t0:.1f}s, "
         f"{len(ctx.deploy)} deploy entries")
-    if pipeline.expected_kernel_calls(unet.config, "auto") != {
-            "qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
-            "ln_quantize": 140, "geglu_qmatmul": 70, "qmatmul": 264,
-            "sec_attention_qkv": 70, "sec_attention_q_out": 70,
-            "flash_attention": 0, "sec_attention": 0, "sec_attention_q": 0,
-            "wq4_matmul": 0, "wq_matmul": 0}:
+    if pipeline.expected_kernel_calls(unet.config, "auto") != TURBO_CALLS:
         raise AssertionError("the structure's launch counts changed")
     requests = [pipeline.example_inputs("sdxl-turbo", 1, 100 + i, bf16, dev)
                 for i in range(N_REQUESTS)]
@@ -1150,7 +1316,7 @@ def phase_main_path(torch, dev, card):
     paired_step_ms(torch, unet, requests,
                    (("bf16", FP_CTX), ("auto", ctx), ("einsum", ectx)), card,
                    "sdxl-turbo")
-    return unet, ctx, calib, requests, launches, e_launches
+    return unet, ctx, calib, requests, launches, e_launches, refs, outs
 
 
 def phase_layers(torch, unet, ctx, calib, req):
@@ -1182,19 +1348,22 @@ def phase_layers(torch, unet, ctx, calib, req):
     return qparams, seen
 
 
-def record_attention_inputs(torch, unet, req, ctx=None):
+def record_attention_inputs(torch, unet, req, ctx=None, ff=False):
     """{attention module name: (residual stream, encoder states)} of every
-    attention module in one step under ``ctx`` (default: FP)."""
+    attention module (and with ``ff`` every feed-forward, encoder states
+    None) in one step under ``ctx`` (default: FP)."""
     from mixdq_tpu_torch import pipeline
-    from mixdq_tpu_torch.models.attention import Attention
+    from mixdq_tpu_torch.models.attention import Attention, FeedForward
 
     seen = {}
 
     def hook(mod, args, kwargs):
-        seen[mod.qname] = (kwargs["residual"], args[1])
+        seen[mod.qname] = (kwargs["residual"],
+                           args[1] if isinstance(mod, Attention) else None)
 
+    kinds = (Attention, FeedForward) if ff else Attention
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in unet.modules() if isinstance(m, Attention)]
+               for m in unet.modules() if isinstance(m, kinds)]
     try:
         pipeline.unet_step(unet, req, *([] if ctx is None else [ctx]))
     finally:
@@ -1204,17 +1373,22 @@ def record_attention_inputs(torch, unet, req, ctx=None):
 
 
 def attention_site(torch, unet, name, stream, ehs, ctx):
-    """Attention module ``name`` run as its transformer block runs it (the
-    block's deferred pre-LayerNorm, the residual add) on ``stream``."""
+    """Attention (or feed-forward) module ``name`` run as its transformer
+    block runs it (the block's pre-LayerNorm, deferred or materialized as
+    ``ctx`` says, and the residual add) on ``stream``."""
     block, _, which = name.rpartition(".")
     blk = unet.get_submodule(block)
     if which == "attn1":
         norm, consumer = blk.norm1, (f"{block}.attn1.to_qkv"
                                      if ctx.fuse_qkv else None)
-    else:
+    elif which == "attn2":
         norm, consumer = blk.norm2, f"{block}.attn2.to_q"
+    else:
+        norm, consumer = blk.norm3, f"{block}.ff.net.0.proj"
     with torch.inference_mode():
         h, ln = blk._ln(stream, norm, consumer, ctx)
+        if which == "ff":
+            return blk.ff(h, ctx, residual=stream, ln=ln)
         return getattr(blk, which)(h, ehs, ctx, residual=stream, ln=ln)
 
 
@@ -1230,17 +1404,19 @@ def zp_faulted_ctx(ctx, name):
 
 def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None,
                kernels=None):
-    """SQNR in dB of each attention module's output delta under ``ctx``
-    against the same module under ``ref_ctx`` (default: ``ctx`` with
-    ``attn_impl='einsum'``), both teacher-forced on the FP-step input.
-    ``kernels``: a dict that gets each module's attention kernel under
-    ``ctx`` (``'einsum'`` where none ran)."""
+    """SQNR in dB of each attention (or feed-forward) module's output
+    delta under ``ctx`` against the same module under ``ref_ctx``
+    (default: ``ctx`` with ``attn_impl='einsum'``), both teacher-forced on
+    the FP-step input. ``kernels``: a dict that gets each module's kernel
+    under ``ctx`` (an attention route or a feed-forward kernel; ``'einsum'``
+    where none ran)."""
     import dataclasses
 
     from mixdq_tpu_torch import ops
     from mixdq_tpu_torch.models import routing
 
     ref_ctx = ref_ctx or dataclasses.replace(ctx, attn_impl="einsum")
+    site_kernels = routing.KERNELS + ("geglu_out_qmatmul", "geglu_qmatmul")
     out = {}
     for name in names or sorted(seen):
         stream, ehs = seen[name]
@@ -1248,7 +1424,7 @@ def site_sqnrs(torch, unet, ctx, seen, names=None, ref_ctx=None,
         got = attention_site(torch, unet, name, stream, ehs, ctx).float()
         if kernels is not None:
             calls = ops.call_counts()
-            kernels[name] = next((k for k in routing.KERNELS if calls[k]),
+            kernels[name] = next((k for k in site_kernels if calls[k]),
                                  routing.EINSUM)
         ref = attention_site(torch, unet, name, stream, ehs, ref_ctx).float()
         signal = (ref - stream.float()).pow(2).sum().item()
@@ -1304,6 +1480,186 @@ def phase_attention_sites(torch, unet, ctx, req, fault_sites=FAULT_SITES):
         if f >= site_gate(ctx, site):
             raise AssertionError(f"the site check misses a fault in {name}")
     return kernels
+
+
+def phase_outfuse_sites(torch, unet, ctx, req,
+                        fault_sites=OUTFUSE_FAULT_SITES):
+    """Every attn1 and ff module, teacher-forced on its FP-step input,
+    with every site out-fused (LN folded, then not) against the same
+    module under ``ctx`` (the default route, same deploy): >=
+    ``OUTFUSE_SITE_SQNR_DB``; each of ``fault_sites`` (a whole-block
+    kernel's mid act quantizer, to_out's or ff.net.2's, with its zero
+    point shifted by 8 codes) must fail. Returns {module: its kernel with
+    every site out-fused}."""
+    import dataclasses
+
+    seen = record_attention_inputs(torch, unet, req, ff=True)
+    names = sorted(n for n in seen if n.endswith((".attn1", ".ff")))
+    kernels = {}
+    for tag in ("all", "all_nofold"):
+        octx = dataclasses.replace(ctx, **OUTFUSE_PATHS[tag])
+        s = site_sqnrs(torch, unet, octx, seen, names, ref_ctx=ctx,
+                       kernels=kernels)
+        for kind in (".attn1", ".ff"):
+            v = [x for n, x in s.items() if n.endswith(kind)]
+            log(f"out-fusion {tag}: {len(v)} {kind[1:]} modules vs the "
+                f"default route (dB): min {min(v):.2f} median "
+                f"{statistics.median(v):.2f}")
+        low = min(s.items(), key=lambda kv: kv[1])
+        if low[1] < OUTFUSE_SITE_SQNR_DB:
+            raise AssertionError(f"out-fusion {tag}: {low[0]} at {low[1]} dB "
+                                 f"< {OUTFUSE_SITE_SQNR_DB}")
+    octx = dataclasses.replace(ctx, **OUTFUSE_PATHS["all"])
+    for name in fault_sites:
+        site = name[:-len(".to_out.0" if name.endswith(".to_out.0")
+                          else ".net.2")]
+        f = site_sqnrs(torch, unet, zp_faulted_ctx(octx, name), seen, [site],
+                       ref_ctx=ctx)[site]
+        log(f"out-fusion site {site} with the {name} zero point shifted by "
+            f"8 codes: {f:.2f} dB")
+        if f >= OUTFUSE_SITE_SQNR_DB:
+            raise AssertionError(f"the out-fusion site check misses a fault "
+                                 f"in {name}")
+    return kernels
+
+
+@contextlib.contextmanager
+def whole_block_drops_residual():
+    """Within the block, the first ``sec_attention_qkv_out`` call returns
+    its output without the residual (a whole-block kernel that drops its
+    residual add at one site of a step)."""
+    from mixdq_tpu_torch.models import attention as mod
+
+    sound = mod.sec_attention_qkv_out
+    calls = []
+
+    def faulted(x, *args, **kw):
+        out = sound(x, *args, **kw)
+        calls.append(1)
+        res = x if kw.get("ln") is not None else args[9]
+        if len(calls) > 1 or res is None:
+            return out
+        return (out.float() - res.float()).to(out.dtype)
+
+    mod.sec_attention_qkv_out = faulted
+    try:
+        yield
+    finally:
+        mod.sec_attention_qkv_out = sound
+
+
+def phase_outfuse(torch, unet, ctx, requests, refs, outs, card):
+    """The SDXL-Turbo deploy of phase 3 under the other out-fusion sets
+    (``OUTFUSE_PATHS``: every site, LN folded and not; none) beside the
+    default: launch counts (``OUTFUSE_CALLS``), SQNR against bf16 (>=
+    ``MIN_SQNR_DB``), the whole step against the default route's ``outs``
+    (>= ``OUTFUSE_STEP_SQNR_DB``, failed by an attn1 site that drops its
+    residual), every attn1 / ff module against the default route, paired
+    step medians and one profiled step of every site out-fused. Returns
+    {path: launches}."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.state import FP_CTX
+
+    ctxs = {tag: dataclasses.replace(ctx, **o)
+            for tag, o in OUTFUSE_PATHS.items()}
+    for tag, c in ctxs.items():
+        if pipeline.ctx_kernel_calls(unet.config, c) != OUTFUSE_CALLS[tag]:
+            raise AssertionError(f"out-fusion {tag}: the launch counts are "
+                                 "not OUTFUSE_CALLS")
+    for c in ctxs.values():  # warm-up outside the counts
+        pipeline.unet_step(unet, requests[0], c)
+    launches, sqnrs = {}, {}
+    for tag, c in ctxs.items():
+        label = f"sdxl-turbo outfuse {tag}"
+        got, launches[label] = run_path(torch, unet, requests, c, label)
+        for x in got:
+            if x.shape != refs[0].shape or not torch.isfinite(x).all():
+                raise AssertionError(f"{label}: bad output {x.shape}")
+        sqnrs[f"{tag} vs bf16"] = [sqnr_db(r, x) for r, x in zip(refs, got)]
+        sqnrs[f"{tag} vs default"] = [sqnr_db(o, x) for o, x in zip(outs, got)]
+    bad = []
+    for r in requests:
+        with whole_block_drops_residual():
+            bad.append(pipeline.unet_step(unet, r, ctxs["all"]))
+    sqnrs["all, one attn1 dropping its residual, vs default"] = [
+        sqnr_db(o, x) for o, x in zip(outs, bad)]
+    for k, v in sqnrs.items():
+        log(f"SQNR out-fusion {k} per request (dB): "
+            f"{[round(x, 2) for x in v]}")
+    if min(min(sqnrs[f"{t} vs bf16"]) for t in ctxs) < MIN_SQNR_DB:
+        raise AssertionError(f"out-fusion SQNR vs bf16 < {MIN_SQNR_DB} dB")
+    if min(min(sqnrs[f"{t} vs default"]) for t in ctxs) < \
+            OUTFUSE_STEP_SQNR_DB:
+        raise AssertionError(f"out-fusion vs default < {OUTFUSE_STEP_SQNR_DB}"
+                             " dB")
+    if max(sqnrs["all, one attn1 dropping its residual, vs default"]) >= \
+            OUTFUSE_STEP_SQNR_DB:
+        raise AssertionError("the out-fusion step gate misses a dropped "
+                             "residual")
+    kernels = phase_outfuse_sites(torch, unet, ctx, requests[0])
+    log(f"out-fusion modules by kernel: "
+        f"{dict(collections.Counter(kernels.values()))}")
+    paired_step_ms(torch, unet, requests,
+                   (("bf16", FP_CTX), ("default", ctx),
+                    *((f"outfuse_{t}", c) for t, c in ctxs.items())), card,
+                   "sdxl-turbo out-fusion")
+    phase_profile(torch, unet, requests[0], [("outfuse_all", ctxs["all"])])
+    return launches
+
+
+@contextlib.contextmanager
+def int8_flash_q_scale_doubled():
+    """Within the block, the int8 flash attention of the UNet dequantizes
+    its logits with twice the q scale."""
+    from mixdq_tpu_torch.ops import attention as mod
+
+    sound = mod._int8_operands
+
+    def faulted(*args, **kw):
+        qi, ki, v, s_qk, sv = sound(*args, **kw)
+        return qi, ki, v, 2 * s_qk, sv
+
+    mod._int8_operands = faulted
+    try:
+        yield
+    finally:
+        mod._int8_operands = sound
+
+
+def phase_int8_flash_sites(torch, unet, ctx, req):
+    """Each int8 flash site of the SDXL 1024 deploy under
+    ``int8_flash`` 'qk' and 'qkv', teacher-forced on its FP-step input,
+    against the bf16 flash site of ``ctx`` (same deploy) on the same
+    input (>= ``INT8_FLASH_SITE_SQNR_DB``); with its q scale doubled, the
+    first site must fail."""
+    import dataclasses
+
+    seen = record_attention_inputs(torch, unet, req)
+    names = sorted(n for n, (x, ehs) in seen.items()
+                   if ehs is None and x.shape[1] ** 2 >= 2 ** 22)
+    for mode, gate in INT8_FLASH_SITE_SQNR_DB.items():
+        c = dataclasses.replace(ctx, int8_flash=mode)
+        kernels = {}
+        s = site_sqnrs(torch, unet, c, seen, names, ref_ctx=ctx,
+                       kernels=kernels)
+        v = [s[n] for n in names]
+        log(f"sdxl int8 flash {mode}: {len(v)} sites "
+            f"({dict(collections.Counter(kernels.values()))}) vs bf16 flash "
+            f"(dB): min {min(v):.2f} median {statistics.median(v):.2f} "
+            f"max {max(v):.2f}")
+        if min(v) < gate:
+            raise AssertionError(f"sdxl int8 flash {mode} site SQNR {min(v)} "
+                                 f"dB < {gate}")
+        with int8_flash_q_scale_doubled():
+            f = site_sqnrs(torch, unet, c, seen, names[:1],
+                           ref_ctx=ctx)[names[0]]
+        log(f"sdxl int8 flash {mode} site {names[0]} with its q scale "
+            f"doubled: {f:.2f} dB")
+        if f >= gate:
+            raise AssertionError(f"the int8 flash {mode} site check misses a "
+                                 "doubled q scale")
 
 
 def phase_profile(torch, unet, req, paths):
@@ -1412,13 +1768,15 @@ def phase_flash_sites(torch, unet, ctx, req):
 
 
 def phase_sdxl(torch, dev, card):
-    """SDXL at 1024 px: the W8A8 deploy under ``'auto'`` and ``'einsum'``
-    and the bf16 UNet under ``'auto'``, each path's launches against the
+    """SDXL at 1024 px: the W8A8 deploy under ``'auto'`` (bf16 and both
+    int8 flash modes) and ``'einsum'`` and the bf16 UNet under ``'auto'``,
+    each path's launches against the
     structure (and ``SDXL_CALLS``), SQNR against bf16, bf16 auto (flash
     attention) against bf16 einsum, whole and per flash site, with a
     dropped key block that must fail both, every attention site auto
-    against einsum with zero-point faults, paired step medians and one
-    profiled step per path. Returns
+    against einsum with zero-point faults, each int8 flash site against
+    the bf16 flash site (``phase_int8_flash_sites``), paired step medians
+    and one profiled step per path. Returns
     ({path: launches per step}, {path: launches})."""
     import dataclasses
 
@@ -1432,13 +1790,17 @@ def phase_sdxl(torch, dev, card):
     ctx = pipeline.quantize_w8a8(unet, calib)
     paths = (("bf16", dataclasses.replace(FP_CTX, attn_impl="auto")),
              ("auto", ctx), ("einsum", dataclasses.replace(
-                 ctx, attn_impl="einsum")))
+                 ctx, attn_impl="einsum")),
+             ("int8_qk", dataclasses.replace(ctx, int8_flash="qk")),
+             ("int8_qkv", dataclasses.replace(ctx, int8_flash="qkv")))
+    int8 = [tag for tag, _ in paths if tag != "bf16"]
     torch.cuda.synchronize()
     log(f"sdxl build+calibrate+deploy: {time.time() - t0:.1f}s, "
         f"{len(ctx.deploy)} deploy entries")
     for tag, c in paths:
-        if pipeline.expected_kernel_calls(unet.config, c.attn_impl,
-                                          mode=c.mode) != SDXL_CALLS[tag]:
+        if pipeline.expected_kernel_calls(
+                unet.config, c.attn_impl, mode=c.mode,
+                int8_flash=c.int8_flash) != SDXL_CALLS[tag]:
             raise AssertionError(f"sdxl {tag}: the structure's launch "
                                  "counts changed")
     requests = [pipeline.example_inputs("sdxl", 1, 200 + i, bf16, dev)
@@ -1451,10 +1813,10 @@ def phase_sdxl(torch, dev, card):
             torch, unet, requests, c, f"sdxl {tag}")
     flash = "bf16 auto vs bf16 einsum"
     dropped = "bf16 auto, flash dropping a key block, vs bf16 einsum"
-    sqnrs = {"auto": [], "einsum": [], flash: [], dropped: []}
+    sqnrs = {**{tag: [] for tag in int8}, flash: [], dropped: []}
     for i, r in enumerate(requests):
         ref = outs["bf16"][i]
-        for tag in ("auto", "einsum"):
+        for tag in int8:
             x = outs[tag][i]
             if x.shape != ref.shape or not torch.isfinite(x).all():
                 raise AssertionError(f"sdxl {tag}: bad output {x.shape}")
@@ -1467,7 +1829,7 @@ def phase_sdxl(torch, dev, card):
     for k, v in sqnrs.items():
         log(f"sdxl SQNR {k if 'vs' in k else k + ' vs bf16 auto'} per "
             f"request (dB): {[round(x, 2) for x in v]}")
-    if min(sqnrs["auto"] + sqnrs["einsum"]) < MIN_SQNR_DB:
+    if min(min(sqnrs[tag]) for tag in int8) < MIN_SQNR_DB:
         raise AssertionError(f"sdxl SQNR {sqnrs} dB < {MIN_SQNR_DB}")
     if min(sqnrs[flash]) < FLASH_SQNR_DB:
         raise AssertionError(f"sdxl {flash}: {sqnrs[flash]} dB < "
@@ -1478,6 +1840,7 @@ def phase_sdxl(torch, dev, card):
     paired_step_ms(torch, unet, requests, paths, card, "sdxl")
     phase_attention_sites(torch, unet, ctx, requests[0], SDXL_FAULT_SITES)
     phase_flash_sites(torch, unet, paths[0][1], requests[0])
+    phase_int8_flash_sites(torch, unet, ctx, requests[0])
     phase_profile(torch, unet, requests[0],
                   [(f"sdxl_{tag}", c) for tag, c in paths])
     return {p: {k: v // N_SDXL_REQUESTS for k, v in c.items()}
@@ -1517,11 +1880,16 @@ def main():
     log("phase 1: every kernel matches its plain version")
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
-        "values")
-    unet, ctx, calib, requests, launches, e_launches = phase_main_path(
-        torch, dev, card)
+        "values and small-sdxl out-fused")
+    unet, ctx, calib, requests, launches, e_launches, refs, outs = \
+        phase_main_path(torch, dev, card)
     req = requests[0]
     log("phase 3: main paths ok (auto, einsum)")
+    totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
+    totals.update(phase_outfuse(torch, unet, ctx, requests, refs, outs, card))
+    del refs, outs
+    log("phase 3: out-fusion paths ok (all sites, all sites without LN "
+        "fold, none)")
     qparams, seen = phase_layers(torch, unet, ctx, calib, req)
     log("phase 4: every deploy entry matches fake quantization")
     phase_attention_sites(torch, unet, ctx, req)
@@ -1530,7 +1898,6 @@ def main():
         ("auto", ctx), ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
         ("bf16", FP_CTX)))
     log("phase 5: profiles written")
-    totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
     totals.update(phase_mixed(torch, unet, calib, requests, ctx, qparams,
                               seen, card))
     log("phase 6: mixed-precision paths ok (mp auto, w-only dequant, "
@@ -1543,7 +1910,8 @@ def main():
     sdxl_per_step, sdxl_totals = phase_sdxl(torch, dev, card)
     per_step.update(sdxl_per_step)
     totals.update(sdxl_totals)
-    log("phase 7: sdxl 1024 paths ok (auto, einsum, bf16 auto)")
+    log("phase 7: sdxl 1024 paths ok (auto, int8 flash qk / qkv, einsum, "
+        "bf16 auto)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
@@ -1556,13 +1924,17 @@ def main():
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
         # the main path a kernel runs on: the SDXL-Turbo headline, else the
-        # weight-only pallas_dequant step, else SDXL 1024 under auto
+        # weight-only pallas_dequant step, else SDXL 1024 under auto, else
+        # the path of its kernel option
         main_path = next((p for p in ("sdxl-turbo auto",
-                                      MP_PATHS["pallas_dequant"], "sdxl auto")
+                                      MP_PATHS["pallas_dequant"], "sdxl auto",
+                                      "sdxl-turbo outfuse all",
+                                      "sdxl int8_qk", "sdxl int8_qkv")
                           if totals[p][name]), None)
         if main_path is None:
             raise AssertionError(f"{name} never launched on a main path")
-        requests = N_SDXL_REQUESTS if main_path == "sdxl auto" else N_REQUESTS
+        requests = (N_SDXL_REQUESTS if main_path.startswith("sdxl ")
+                    else N_REQUESTS)
         kernels.append({
             **extra, "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": totals[main_path][name],

@@ -65,3 +65,20 @@ __device__ __forceinline__ void ln_quant_row(const T* __restrict__ xr,
     orow[c] = quant_code(y, sinv, zp, lo, hi);
   }
 }
+
+// Every row of x [M, C] through ln_quant_row, a warp per row, rows in a
+// grid stride: the LN-folded stage of the whole-block kernels.
+template <typename T>
+__device__ __forceinline__ void ln_stage(const T* __restrict__ x,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta,
+                                         int8_t* __restrict__ codes, int M,
+                                         int C, float sinv, float zp,
+                                         float lo, float hi, float eps) {
+  const int warps = blockDim.x / 32;
+  for (int r = blockIdx.x * warps + threadIdx.x / 32; r < M;
+       r += gridDim.x * warps)
+    ln_quant_row(x + static_cast<size_t>(r) * C, gamma, beta,
+                 codes + static_cast<size_t>(r) * C, C, sinv, zp, lo, hi, eps,
+                 threadIdx.x & 31);
+}

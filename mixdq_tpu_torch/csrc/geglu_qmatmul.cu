@@ -14,9 +14,29 @@
 // never reaches device memory. Bound: int8 operations at M = 1024
 // (6.7 GOP, ~3.4 us at 1,979 TOP/s) and the weight bytes at M = 256
 // (13.1 MB, ~3.9 us at 3.35 TB/s).
+//
+// geglu_out_qmatmul, the whole feed-forward (replaces
+// :geglu_out_qmatmul, pallas_call at :702, bodies _geglu_out_kernel :459
+// and _geglu_lnout_kernel :489): one cooperative launch in grid-stride
+// stages separated by grid-wide syncs: (LN-folded mode) LayerNorm + proj
+// act-quantize of every row into a codes workspace; the GEGLU tiles above
+// into an [M, H] workspace of ff.net.2's codes; the ff.net.2 GEMM with
+// qmatmul's epilogue (bias0 subtracted in f32 there), its bias and the
+// residual (the raw input in LN-folded mode), in the model dtype. The TPU
+// kernel sums net.2 over its H panels in an int32 scratch and pads H with
+// zero w2 rows; here one net.2 tile sums the whole H, columns past H read
+// as zero. Two launches would be simpler, but the JAX package runs one
+// call per ff site. Bounds: at M = 1024 K = C = 640 H = 2560 the int8
+// operations (10.1 GOP, ~5.1 us); at M = 256 K = C = 1280 H = 5120 the
+// weight bytes (19.7 MB, ~5.9 us).
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "mma_s8.cuh"
 
+namespace cg = cooperative_groups;
 using namespace mixdq;
 
 struct GegluArgs {
@@ -44,14 +64,14 @@ __device__ __forceinline__ float gelu(float x, int tanh_form) {
                    erfcf(__fmul_rn(-x, 0.7071067811865476f)));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    geglu_kernel(const GegluArgs a, bool avec, bool bvec) {
-  __shared__ __align__(16) int8_t As[BM][LDS];
-  __shared__ __align__(16) int8_t Bv[BN][LDS];
-  __shared__ __align__(16) int8_t Bg[BN][LDS];
+// One 64x64 tile of ff.net.2's codes: rows [m0, m0 + 64), value columns
+// [n0, n0 + 64) and their gate columns. Every thread of the block calls
+// it; As, Bv and Bg are free again when it returns.
+__device__ void geglu_tile(const GegluArgs& a, int m0, int n0, bool avec,
+                           bool bvec, int8_t (*As)[LDS], int8_t (*Bv)[LDS],
+                           int8_t (*Bg)[LDS]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int ldw = 2 * a.H;
 
   int accv[2][4][4] = {}, accg[2][4][4] = {};
@@ -91,6 +111,14 @@ __global__ void __launch_bounds__(THREADS)
   });
 }
 
+__global__ void __launch_bounds__(THREADS)
+    geglu_kernel(const GegluArgs a, bool avec, bool bvec) {
+  __shared__ __align__(16) int8_t As[BM][LDS];
+  __shared__ __align__(16) int8_t Bv[BN][LDS];
+  __shared__ __align__(16) int8_t Bg[BN][LDS];
+  geglu_tile(a, blockIdx.x * BM, blockIdx.y * BN, avec, bvec, As, Bv, Bg);
+}
+
 extern "C" int mixdq_geglu_qmatmul(const int8_t* x, const int8_t* w,
                                    const float* scale, const float* bias0,
                                    const float* bias, int8_t* out, int M,
@@ -102,4 +130,82 @@ extern "C" int mixdq_geglu_qmatmul(const int8_t* x, const int8_t* w,
   const dim3 grid((M + BM - 1) / BM, (H + BN - 1) / BN);
   geglu_kernel<<<grid, THREADS, 0, stream>>>(a, K % 16 == 0, H % 16 == 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// geglu_out_qmatmul
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct GegluOutArgs {
+  GegluArgs g;  // x: the codes workspace or input; out: the [M, H] codes
+  const T* x;   // raw input (LN-folded mode; also the residual) or null
+  const float* gamma;
+  const float* beta;
+  float x_sinv, x_zp, x_lo, x_hi, eps;
+  int ln, C;
+  const int8_t* w2;  // [H, C]
+  const float* s2;
+  const float* b02;
+  const float* b2;  // [C] or null
+  const T* res;     // [M, C] or null (pre-coded mode)
+  T* out;           // [M, C]
+  bool avec, bvec, avec2, bvec2;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    geglu_out_kernel(const GegluOutArgs<T> a) {
+  __shared__ __align__(16) int8_t As[BM][LDS];
+  __shared__ __align__(16) int8_t Bv[BN][LDS];
+  __shared__ __align__(16) int8_t Bg[BN][LDS];
+  const int M = a.g.M, H = a.g.H;
+  cg::grid_group grid = cg::this_grid();
+  if (a.ln) {  // pre-LayerNorm + proj act-quantize, a warp per row
+    ln_stage(a.x, a.gamma, a.beta, const_cast<int8_t*>(a.g.x), M, a.g.K,
+             a.x_sinv, a.x_zp, a.x_lo, a.x_hi, a.eps);
+    grid.sync();
+  }
+  const int nh = (H + BN - 1) / BN, tiles = (M + BM - 1) / BM * nh;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    geglu_tile(a.g, tile / nh * BM, tile % nh * BN, a.avec, a.bvec, As, Bv,
+               Bg);
+  grid.sync();
+  // ff.net.2 + bias + residual
+  out_stage<T>(As, Bv, a.g.out, M, H, a.avec2, a.w2, a.C, a.bvec2, a.s2,
+               a.b02, a.b2, a.ln ? a.x : a.res, a.out);
+}
+
+template <typename T>
+static int geglu_out(const GegluArgs& g, const void* x, const float* gamma,
+                     const float* beta, float x_sinv, float x_zp, float x_lo,
+                     float x_hi, float eps, int ln, int C, const int8_t* w2,
+                     const float* s2, const float* b02, const float* b2,
+                     const void* res, void* out, cudaStream_t stream) {
+  GegluOutArgs<T> a{g, static_cast<const T*>(x), gamma, beta, x_sinv, x_zp,
+                    x_lo, x_hi, eps, ln, C, w2, s2, b02, b2,
+                    static_cast<const T*>(res), static_cast<T*>(out),
+                    vec16(g.x, g.K), g.H % 16 == 0 && vec16(g.w, 2 * g.H),
+                    vec16(g.out, g.H), vec16(w2, C)};
+  const int tiles = std::max(tiles64(g.M, g.H), tiles64(g.M, C));
+  const int grid = cooperative_grid(geglu_out_kernel<T>, tiles);
+  void* args[] = {&a};
+  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(geglu_out_kernel<T>),
+                              dim3(grid), dim3(THREADS), args, 0, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mixdq_geglu_out_qmatmul(
+    const void* x, const float* gamma, const float* beta, int8_t* codes,
+    const int8_t* w, const float* scale, const float* bias0,
+    const float* bias, int8_t* h, const int8_t* w2, const float* s2,
+    const float* b02, const float* b2, const void* res, void* out, int M,
+    int K, int H, int C, int gelu_tanh, int is_bf16, int ln, float sinv,
+    float zp, float lo, float hi, float x_sinv, float x_zp, float x_lo,
+    float x_hi, float eps, cudaStream_t stream) {
+  const GegluArgs g{codes, w, scale, bias0, bias, h, M, K, H, gelu_tanh,
+                    sinv, zp, lo, hi};
+  auto fn = is_bf16 ? geglu_out<__nv_bfloat16> : geglu_out<float>;
+  return fn(g, x, gamma, beta, x_sinv, x_zp, x_lo, x_hi, eps, ln, C, w2, s2,
+            b02, b2, res, out, stream);
 }

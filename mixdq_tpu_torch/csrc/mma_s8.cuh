@@ -176,4 +176,43 @@ inline bool vec16(const void* p, int ld) {
   return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The whole-block tail, over 64x64 tiles in a grid stride: out[M, N] =
+// T((f32(A @ W) - bias0) * scale + bias + f32(res)), each step rounded
+// where the plain version rounds (bias and res may be null). A [M, K]
+// codes with 16-byte rows (avec), W [K, N].
+template <typename T>
+__device__ void out_stage(int8_t (*As)[LDS], int8_t (*Bs)[LDS],
+                          const int8_t* A, int M, int K, bool avec,
+                          const int8_t* W, int N, bool bvec,
+                          const float* scale, const float* bias0,
+                          const float* bias, const T* res, T* out) {
+  const int nt = (N + BN - 1) / BN, tiles = (M + BM - 1) / BM * nt;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    gemm_tile(A, M, K, tile / nt * BM, avec, W, N, tile % nt * BN, bvec, As,
+              Bs, [&](int m, int n, int acc) {
+                if (m >= M || n >= N) return;
+                const size_t i = static_cast<size_t>(m) * N + n;
+                float y = __fmul_rn(__fsub_rn(__int2float_rn(acc), bias0[n]),
+                                    scale[n]);
+                if (bias) y = __fadd_rn(y, bias[n]);
+                if (res) y = __fadd_rn(y, to_f32(res[i]));
+                store_f32(out + i, y);
+              });
+}
+
+static inline int tiles64(int M, int N) {
+  return (M + BM - 1) / BM * ((N + BN - 1) / BN);
+}
+
+// The largest grid that the card holds at once (a cooperative launch
+// needs every block resident), and no more blocks than tiles.
+template <typename Kern>
+static int cooperative_grid(Kern kernel, int tiles) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  return tiles < per_sm * sms ? tiles : per_sm * sms;
+}
+
 }  // namespace mixdq

@@ -56,6 +56,20 @@
 // 16x16 level; the stages spread them over the card instead. Bound at
 // T=256 C=1280: the weight bytes (3.3 MB, ~1 us) and 1.7 GOP of int8
 // (~0.8 us).
+//
+// sec_attention_qkv_out (attn1 of SDXL-Turbo under out_fuse with "attn1";
+// replaces :sec_attention_qkv_out, pallas_call at :757, bodies
+// _sec_qkv_out_kernel :503 and _sec_qkv_lnout_kernel :525): one
+// cooperative launch, sec_attention_qkv's stages between sec_q_out's
+// first and last: (LN-folded mode) LayerNorm + to_qkv act-quantize of
+// every row into a codes workspace; the fused [C, 3C] QKV GEMM into a bf16
+// workspace (q/k/v are bf16 whatever the model dtype, as the TPU kernel
+// casts them); attention tiles into a to_out codes workspace; the to_out
+// GEMM with bias and residual (the raw input in LN-folded mode) in the
+// model dtype. The TPU kernel sums to_out over its head panels in an
+// int32 scratch; one to_out tile here sums the whole C, the same integer.
+// Bound at T=1024 C=640: int8 2.5 + 0.84 GOP and 2.7 GFLOP of bf16
+// attention, ~4.4 us at the dense peaks.
 
 #include <cooperative_groups.h>
 
@@ -250,21 +264,6 @@ __device__ void attn_stage(char* smem, const T* q, int ldq, const T* k,
                     scale, oq);
     }
   }
-}
-
-// The largest grid that the card holds at once (a cooperative launch
-// needs every block resident), and no more blocks than tiles.
-template <typename K>
-static int cooperative_grid(K kernel, int tiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  return tiles < per_sm * sms ? tiles : per_sm * sms;
-}
-
-static int tiles64(int M, int N) {
-  return (M + BM - 1) / BM * ((N + BN - 1) / BN);
 }
 
 // ---------------------------------------------------------------------------
@@ -498,12 +497,8 @@ __global__ void __launch_bounds__(THREADS)
   const int M = a.B * a.Tq, C = a.heads * D, Cin = a.Cin;
   cg::grid_group grid = cg::this_grid();
   if (a.ln) {  // pre-LayerNorm + to_q act-quantize, a warp per row
-    const int warps = THREADS / 32;
-    for (int r = blockIdx.x * warps + threadIdx.x / 32; r < M;
-         r += gridDim.x * warps)
-      ln_quant_row(a.x + static_cast<size_t>(r) * Cin, a.gamma, a.beta,
-                   a.codes + static_cast<size_t>(r) * Cin, Cin, a.xq.sinv,
-                   a.xq.zp, a.xq.lo, a.xq.hi, a.eps, threadIdx.x & 31);
+    ln_stage(a.x, a.gamma, a.beta, a.codes, M, Cin, a.xq.sinv, a.xq.zp,
+             a.xq.lo, a.xq.hi, a.eps);
     grid.sync();
   }
   proj_stage<T>(smem, a.codes, M, Cin, a.avec_x, a.wq, C, a.bvec_q, a.sq,
@@ -512,23 +507,11 @@ __global__ void __launch_bounds__(THREADS)
   attn_stage<T, D>(smem, a.q, C, a.k, a.ldk, a.v, a.ldv, a.o, C, a.B, a.Tq,
                    a.Tk, a.heads, a.sm_scale, a.mq);
   grid.sync();
-
-  // to_out + bias + residual
-  auto As = reinterpret_cast<int8_t(*)[LDS]>(smem);
-  auto Bs = reinterpret_cast<int8_t(*)[LDS]>(smem + BM * LDS);
-  const T* res = a.ln ? a.x : a.res;
-  const int nt = (Cin + BN - 1) / BN, tiles = (M + BM - 1) / BM * nt;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-    gemm_tile(a.o, M, C, tile / nt * BM, true, a.wout, Cin, tile % nt * BN,
-              a.bvec_o, As, Bs, [&](int m, int n, int acc) {
-                if (m >= M || n >= Cin) return;
-                const size_t i = static_cast<size_t>(m) * Cin + n;
-                float y = __fmul_rn(__fsub_rn(__int2float_rn(acc), a.b0o[n]),
-                                    a.so[n]);
-                if (a.bo) y = __fadd_rn(y, a.bo[n]);
-                if (res) y = __fadd_rn(y, to_f32(res[i]));
-                store_f32(a.out + i, y);
-              });
+  // to_out + bias + residual (the raw input in LN-folded mode)
+  out_stage<T>(reinterpret_cast<int8_t(*)[LDS]>(smem),
+               reinterpret_cast<int8_t(*)[LDS]>(smem + BM * LDS), a.o, M, C,
+               true, a.wout, Cin, a.bvec_o, a.so, a.b0o, a.bo,
+               a.ln ? a.x : a.res, a.out);
 }
 
 template <typename T, int D>
@@ -582,4 +565,106 @@ extern "C" int mixdq_sec_attention_q_out(
   return fn(x, gamma, beta, wq, sq, b0q, k, v, ldk, ldv, wout, so, b0o, bo,
             res, codes, q, o, out, B, Tq, Tk, Cin, heads, d, ln, sm_scale,
             mq, xq, eps, stream);
+}
+
+// ---------------------------------------------------------------------------
+// sec_attention_qkv_out
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct QkvOutArgs {
+  const T* x;  // raw input (LN-folded mode; also the residual) or null
+  const float* gamma;
+  const float* beta;
+  int8_t* codes;  // [B*T, C]: written in LN-folded mode, else input
+  const int8_t* w;  // [C, 3C]
+  const float* scale;
+  const float* bias0;  // [3C]
+  bf16* ws;            // [B*T, 3C] workspace: q | k | v
+  int8_t* o;           // [B*T, C] workspace: to_out's codes
+  const int8_t* wout;  // [C, C]
+  const float* so;
+  const float* b0o;
+  const float* bo;  // [C] or null
+  const T* res;     // [B*T, C] or null (pre-coded mode)
+  T* out;           // [B*T, C]
+  int B, T_, heads, ln;
+  float sm_scale, eps;
+  Quant mq, xq;
+  bool avec, bvec, bvec_o;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    sec_qkv_out_kernel(const QkvOutArgs<T> a) {
+  __shared__ __align__(16) char smem[smem_bytes<D, true>()];
+  const int M = a.B * a.T_, C = a.heads * D, N = 3 * C;
+  cg::grid_group grid = cg::this_grid();
+  if (a.ln) {  // pre-LayerNorm + to_qkv act-quantize, a warp per row
+    ln_stage(a.x, a.gamma, a.beta, a.codes, M, C, a.xq.sinv, a.xq.zp,
+             a.xq.lo, a.xq.hi, a.eps);
+    grid.sync();
+  }
+  proj_stage<bf16>(smem, a.codes, M, C, a.avec, a.w, N, a.bvec, a.scale,
+                   a.bias0, a.ws);
+  grid.sync();
+  attn_stage<bf16, D>(smem, a.ws, N, a.ws + C, N, a.ws + 2 * C, N, a.o, C,
+                      a.B, a.T_, a.T_, a.heads, a.sm_scale, a.mq);
+  grid.sync();
+  out_stage<T>(reinterpret_cast<int8_t(*)[LDS]>(smem),
+               reinterpret_cast<int8_t(*)[LDS]>(smem + BM * LDS), a.o, M, C,
+               true, a.wout, C, a.bvec_o, a.so, a.b0o, a.bo,
+               a.ln ? a.x : a.res, a.out);
+}
+
+template <typename T, int D>
+static int launch_qkv_out(QkvOutArgs<T> a, cudaStream_t stream) {
+  const int M = a.B * a.T_, C = a.heads * D;
+  const int tiles = std::max({tiles64(M, 3 * C), tiles64(M, C),
+                              a.B * a.heads * ((a.T_ + 63) / 64)});
+  const int grid = cooperative_grid(sec_qkv_out_kernel<T, D>, tiles);
+  void* args[] = {&a};
+  cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(sec_qkv_out_kernel<T, D>), dim3(grid),
+      dim3(THREADS), args, 0, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int qkv_out(const void* x, const float* gamma, const float* beta,
+                   int8_t* codes, const int8_t* w, const float* scale,
+                   const float* bias0, void* ws, int8_t* o,
+                   const int8_t* wout, const float* so, const float* b0o,
+                   const float* bo, const void* res, void* out, int B, int T_,
+                   int heads, int d, int ln, float sm_scale, Quant mq,
+                   Quant xq, float eps, cudaStream_t stream) {
+  const int C = heads * d;
+  const QkvOutArgs<T> a{
+      static_cast<const T*>(x), gamma, beta, codes, w, scale, bias0,
+      static_cast<bf16*>(ws), o, wout, so, b0o, bo,
+      static_cast<const T*>(res), static_cast<T*>(out), B, T_, heads, ln,
+      sm_scale, eps, mq, xq, vec16(codes, C), vec16(w, 3 * C),
+      vec16(wout, C)};
+  switch (d) {
+    case 16: return launch_qkv_out<T, 16>(a, stream);
+    case 32: return launch_qkv_out<T, 32>(a, stream);
+    case 64: return launch_qkv_out<T, 64>(a, stream);
+    case 128: return launch_qkv_out<T, 128>(a, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int mixdq_sec_attention_qkv_out(
+    const void* x, const float* gamma, const float* beta, int8_t* codes,
+    const int8_t* w, const float* scale, const float* bias0, void* ws,
+    int8_t* o, const int8_t* wout, const float* so, const float* b0o,
+    const float* bo, const void* res, void* out, int B, int T_, int heads,
+    int d, int is_bf16, int ln, float sm_scale, float mid_sinv, float mid_zp,
+    float mid_lo, float mid_hi, float x_sinv, float x_zp, float x_lo,
+    float x_hi, float eps, cudaStream_t stream) {
+  const Quant mq{mid_sinv, mid_zp, mid_lo, mid_hi};
+  const Quant xq{x_sinv, x_zp, x_lo, x_hi};
+  auto fn = is_bf16 ? qkv_out<bf16> : qkv_out<float>;
+  return fn(x, gamma, beta, codes, w, scale, bias0, ws, o, wout, so, b0o, bo,
+            res, out, B, T_, heads, d, ln, sm_scale, mq, xq, eps, stream);
 }

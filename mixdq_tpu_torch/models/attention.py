@@ -9,11 +9,18 @@ entries when ``ctx.fuse_qkv``; cross-attention k/v keep the first (BoS)
 text token on the FP dequantized-weight path when ``ctx.bos_aware``.
 Under ``'einsum'`` the attention math is a matmul + f32 softmax chain.
 Under ``'auto'`` each site runs the kernel the JAX package picks for its
-shape (``routing.attention_route``, with the JAX package's default
-out-fusion at attn2 only, LN folded): ``sec_attention_qkv`` or
-``sec_attention`` after the fused QKV GEMM, or flash attention at
-``Tq * Tk >= 2^22``, for self-attention; ``sec_attention_q_out``,
-``sec_attention_q`` or ``to_q`` + ``sec_attention`` for cross-attention.
+shape and the context's kernel options (``routing.attention_route``):
+``sec_attention_qkv_out`` (attn1 in ``ctx.out_fuse``),
+``sec_attention_qkv`` or ``sec_attention`` after the fused QKV GEMM, or
+flash attention at ``Tq * Tk >= 2^22`` (int8 flash attention at int8
+sites under ``ctx.int8_flash``), for self-attention;
+``sec_attention_q_out`` (attn2 in ``ctx.out_fuse``), ``sec_attention_q``
+or ``to_q`` + ``sec_attention`` for cross-attention. The feed-forward
+runs ``geglu_out_qmatmul`` where ff is in ``ctx.out_fuse`` and its gate
+holds (``routing.whole_ff``), else ``geglu_qmatmul`` and ``ff.net.2``.
+With ``ctx.ln_fold`` off, the block materializes every deferred
+LayerNorm's codes itself and the sub-modules get codes plus the raw
+residual.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ from torch import nn
 
 from ..ops.gn_quant import gn_silu_quantize
 from ..ops.ln_quant import ln_quantize
-from ..ops.qmatmul import gelu
+from ..ops.qmatmul import geglu_out_qmatmul, gelu
 from ..ops.qops import act_clip_range
-from ..ops.attention import flash_attention
+from ..ops.attention import (flash_attention, int8_flash_attention,
+                             int8qkv_flash_attention)
 from ..ops.sec_attention import (sec_attention, sec_attention_q,
-                                 sec_attention_q_out, sec_attention_qkv)
+                                 sec_attention_q_out, sec_attention_qkv,
+                                 sec_attention_qkv_out)
 from ..quant.state import FP_CTX, QuantCtx
 from . import routing
 from .layers import (GroupNorm, LayerNorm, QDense, bos_row, codes_of,
@@ -115,9 +124,12 @@ class Attention(nn.Module):
             compute=ctx.deploy_compute,
             fused_codes=dp_f is not None and dp_f.w_int is not None,
             q_codes=dp_q is not None and dp_q.w_int is not None,
-            out_codes=dp_o is not None and dp_o.w_int is not None)
+            out_codes=dp_o is not None and dp_o.w_int is not None,
+            out_fuse=ctx.out_fuse, int8_flash=ctx.int8_flash)
         if route.kernel == routing.QKV:
             return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
+        if route.kernel == routing.QKV_OUT:
+            return self._sec_self_out(hidden_states, ctx, residual, ln, dp_f)
         if ln is not None and not (route.kernel == routing.Q_OUT
                                    or is_cross and dp_f is not None):
             # norm1 before the fused QKV GEMM, or any norm before the
@@ -156,6 +168,10 @@ class Attention(nn.Module):
                                 clip=act_clip_range(dp_o.a_bits), **kw)
         elif route.kernel == routing.FLASH:
             out = flash_attention(*srcs, **kw).to(self.dtype)
+        elif route.kernel in (routing.INT8_FLASH, routing.INT8QKV_FLASH):
+            fn = (int8_flash_attention if route.kernel == routing.INT8_FLASH
+                  else int8qkv_flash_attention)
+            out = fn(*srcs, out_dtype=self.dtype, **kw)
         else:
             out = self._einsum(*srcs, route.offsets)
         return self._finish(out, ctx, residual)
@@ -197,6 +213,29 @@ class Attention(nn.Module):
             scale=self.head_dim ** -0.5, clip=act_clip_range(dp_o.a_bits))
         return self._finish(codes, ctx, residual)
 
+    def _block_input(self, hidden_states, residual, ln, dp):
+        """(x, fold, residual) of a whole-block kernel: LN-folded when the
+        deferred LayerNorm's raw input is the residual, else the codes of
+        entry ``dp`` plus the explicit residual."""
+        if ln is not None and residual is hidden_states:
+            return hidden_states.to(self.dtype), ln_fold_args(ln), None
+        x = (materialize_ln_codes(hidden_states, ln) if ln is not None
+             else self._codes(hidden_states, dp))
+        return x, None, None if residual is None else residual.to(self.dtype)
+
+    def _sec_self_out(self, hidden_states, ctx, residual, ln, dp_f):
+        """Self-attention in one ``sec_attention_qkv_out``: the fused QKV
+        GEMM, attention, ``to_out`` with its bias and the residual add."""
+        dp_o = ctx.entry(self.to_out[0].qname)
+        x, fold, residual = self._block_input(hidden_states, residual, ln,
+                                              dp_f)
+        return sec_attention_qkv_out(
+            x, dp_f.w_int, dp_f.scale, dp_f.bias0, dp_o.scale_inv,
+            dp_o.zp_shifted, dp_o.w_int, dp_o.scale, dp_o.bias0,
+            self.to_out[0].bias, residual, heads=self.heads,
+            head_dim=self.head_dim, scale=self.head_dim ** -0.5,
+            out_dtype=self.dtype, clip=act_clip_range(dp_o.a_bits), ln=fold)
+
     def _sec_q(self, codes, y, ctx):
         """Cross-attention from to_q's codes in one ``sec_attention_q``
         over the k/v panels of the fused ``to_kv`` output ``y``: to_out's
@@ -217,15 +256,8 @@ class Attention(nn.Module):
         codes plus the explicit residual."""
         dp_q = ctx.entry(self.to_q.qname)
         dp_o = ctx.entry(self.to_out[0].qname)
-        if ln is not None and residual is hidden_states:
-            x, fold = hidden_states.to(self.dtype), ln_fold_args(ln)
-            residual = None
-        else:
-            x = (materialize_ln_codes(hidden_states, ln) if ln is not None
-                 else self._codes(hidden_states, dp_q))
-            fold = None
-            if residual is not None:
-                residual = residual.to(self.dtype)
+        x, fold, residual = self._block_input(hidden_states, residual, ln,
+                                              dp_q)
         inner = self.heads * self.head_dim
         return sec_attention_q_out(
             x, dp_q.w_int, dp_q.scale, dp_q.bias0, y, y, dp_o.scale_inv,
@@ -259,16 +291,50 @@ class FeedForward(nn.Module):
                  device=None):
         super().__init__()
         inner = dim * mult
+        self.dim, self.inner, self.dtype = dim, inner, dtype
         self.net = nn.ModuleList([
             GEGLU(dim, inner, dtype=dtype, device=device), nn.Identity(),
             QDense(inner, dim, dtype=dtype, device=device)])
 
     def forward(self, x, ctx: QuantCtx = FP_CTX, residual=None, ln=None):
+        """``residual``: when given, returns ``residual + ff``. ``ln``: a
+        deferred pre-LayerNorm (see ``Attention.forward``)."""
+        dp_p = ctx.entry(self.net[0].proj.qname)
+        dp_2 = ctx.entry(self.net[2].qname)
+        if dp_2 is not None and (ln is None or residual is x) and \
+                routing.whole_ff(
+                    fusable=geglu_fusable(ctx.deploy_compute, dp_p, dp_2),
+                    net2_codes=dp_2.w_int is not None, out_fuse=ctx.out_fuse,
+                    M=x.numel() // x.shape[-1], K=x.shape[-1], H=self.inner,
+                    C_out=self.dim, ln=ln is not None):
+            return self._whole(x, ctx, residual, ln, dp_p, dp_2)
         if ln is not None:
             x = materialize_ln_codes(x, ln)
-        x = self.net[0](x, ctx, consumer_dp=ctx.entry(self.net[2].qname))
+        x = self.net[0](x, ctx, consumer_dp=dp_2)
         x = self.net[2](x, ctx)
         return x if residual is None else deploy_res_add(residual, x)
+
+    def _whole(self, x, ctx, residual, ln, dp_p, dp_2):
+        """The whole feed-forward in one ``geglu_out_qmatmul``
+        (``mixdq_tpu/models/attention.py:557-589``): LN-folded on the raw
+        input, which is the residual, or on proj's codes plus the explicit
+        residual."""
+        lead, K, C = x.shape[:-1], x.shape[-1], self.dim
+        if ln is not None:
+            x, fold, res = x.to(self.dtype), ln_fold_args(ln), None
+        else:
+            x = codes_of(x if x.dtype == torch.int8 else x.to(self.dtype),
+                         dp_p)
+            fold = None
+            res = (None if residual is None
+                   else residual.to(self.dtype).reshape(-1, C))
+        out = geglu_out_qmatmul(
+            x.reshape(-1, K), dp_p.w_int, dp_p.scale, dp_p.bias0,
+            dp_2.scale_inv, dp_2.zp_shifted, dp_2.w_int, dp_2.scale,
+            dp_2.bias0, bias=self.net[0].proj.bias, out_bias=self.net[2].bias,
+            residual=res, gelu_tanh=(ctx.gelu == "tanh"),
+            clip=act_clip_range(dp_2.a_bits), out_dtype=self.dtype, ln=fold)
+        return out.reshape(*lead, C)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -285,10 +351,14 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, **kw)
 
     def _ln(self, x, norm: LayerNorm, consumer: Optional[str], ctx):
-        """Plain LayerNorm, or deferred (raw input + (norm, entry)) when
-        the consumer is an int8 entry that takes codes."""
+        """Plain LayerNorm, or, when the consumer is an int8 entry that
+        takes codes, deferred (raw input + (norm, entry)) or, with
+        ``ctx.ln_fold`` off, its codes at once
+        (``mixdq_tpu/models/attention.py:666-674``)."""
         dp = fused_entry(ctx, consumer)
         if dp is not None:
+            if not ctx.ln_fold:
+                return materialize_ln_codes(x, (norm, dp)), None
             return x, (norm, dp)
         return norm(x), None
 

@@ -6,9 +6,15 @@ The ``*_ok`` gates below are copies of the JAX package's pure shape rules
 128-lane offsets and the TPU's VMEM budgets. They choose the route the
 reference takes at each shape, so the port runs the same kernel at the
 same site; they are not limits of the Hopper kernels, which take every
-shape with ``head_dim`` in ``ops.sec_attention.HEAD_DIMS``. The out-fused
-self-attention and GEGLU gates are not copied: those sites stay off, as
-the JAX package's ``MIXDQ_SEC_OUTFUSE`` default leaves them.
+shape with ``head_dim`` in ``ops.sec_attention.HEAD_DIMS``.
+
+The context's kernel options (``QuantCtx.out_fuse`` / ``int8_flash``)
+enter as arguments: a site runs its whole-block kernel
+(``sec_attention_qkv_out`` at attn1, ``sec_attention_q_out`` at attn2,
+``geglu_out_qmatmul`` at ff, ``whole_ff``) only when it is in
+``out_fuse`` and the kernel's gate holds, and a flash site at an int8
+self-attention runs int8 flash attention unless ``int8_flash`` is
+``'off'``.
 """
 
 from __future__ import annotations
@@ -24,8 +30,15 @@ Q_OUT = "sec_attention_q_out"
 SEC_Q = "sec_attention_q"
 SEC = "sec_attention"
 FLASH = "flash_attention"
+QKV_OUT = "sec_attention_qkv_out"
+INT8_FLASH = "int8_flash_attention"
+INT8QKV_FLASH = "int8qkv_flash_attention"
 #: the kernels a route may name
-KERNELS = (QKV, Q_OUT, SEC_Q, SEC, FLASH)
+KERNELS = (QKV, Q_OUT, SEC_Q, SEC, FLASH, QKV_OUT, INT8_FLASH, INT8QKV_FLASH)
+#: ``QuantCtx.int8_flash`` -> the kernel of an int8 self-attention flash site
+_FLASH_BY_MODE = {"off": FLASH, "qk": INT8_FLASH, "qkv": INT8QKV_FLASH}
+#: the JAX package's default out-fusion set (``MIXDQ_SEC_OUTFUSE`` unset)
+DEFAULT_OUT_FUSE = frozenset({"attn2"})
 EINSUM = "einsum"
 
 
@@ -111,6 +124,60 @@ def sec_attention_q_out_ok(heads: int, head_dim: int, Tq: int, Tk: int,
     return _pick_hpp(heads, head_dim, offsets, _BUDGET, vmem) > 0
 
 
+def sec_attention_qkv_out_ok(heads: int, head_dim: int, T: int,
+                             C: int) -> bool:
+    """``pallas_sec_attention.py:637-644`` (with
+    ``_sec_qkv_out_pick_hpp`` :610-634: the weight panels at 0/C/2C keep
+    ``C`` aligned, the logits tile is row-chunked)."""
+    if (not _lanes(head_dim, heads) or T % 8 or heads * head_dim != C
+            or C % 128):
+        return False
+    rc = _pick_row_chunk(T, T)
+
+    def vmem(w):
+        return (2 * T * C + 6 * C * w + 6 * T * w + 4 * T * w + 8 * rc * T
+                + T * w + 2 * w * C + 4 * T * C + 4 * T * C)
+    return _pick_hpp(heads, head_dim, (C,), _BUDGET, vmem) > 0
+
+
+def _geglu_out_pick(M: int, K: int, H: int, C: int) -> Tuple[int, int]:
+    """``pallas_qmatmul.py:528-547``: (bm, bn) of the whole-FF kernel
+    within a 12 MiB budget, (0, 0) when none fits."""
+    Kp = -(-K // 128) * 128
+    bn0 = 1280 if M <= 256 else 512
+
+    def vmem(bm, bn):
+        return (2 * bm * Kp + 4 * Kp * bn + 12 * bm * bn + bm * bn
+                + 2 * bn * C + 4 * bm * C + 4 * bm * C)
+    for bm in [m for m in (M, 1024, 512, 256, 128, 64, 32) if m <= M]:
+        for bn in (bn0, 512, 256):
+            if vmem(bm, bn) <= 12 * 2 ** 20:
+                return bm, bn
+    return 0, 0
+
+
+def geglu_out_ok(M: int, K: int, H: int, C: int) -> bool:
+    """``pallas_qmatmul.py:550-554``."""
+    if C % 128 or M < 8:
+        return False
+    return _geglu_out_pick(M, K, H, C)[0] > 0
+
+
+def whole_ff(*, fusable: bool, net2_codes: bool, out_fuse: frozenset,
+             M: int, K: int, H: int, C_out: int, ln: bool) -> bool:
+    """Whether an ff site runs ``geglu_out_qmatmul``
+    (``mixdq_tpu/models/attention.py:627-636``): ``fusable`` (the GEGLU
+    kernel runs, ``attention.geglu_fusable``), ``net2_codes`` (``ff.net.2``
+    holds unpacked int8 codes), ``'ff'`` in ``out_fuse`` and the gate;
+    ``ln``: a deferred pre-LayerNorm folds in, which needs ``K % 128 ==
+    0`` and ``C_out == K``."""
+    if not (fusable and net2_codes and "ff" in out_fuse):
+        return False
+    if ln and (K % 128 or C_out != K):
+        return False
+    return geglu_out_ok(M, K, H, C_out)
+
+
 class Route(NamedTuple):
     """The kernel of one attention site (one of the names above) and the
     column offsets of q, k and v in their source tensors."""
@@ -124,7 +191,9 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
                     codes: bool = True, out_entry: bool = True,
                     q_entry: bool = True, compute: str = "int8_sec",
                     fused_codes: bool = True, q_codes: bool = True,
-                    out_codes: bool = True) -> Route:
+                    out_codes: bool = True,
+                    out_fuse: frozenset = DEFAULT_OUT_FUSE,
+                    int8_flash: str = "off") -> Route:
     """The JAX package's choice for one attention site.
 
     ``mode``: the context's ``'fp'`` / ``'int8'``; ``compute``: its
@@ -146,12 +215,15 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
     else:
         offsets = (0, 0, C) if fused else (0, 0, 0)
     if sec and fused and codes and out_entry:
-        if not cross and fused_codes and sec_attention_qkv_ok(
-                heads, head_dim, Tq, C_in):
-            return Route(QKV, offsets)
+        if not cross and fused_codes:
+            if out_codes and "attn1" in out_fuse and \
+                    sec_attention_qkv_out_ok(heads, head_dim, Tq, C_in):
+                return Route(QKV_OUT, offsets)
+            if sec_attention_qkv_ok(heads, head_dim, Tq, C_in):
+                return Route(QKV, offsets)
         if cross and q_entry and q_codes:
-            if out_codes and sec_attention_q_out_ok(heads, head_dim, Tq, Tk,
-                                                    C_in, 0, C):
+            if out_codes and "attn2" in out_fuse and sec_attention_q_out_ok(
+                    heads, head_dim, Tq, Tk, C_in, 0, C):
                 return Route(Q_OUT, offsets)
             if sec_attention_q_ok(heads, head_dim, Tq, Tk, C_in, 0, C):
                 return Route(SEC_Q, offsets)
@@ -159,7 +231,10 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
                                               *offsets):
         return Route(SEC, offsets)
     if attn_impl == "auto" and Tq * Tk >= FLASH_TQ_TK:
-        return Route(FLASH, offsets)
+        # int8 QK^T / PV at int8 self-attention sites (attention.py:493-498)
+        kernel = (_FLASH_BY_MODE[int8_flash] if mode == "int8" and not cross
+                  else FLASH)
+        return Route(kernel, offsets)
     return Route(EINSUM, offsets)
 
 

@@ -27,6 +27,39 @@ def ln_quantize_plain(x, gamma, beta, scale_inv: float, zp_shifted: float,
     return q.clamp_(clip[0], clip[1]).to(torch.int8)
 
 
+def ln_or_codes_plain(x, residual, ln):
+    """(codes, residual) of a whole-block kernel's input: in LN-folded
+    mode (``ln`` = ``(gamma, beta, x_scale_inv, x_zp_shifted, x_clip,
+    eps)``) the raw input quantized, which is then the residual; else the
+    given codes and residual."""
+    if ln is None:
+        return x, residual
+    gamma, beta, x_sinv, x_zp, x_clip, eps = ln
+    return ln_quantize_plain(x, gamma, beta, x_sinv, x_zp, eps, x_clip), x
+
+
+def check_block_input(name, x, residual, ln, C_in, dt, res_shape):
+    """The input of a whole-block kernel in ``dt`` (its output dtype):
+    LN-folded, the raw stream in ``dt`` with f32 ``[C_in]`` gamma/beta;
+    pre-coded, int8 codes and a ``res_shape`` residual in ``dt`` or None.
+    Returns (gamma, beta, x_sinv, x_zp, x_clip, eps), zeros without
+    ``ln``."""
+    if ln is not None:
+        gamma, beta, x_sinv, x_zp, x_clip, eps = ln
+        if x.dtype != dt:
+            raise TypeError(f"{name}: the raw input must be {dt}")
+        for t in (gamma, beta):
+            if t.dtype != torch.float32 or t.shape != (C_in,):
+                raise ValueError(f"{name}: gamma/beta must be f32 [{C_in}]")
+        return gamma, beta, x_sinv, x_zp, x_clip, eps
+    if x.dtype != torch.int8:
+        raise TypeError(f"{name}: x must be int8 codes without ln")
+    if residual is not None and (tuple(residual.shape) != tuple(res_shape)
+                                 or residual.dtype != dt):
+        raise ValueError(f"{name}: residual must be {tuple(res_shape)} {dt}")
+    return None, None, 0.0, 0.0, (0.0, 0.0), 0.0
+
+
 def _lib():
     lib = _build.load("ln_quant.cu")
     f = lib.mixdq_ln_quantize

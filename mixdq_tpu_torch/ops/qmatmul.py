@@ -11,6 +11,12 @@
   the consumer's (``ff.net.2``) act-quantize, emitting that consumer's
   int8 codes ``[M, H]``. Kernel: ``csrc/geglu_qmatmul.cu``; plain
   version: ``geglu_qmatmul_plain``.
+* ``geglu_out_qmatmul`` (port of ``geglu_out_qmatmul``): the whole
+  feed-forward: the pre-LayerNorm + proj act-quantize (LN-folded mode)
+  or given codes, ``geglu_qmatmul``'s work, then the ``ff.net.2`` GEMM
+  with ``qmatmul``'s epilogue, its bias and the residual add, in the
+  model dtype. Kernel: ``csrc/geglu_qmatmul.cu``; plain version:
+  ``geglu_out_qmatmul_plain``.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ from typing import Optional
 import torch
 
 from . import _build, check_cuda_args, qops, register, use_kernel
+from .ln_quant import check_block_input, ln_or_codes_plain
 
 COUNT = register("geglu_qmatmul")
 QMATMUL_COUNT = register("qmatmul")
+GEGLU_OUT_COUNT = register("geglu_out_qmatmul")
 
 _SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi),
                                      dtype=torch.float32))
@@ -59,6 +67,9 @@ def _lib():
         P, I, F = _build.P, _build.I, _build.F
         f.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P]
         f.restype = I
+        g = lib.mixdq_geglu_out_qmatmul
+        g.argtypes = [P] * 15 + [I] * 7 + [F] * 9 + [P]
+        g.restype = I
     return lib
 
 
@@ -159,4 +170,94 @@ def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         int(out_dtype == torch.bfloat16), _build.stream(x_int8.device))
     _build.check(lib, err, "qmatmul")
     QMATMUL_COUNT.launches += 1
+    return out
+
+
+def geglu_out_qmatmul_plain(x, w_int8, scale, bias0, mid_scale_inv: float,
+                            mid_zp_shifted: float, w2_int8, out_scale,
+                            out_bias0, bias=None, out_bias=None,
+                            residual=None, gelu_tanh: bool = True,
+                            clip=(-128.0, 127.0), out_dtype=torch.bfloat16,
+                            ln=None):
+    codes, residual = ln_or_codes_plain(x, residual, ln)
+    h = geglu_qmatmul_plain(codes, w_int8, scale, bias0, mid_scale_inv,
+                            mid_zp_shifted, bias, gelu_tanh, clip)
+    out = qmatmul_plain(h, w2_int8, out_scale, out_bias0, out_bias,
+                        torch.float32)
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(out_dtype)
+
+
+def geglu_out_qmatmul(x: torch.Tensor, w_int8: torch.Tensor,
+                      scale: torch.Tensor, bias0: torch.Tensor,
+                      mid_scale_inv: float, mid_zp_shifted: float,
+                      w2_int8: torch.Tensor, out_scale: torch.Tensor,
+                      out_bias0: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      out_bias: Optional[torch.Tensor] = None,
+                      residual: Optional[torch.Tensor] = None,
+                      gelu_tanh: bool = True, clip=(-128.0, 127.0),
+                      out_dtype=torch.bfloat16, ln=None) -> torch.Tensor:
+    """Whole feed-forward -> ``[M, C]`` in ``out_dtype`` (bf16 or f32).
+
+    ``x``: the proj codes ``[M, K]``, or, in LN-folded mode (``ln`` =
+    ``(gamma, beta, x_scale_inv, x_zp_shifted, x_clip, eps)``), the raw
+    block input ``[M, K]`` in ``out_dtype``, which then is also the
+    residual (``residual`` must be None). ``w_int8`` ``[K, 2H]`` with
+    ``[2H]`` f32 ``scale``/``bias0``/``bias`` (the proj); ``mid_*`` the
+    act quantizer of ``ff.net.2``, whose ``w2_int8`` ``[H, C]`` has f32
+    ``[C]`` ``out_scale``/``out_bias0`` and ``out_bias``. H may be any
+    width: the kernel masks the ragged columns where the JAX wrapper pads
+    with zero rows of ``w2``."""
+    GEGLU_OUT_COUNT.calls += 1
+    if ln is not None and residual is not None:
+        raise ValueError("geglu_out_qmatmul: in LN-folded mode the input is "
+                         "the residual")
+    if not use_kernel(x, w_int8, w2_int8, residual):
+        return geglu_out_qmatmul_plain(
+            x, w_int8, scale, bias0, mid_scale_inv, mid_zp_shifted, w2_int8,
+            out_scale, out_bias0, bias, out_bias, residual, gelu_tanh, clip,
+            out_dtype, ln)
+    M, K = x.shape
+    K2, N2 = w_int8.shape
+    H, C = w2_int8.shape
+    if (w_int8.dtype != torch.int8 or w2_int8.dtype != torch.int8
+            or K2 != K or N2 != 2 * H):
+        raise ValueError(f"geglu_out_qmatmul: bad operands x {tuple(x.shape)}"
+                         f", w {tuple(w_int8.shape)}, w2 "
+                         f"{tuple(w2_int8.shape)}")
+    for t, n in ((scale, N2), (bias0, N2), (out_scale, C), (out_bias0, C)):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError("geglu_out_qmatmul: scales/bias0 must be f32 "
+                             "[2H] / [C]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"geglu_out_qmatmul: out_dtype {out_dtype}")
+    if ln is not None and K != C:
+        raise ValueError("geglu_out_qmatmul: LN-folded mode takes the raw "
+                         "input [M, C]")
+    gamma, beta, x_sinv, x_zp, x_clip, eps = check_block_input(
+        "geglu_out_qmatmul", x, residual, ln, K, out_dtype, (M, C))
+    bias = None if bias is None else bias.float().contiguous()
+    out_bias = None if out_bias is None else out_bias.float().contiguous()
+    check_cuda_args("geglu_out_qmatmul", x=x, gamma=gamma, beta=beta,
+                    w=w_int8, scale=scale, bias0=bias0, w2=w2_int8,
+                    out_scale=out_scale, out_bias0=out_bias0,
+                    residual=residual)
+    dev = x.device
+    codes = (torch.empty((M, K), dtype=torch.int8, device=dev)
+             if ln is not None else x)
+    h_ws = torch.empty((M, H), dtype=torch.int8, device=dev)
+    out = torch.empty((M, C), dtype=out_dtype, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.mixdq_geglu_out_qmatmul(
+        p(x if ln is not None else None), p(gamma), p(beta), p(codes),
+        p(w_int8), p(scale), p(bias0), p(bias), p(h_ws), p(w2_int8),
+        p(out_scale), p(out_bias0), p(out_bias), p(residual), p(out), M, K,
+        H, C, int(gelu_tanh), int(out_dtype == torch.bfloat16),
+        int(ln is not None), mid_scale_inv, mid_zp_shifted, clip[0], clip[1],
+        x_sinv, x_zp, x_clip[0], x_clip[1], eps, _build.stream(dev))
+    _build.check(lib, err, "geglu_out_qmatmul")
+    GEGLU_OUT_COUNT.launches += 1
     return out

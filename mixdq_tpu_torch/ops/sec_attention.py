@@ -16,6 +16,10 @@
   cross-attention sub-block: the pre-LayerNorm + act-quantize (LN-folded
   mode) or given codes, ``sec_attention_q``'s work, the ``to_out`` GEMM,
   its bias and the residual add.
+* ``sec_attention_qkv_out`` (port of ``sec_attention_qkv_out``): the
+  whole self-attention sub-block: the pre-LayerNorm + act-quantize
+  (LN-folded mode) or given codes, ``sec_attention_qkv``'s work, the
+  ``to_out`` GEMM, its bias and the residual add.
 
 Kernels: ``csrc/sec_attention.cu``. Plain versions: the ``*_plain``
 functions, which share ``_attend_codes_plain``, a step-by-step copy of
@@ -31,12 +35,13 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build, check_cuda_args, qops, register, use_kernel
-from .ln_quant import ln_quantize_plain
+from .ln_quant import check_block_input, ln_or_codes_plain
 
 SEC_COUNT = register("sec_attention")
 Q_COUNT = register("sec_attention_q")
 QKV_COUNT = register("sec_attention_qkv")
 Q_OUT_COUNT = register("sec_attention_q_out")
+QKV_OUT_COUNT = register("sec_attention_qkv_out")
 
 HEAD_DIMS = (16, 32, 64, 128)
 _FLOAT_TYPES = (torch.bfloat16, torch.float32)
@@ -122,22 +127,39 @@ def sec_attention_q_out_plain(x, wq_int8, wq_scale, bias0, k_src, v_src,
                               scale: float, k_off: int = 0, v_off: int = 0,
                               out_dtype=torch.bfloat16,
                               clip=(-128.0, 127.0), ln=None):
-    if ln is not None:
-        gamma, beta, x_sinv, x_zp, x_clip, eps = ln
-        codes = ln_quantize_plain(x, gamma, beta, x_sinv, x_zp, eps, x_clip)
-        residual = x
-    else:
-        codes = x
+    codes, residual = ln_or_codes_plain(x, residual, ln)
     o_codes = sec_attention_q_plain(
         codes, wq_int8, wq_scale, bias0, k_src, v_src, mid_scale_inv,
         mid_zp_shifted, heads=heads, head_dim=head_dim, scale=scale,
         k_off=k_off, v_off=v_off, clip=clip)
+    return _out_proj_plain(o_codes, wout_int8, out_scale, out_bias0,
+                           out_bias, residual, out_dtype)
+
+
+def _out_proj_plain(o_codes, wout_int8, out_scale, out_bias0, out_bias,
+                    residual, out_dtype):
+    """The whole-block tail: ``(f32(acc) - bias0) * scale``, then ``+
+    bias``, then ``+ f32(residual)``, one cast to ``out_dtype``."""
     out = _proj_plain(o_codes, wout_int8, out_scale, out_bias0, torch.float32)
     if out_bias is not None:
         out = out + out_bias.float()
     if residual is not None:
         out = out + residual.float()
     return out.to(out_dtype)
+
+
+def sec_attention_qkv_out_plain(x, w_int8, w_scale, bias0,
+                                mid_scale_inv: float, mid_zp_shifted: float,
+                                wout_int8, out_scale, out_bias0, out_bias,
+                                residual, *, heads: int, head_dim: int,
+                                scale: float, out_dtype=torch.bfloat16,
+                                clip=(-128.0, 127.0), ln=None):
+    codes, residual = ln_or_codes_plain(x, residual, ln)
+    o_codes = sec_attention_qkv_plain(
+        codes, w_int8, w_scale, bias0, mid_scale_inv, mid_zp_shifted,
+        heads=heads, head_dim=head_dim, scale=scale, clip=clip)
+    return _out_proj_plain(o_codes, wout_int8, out_scale, out_bias0,
+                           out_bias, residual, out_dtype)
 
 
 def _lib():
@@ -155,6 +177,9 @@ def _lib():
         f.restype = I
         f = lib.mixdq_sec_attention_q
         f.argtypes = [P] * 6 + [I] * 2 + [P] * 2 + [I] * 7 + [F] * 5 + [P]
+        f.restype = I
+        f = lib.mixdq_sec_attention_qkv_out
+        f.argtypes = [P] * 15 + [I] * 6 + [F] * 10 + [P]
         f.restype = I
     return lib
 
@@ -356,27 +381,10 @@ def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
     if k_src.shape[0] != B or v_src.shape[:2] != (B, Tk):
         raise ValueError("sec_attention_q_out: k/v batch or key counts "
                          "differ")
-    if ln is not None:
-        gamma, beta, x_sinv, x_zp, x_clip, eps = ln
-        if x.dtype != dt:
-            raise TypeError("sec_attention_q_out: the raw input must have "
-                            "k/v's dtype")
-        for t in (gamma, beta):
-            if t.dtype != torch.float32 or t.shape != (C_in,):
-                raise ValueError("sec_attention_q_out: gamma/beta must be "
-                                 "f32 [C_in]")
-        codes = torch.empty((B, Tq, C_in), dtype=torch.int8, device=x.device)
-    else:
-        gamma = beta = None
-        x_sinv, x_zp, x_clip, eps = 0.0, 0.0, (0.0, 0.0), 0.0
-        codes = x
-        if x.dtype != torch.int8:
-            raise TypeError("sec_attention_q_out: x must be int8 codes "
-                            "without ln")
-        if residual is not None and (residual.shape != x.shape
-                                     or residual.dtype != dt):
-            raise ValueError("sec_attention_q_out: residual must be "
-                             f"[B, Tq, C_in] {dt}")
+    gamma, beta, x_sinv, x_zp, x_clip, eps = check_block_input(
+        "sec_attention_q_out", x, residual, ln, C_in, dt, x.shape)
+    codes = (torch.empty((B, Tq, C_in), dtype=torch.int8, device=x.device)
+             if ln is not None else x)
     _check_weight("sec_attention_q_out to_q", wq_int8, C_in, C, wq_scale,
                   bias0)
     _check_weight("sec_attention_q_out to_out", wout_int8, C, C_in,
@@ -404,4 +412,74 @@ def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
         x_clip[0], x_clip[1], eps, _build.stream(dev))
     _build.check(lib, err, "sec_attention_q_out")
     Q_OUT_COUNT.launches += 1
+    return out
+
+
+def sec_attention_qkv_out(x: torch.Tensor, w_int8: torch.Tensor,
+                          w_scale: torch.Tensor, bias0: torch.Tensor,
+                          mid_scale_inv: float, mid_zp_shifted: float,
+                          wout_int8: torch.Tensor, out_scale: torch.Tensor,
+                          out_bias0: torch.Tensor,
+                          out_bias: Optional[torch.Tensor],
+                          residual: Optional[torch.Tensor], *, heads: int,
+                          head_dim: int, scale: float,
+                          out_dtype=torch.bfloat16, clip=(-128.0, 127.0),
+                          ln: Optional[Sequence] = None) -> torch.Tensor:
+    """Whole self-attention sub-block -> ``[B, T, C]`` in ``out_dtype``
+    (bf16 or f32).
+
+    ``x``: the int8 codes of the fused QKV entry ``[B, T, C]``, or, in
+    LN-folded mode (``ln`` = ``(gamma, beta, x_scale_inv, x_zp_shifted,
+    x_clip, eps)``), the raw block input in ``out_dtype``, which then is
+    also the residual (``residual`` must be None). ``w_int8`` ``[C, 3C]``
+    (q | k | v column panels; q/k/v cast to bf16 after the projection)
+    and ``wout_int8`` ``[C, C]`` with f32 scales/``bias0``; ``out_bias``
+    the ``to_out`` bias or None."""
+    QKV_OUT_COUNT.calls += 1
+    check_head_dim(head_dim)
+    if ln is not None and residual is not None:
+        raise ValueError("sec_attention_qkv_out: in LN-folded mode the "
+                         "input is the residual")
+    if not use_kernel(x, w_int8, wout_int8, residual):
+        return sec_attention_qkv_out_plain(
+            x, w_int8, w_scale, bias0, mid_scale_inv, mid_zp_shifted,
+            wout_int8, out_scale, out_bias0, out_bias, residual, heads=heads,
+            head_dim=head_dim, scale=scale, out_dtype=out_dtype, clip=clip,
+            ln=ln)
+    B, T, C = x.shape
+    if heads * head_dim != C:
+        raise ValueError(f"sec_attention_qkv_out: {tuple(x.shape)} for "
+                         f"{heads} heads of {head_dim}")
+    if out_dtype not in _FLOAT_TYPES:
+        raise TypeError(f"sec_attention_qkv_out: out_dtype {out_dtype}")
+    gamma, beta, x_sinv, x_zp, x_clip, eps = check_block_input(
+        "sec_attention_qkv_out", x, residual, ln, C, out_dtype, x.shape)
+    _check_weight("sec_attention_qkv_out to_qkv", w_int8, C, 3 * C, w_scale,
+                  bias0)
+    _check_weight("sec_attention_qkv_out to_out", wout_int8, C, C, out_scale,
+                  out_bias0)
+    if out_bias is not None:
+        out_bias = out_bias.float().contiguous()
+    check_cuda_args("sec_attention_qkv_out", x=x, gamma=gamma, beta=beta,
+                    w=w_int8, scale=w_scale, bias0=bias0, wout=wout_int8,
+                    out_scale=out_scale, out_bias0=out_bias0,
+                    residual=residual)
+    dev = x.device
+    codes = (torch.empty((B, T, C), dtype=torch.int8, device=dev)
+             if ln is not None else x)
+    ws = torch.empty((B * T, 3 * C), dtype=torch.bfloat16, device=dev)
+    o_ws = torch.empty((B, T, C), dtype=torch.int8, device=dev)
+    out = torch.empty((B, T, C), dtype=out_dtype, device=dev)
+    lib = _lib()
+    p = _build.ptr
+    err = lib.mixdq_sec_attention_qkv_out(
+        p(x if ln is not None else None), p(gamma), p(beta), p(codes),
+        p(w_int8), p(w_scale), p(bias0), p(ws), p(o_ws), p(wout_int8),
+        p(out_scale), p(out_bias0), p(out_bias), p(residual), p(out), B, T,
+        heads, head_dim, int(out_dtype == torch.bfloat16),
+        int(ln is not None), scale, mid_scale_inv, mid_zp_shifted,
+        clip[0], clip[1], x_sinv, x_zp, x_clip[0], x_clip[1], eps,
+        _build.stream(dev))
+    _build.check(lib, err, "sec_attention_qkv_out")
+    QKV_OUT_COUNT.launches += 1
     return out

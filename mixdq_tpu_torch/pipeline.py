@@ -127,7 +127,7 @@ def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
 #: the kernels whose launches ``expected_kernel_calls`` counts
 KERNELS = ("qconv2d", "qconv2d_s2", "gn_silu_quantize", "ln_quantize",
            "geglu_qmatmul", "qmatmul") + routing.KERNELS + (
-    "wq4_matmul", "wq_matmul")
+    "wq4_matmul", "wq_matmul", "geglu_out_qmatmul")
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,11 +177,16 @@ def _site_shape(cfg, block: str) -> Tuple[int, int, int]:
 
 def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                           deploy: Optional[Dict[str, DeployEntry]] = None,
-                          compute: str = "int8_sec") -> Dict[str, int]:
+                          compute: str = "int8_sec",
+                          out_fuse: frozenset = routing.DEFAULT_OUT_FUSE,
+                          ln_fold: bool = True,
+                          int8_flash: str = "off") -> Dict[str, int]:
     """Kernel calls of one UNet step of ``example_inputs`` implied by the
     UNet structure and a deploy: ``deploy`` under ``compute`` (default:
     ``w8a8_layout``, the deploy of ``quantize_w8a8``) in ``mode='int8'``,
-    or the FP UNet (``mode='fp'``: the attention kernels only).
+    or the FP UNet (``mode='fp'``: the attention kernels only), under the
+    context's kernel options ``out_fuse`` / ``ln_fold`` / ``int8_flash``
+    (``QuantCtx``; ``ctx_kernel_calls`` reads them from a context).
 
     Each entry counts as the layers run it, by its kind, weight bits
     (packed or int8 codes) and act bits (act-quantized or weight-only,
@@ -192,7 +197,10 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
     weight-only convs on none; a GroupNorm producer for every
     act-quantized resnet conv, ``conv_out`` and ``proj_in`` under
     ``int8_sec``. Each transformer block's attention sites go through
-    ``routing.attention_route`` with the inputs its modules give it."""
+    ``routing.attention_route`` and its ff site through
+    ``routing.whole_ff`` with the inputs its modules give them; a deferred
+    LayerNorm counts an ``ln_quantize`` unless a whole-block kernel folds
+    it (``ln_fold``)."""
     calls = dict.fromkeys(KERNELS, 0)
     shapes = dict(_layer_shapes(cfg))
     blocks = sorted({n[:n.index(".", n.index(".transformer_blocks.") + 20)]
@@ -256,13 +264,17 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                 out_entry=act(o), q_entry=act(q), compute=compute,
                 fused_codes=f is not None and f.w_int is not None,
                 q_codes=q is not None and q.w_int is not None,
-                out_codes=o is not None and o.w_int is not None)
+                out_codes=o is not None and o.w_int is not None,
+                out_fuse=out_fuse, int8_flash=int8_flash)
             if r.kernel != routing.EINSUM:
                 calls[r.kernel] += 1
-            if r.kernel == routing.Q_OUT:  # LN, to_q and to_out inside
+            whole = r.kernel in (routing.Q_OUT, routing.QKV_OUT)
+            calls["ln_quantize"] += ln and not (ln_fold and whole)
+            if r.kernel == routing.Q_OUT:  # to_q and to_out inside
                 dense(f)
                 continue
-            calls["ln_quantize"] += ln
+            if r.kernel == routing.QKV_OUT:  # QKV and to_out inside
+                continue
             if r.kernel == routing.QKV:
                 dense(o)
                 continue
@@ -276,13 +288,31 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                     dense(deploy.get(f"{a}.{m}"))
             dense(o)
         p, c = deploy.get(f"{b}.ff.net.0.proj"), deploy.get(f"{b}.ff.net.2")
-        calls["ln_quantize"] += sec and act(p)
+        ln = sec and act(p)
+        C = heads * d
+        if c is not None and routing.whole_ff(
+                fusable=geglu_fusable(compute, p, c),
+                net2_codes=c.w_int is not None, out_fuse=out_fuse, M=T, K=C,
+                H=4 * C, C_out=C, ln=ln and ln_fold):
+            calls["geglu_out_qmatmul"] += 1
+            calls["ln_quantize"] += ln and not ln_fold
+            continue
+        calls["ln_quantize"] += ln
         if geglu_fusable(compute, p, c):
             calls["geglu_qmatmul"] += 1
         else:
             dense(p)
         dense(c)
     return calls
+
+
+def ctx_kernel_calls(cfg, ctx: QuantCtx) -> Dict[str, int]:
+    """``expected_kernel_calls`` of one step of the UNet of ``cfg`` under
+    ``ctx`` (its deploy, compute, ``attn_impl`` and kernel options)."""
+    return expected_kernel_calls(
+        cfg, ctx.attn_impl, mode=ctx.mode, deploy=ctx.deploy,
+        compute=ctx.deploy_compute, out_fuse=ctx.out_fuse,
+        ln_fold=ctx.ln_fold, int8_flash=ctx.int8_flash)
 
 
 @torch.inference_mode()

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.routing import DEFAULT_OUT_FUSE
 from .core import DEFAULT_CANDIDATE_BITS
 
 _LIST_NAMES = (
@@ -134,6 +135,10 @@ def protect_layers(ctrl: Dict[str, LayerCtrl], names: Sequence[str]
 #: deploy compute strategies (``mixdq_tpu/models/layers.py:51``) that the
 #: port runs; the JAX package's plain ``'int8'`` (XLA convs) is not ported
 DEPLOY_COMPUTE = ("int8_sec", "dequant", "pallas_dequant")
+#: sites whose out-projection a whole-block kernel may take over
+OUT_FUSE_SITES = frozenset({"attn1", "attn2", "ff"})
+#: flash attention's int8 modes at int8 self-attention sites
+INT8_FLASH = ("off", "qk", "qkv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,9 +154,26 @@ class QuantCtx:
     matmul + softmax chain) or ``'auto'`` (the ``bench.py`` headline: with
     fused QKV/KV, every self-attention runs ``sec_attention_qkv`` and
     every cross-attention ``sec_attention_q_out`` with its pre-LayerNorm
-    folded in; the JAX package's defaults of its ``MIXDQ_SEC_OUTFUSE`` /
-    ``MIXDQ_SEC_LNFOLD`` knobs, which the port does not read).
-    ``gelu``: ``'tanh'`` or ``'exact'``.
+    folded in). ``gelu``: ``'tanh'`` or ``'exact'``.
+
+    The kernel options of the ``int8_sec`` / ``'auto'`` deploy, which the
+    JAX package reads from environment variables at trace time (the port
+    reads none):
+
+    * ``out_fuse``: the sites, of ``{'attn1', 'attn2', 'ff'}``, whose
+      ``to_out`` / ``ff.net.2`` GEMM, bias and residual add run inside
+      the whole-block kernel (``sec_attention_qkv_out``,
+      ``sec_attention_q_out``, ``geglu_out_qmatmul``) where its gate
+      admits the shape: ``MIXDQ_SEC_OUTFUSE``, whose default is
+      ``{'attn2'}``; ``frozenset()`` is its ``"0"``, all three sites its
+      ``"1"``.
+    * ``ln_fold``: a deferred pre-LayerNorm and its act-quantize fold
+      into the whole-block kernel (True) or run as ``ln_quantize`` at the
+      block first (False): ``MIXDQ_SEC_LNFOLD`` (``"1"`` / ``"0"``).
+    * ``int8_flash``: flash attention at int8-mode self-attention sites
+      runs QK^T in int8 (``'qk'``: ``int8_flash_attention``), QK^T and PV
+      in int8 (``'qkv'``: ``int8qkv_flash_attention``) or in bf16
+      (``'off'``): ``MIXDQ_INT8_FLASH`` ``"qk"`` / ``"1"`` / ``"0"``.
 
     ``deploy_compute`` (int8 mode): ``'int8_sec'`` as above;
     ``'dequant'`` (weight-only: acts stay in the model dtype, packed-W4
@@ -169,6 +191,9 @@ class QuantCtx:
     gelu: str = "tanh"
     attn_impl: str = "einsum"
     deploy_compute: str = "int8_sec"
+    out_fuse: frozenset = DEFAULT_OUT_FUSE
+    ln_fold: bool = True
+    int8_flash: str = "off"
 
     def __post_init__(self):
         if self.mode not in ("fp", "int8"):
@@ -181,6 +206,15 @@ class QuantCtx:
         if self.deploy_compute not in DEPLOY_COMPUTE:
             raise ValueError(f"deploy_compute {self.deploy_compute!r}: this "
                              f"port runs {DEPLOY_COMPUTE}")
+        if (not isinstance(self.out_fuse, frozenset)
+                or not self.out_fuse <= OUT_FUSE_SITES):
+            raise ValueError(f"out_fuse {self.out_fuse!r}: a frozenset of "
+                             f"{sorted(OUT_FUSE_SITES)}")
+        if not isinstance(self.ln_fold, bool):
+            raise ValueError(f"ln_fold {self.ln_fold!r}: a bool")
+        if self.int8_flash not in INT8_FLASH:
+            raise ValueError(f"int8_flash {self.int8_flash!r}: one of "
+                             f"{INT8_FLASH}")
 
     def entry(self, name: str):
         """The deploy entry of layer ``name`` in int8 mode, else None."""

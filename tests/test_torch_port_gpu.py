@@ -338,3 +338,82 @@ def test_wq_matmul_kernels(dev, M, K, N, w4, dtype):
     assert ops.launch_counts()[name] == ops.call_counts()[name] == 1
     assert got.dtype == dtype and got.shape == (M, N) and got.is_cuda
     wq_err(got, want)
+
+
+@pytest.mark.parametrize("B,T,heads,d,dtype,ln", [
+    (1, 1024, 10, 64, torch.bfloat16, True),   # SDXL-Turbo attn1 at 32x32
+    (1, 256, 20, 64, torch.bfloat16, False),   # 16x16, pre-coded + residual
+    (2, 100, 2, 16, torch.bfloat16, True),     # ragged T, small heads
+    (2, 40, 2, 128, torch.bfloat16, False),
+    (1, 64, 2, 64, torch.float32, True),       # f32 (small-sdxl)
+    (2, 33, 3, 32, torch.float32, False),
+])
+def test_sec_attention_qkv_out_kernel(dev, B, T, heads, d, dtype, ln):
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops.sec_attention import (
+        sec_attention_qkv_out, sec_attention_qkv_out_plain)
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    args, kw = smoke().qkv_out_case(torch, g, dev, B, T, heads, d, dtype, ln)
+    ops.reset_counts()
+    got = sec_attention_qkv_out(*args, **kw)
+    want = sec_attention_qkv_out_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sec_attention_qkv_out"] == 1
+    assert got.dtype == dtype and got.shape == (B, T, heads * d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("M,K,H,C,dtype,ln", [
+    (1024, 640, 2560, 640, torch.bfloat16, True),     # ff at 32x32
+    (256, 1280, 5120, 1280, torch.bfloat16, False),   # 16x16, pre-coded
+    (50, 128, 100, 128, torch.bfloat16, True),        # ragged H, M < 64
+    (37, 40, 24, 40, torch.float32, False),           # widths not x16
+    (64, 128, 512, 128, torch.float32, True),         # f32 (small-sdxl)
+])
+def test_geglu_out_kernel(dev, M, K, H, C, dtype, ln):
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops.qmatmul import (geglu_out_qmatmul,
+                                             geglu_out_qmatmul_plain)
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    args, kw = smoke().geglu_out_case(torch, g, dev, M, K, H, C, dtype, ln)
+    ops.reset_counts()
+    got = geglu_out_qmatmul(*args, **kw)
+    want = geglu_out_qmatmul_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["geglu_out_qmatmul"] == 1
+    assert got.dtype == dtype and got.shape == (M, C)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["int8_flash_attention",
+                                  "int8qkv_flash_attention"])
+@pytest.mark.parametrize("B,Tq,Tk,heads,d,dtype,self_attn", [
+    (1, 4096, 4096, 10, 64, torch.bfloat16, True),  # SDXL 1024 attn1, 64x64
+    (2, 300, 700, 3, 64, torch.bfloat16, False),    # two key blocks, ragged
+    (1, 200, 77, 2, 128, torch.bfloat16, False),    # d=128, masked tail
+    (2, 130, 130, 4, 16, torch.bfloat16, True),
+    (1, 100, 90, 2, 32, torch.float32, False),      # f32
+    (2, 70, 600, 2, 128, torch.float32, False),
+])
+def test_int8_flash_kernels(dev, name, B, Tq, Tk, heads, d, dtype,
+                            self_attn):
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    srcs, kw = smoke().attn_case(torch, g, dev, B, Tq, Tk, heads, d, dtype,
+                                 not self_attn)
+    ops.reset_counts()
+    got = getattr(attention, name)(*srcs, **kw)
+    want = getattr(attention, name + "_plain")(*srcs, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == ops.call_counts()[name] == 1
+    assert got.dtype == dtype and got.shape == (B, Tq, heads * d)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
+    else:  # p rounds against a running max (chip_smoke.py)
+        smoke().flash_err(torch, got, want)

@@ -137,7 +137,9 @@ def test_sdxl_turbo_layer_names_meta():
     assert names == sorted(want)
     common = {"qconv2d": 38, "qconv2d_s2": 2, "gn_silu_quantize": 46,
               "geglu_qmatmul": 70, "flash_attention": 0, "sec_attention": 0,
-              "sec_attention_q": 0, "wq4_matmul": 0, "wq_matmul": 0}
+              "sec_attention_q": 0, "wq4_matmul": 0, "wq_matmul": 0,
+              "sec_attention_qkv_out": 0, "geglu_out_qmatmul": 0,
+              "int8_flash_attention": 0, "int8qkv_flash_attention": 0}
     assert pipeline.expected_kernel_calls(m.config, "einsum") == {
         **common, "ln_quantize": 210, "qmatmul": 474,
         "sec_attention_qkv": 0, "sec_attention_q_out": 0}
@@ -304,7 +306,9 @@ def test_tiny_sdxl_int8_step(tiny):
                           "sec_attention_qkv": 0, "sec_attention_q_out": 0,
                           "flash_attention": 0, "sec_attention": 0,
                           "sec_attention_q": 0, "wq4_matmul": 0,
-                          "wq_matmul": 0}
+                          "wq_matmul": 0, "sec_attention_qkv_out": 0,
+                          "geglu_out_qmatmul": 0, "int8_flash_attention": 0,
+                          "int8qkv_flash_attention": 0}
     assert ops.call_counts() == want_calls
     assert set(ops.launch_counts().values()) == {0}  # CPU: plain versions
 
