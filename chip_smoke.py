@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: W8A8 and mixed-precision
 SDXL-Turbo (512 px) and W8A8 SDXL (1024 px) UNet steps through the
-hand-written kernels.
+hand-written kernels, and the kernel benchmark.
 
     python3 chip_smoke.py
 
@@ -13,11 +13,14 @@ Phases (none catches its own failure; any failure exits non-zero):
 1. Each kernel against its plain PyTorch version at the main-path shapes,
    at B=1 and B=2 for the 1024 px kernels (int8 codes: max |diff| <= 1
    on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
-   the kernel's key block size: max |diff| <= 2 bf16 ulps of the plain
-   output's max |x| and |diff| / |plain| <= 1e-2),
+   the kernel's key blocks: max |diff| <= 2 bf16 ulps of the plain
+   output's max |x| and |diff| / |plain| <= 1e-2; the fused act-quantize
+   GEMMs: rtol 1e-3 / atol 1e-2 but on < 1% of entries, and those within
+   one code's worth of their column),
    with the kernel's and the plain version's time, the card's bound for
    the same work and, where one PyTorch call computes the same function,
-   its time (``torch._int_mm`` for ``qmatmul``, the product alone;
+   its time (``torch._int_mm`` for ``qmatmul`` and, on codes quantized
+   beforehand, for ``qmatmul_fused`` / ``qmatmul_fused2``, the product alone;
    ``scaled_dot_product_attention`` for flash attention; ``torch.matmul``
    on the weight dequantized beforehand for ``wq4_matmul`` /
    ``wq_matmul``, whose check is flash attention's).
@@ -64,10 +67,16 @@ Phases (none catches its own failure; any failure exits non-zero):
    launch counts, SQNR against bf16 (>= 16 dB), bf16 auto against bf16
    einsum (>= ``FLASH_SQNR_DB``) and each bf16 flash site against the
    einsum chain (>= ``FLASH_SITE_SQNR_DB``), both failed by flash attention
-   that drops one block of keys, every attention module auto against
+   that drops the last 64 keys, every attention module auto against
    einsum with injected zero-point faults at ``sec_attention`` and
    ``sec_attention_q`` sites, paired step medians and one profiled step
    per path.
+8. The kernel benchmark's path (``python -m
+   mixdq_tpu_torch.scripts.kernel_bench``): its seven rows at its four
+   SDXL shapes, ``KB_ITERS`` timed calls each, launch counts, and each
+   int8 row's output against the PyTorch int8 row's (the phase 1 rule of
+   the fused GEMMs); the only path of ``qmatmul_fused`` and
+   ``qmatmul_fused2``.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
@@ -109,11 +118,12 @@ SDXL_FAULT_SITES = (
     "mid_block.attentions.0.transformer_blocks.0.attn1.to_out.0",
     "down_blocks.1.attentions.0.transformer_blocks.0.attn2.to_out.0",
     "up_blocks.0.attentions.0.transformer_blocks.0.attn2.to_out.0")
-# whole SDXL 1024 bf16 step, flash attention (auto) vs the einsum chain:
-# sound 34.96-35.28 dB, every flash site dropping one key block 32.23-33.00
+# whole SDXL 1024 bf16 step, flash attention (auto, mha's 1024-key blocks)
+# vs the einsum chain: sound 35.04-35.09 dB, every flash site dropping its
+# last 64 keys 32.31-32.94 (H100 80GB HBM3, at 550 W and at 700 W)
 FLASH_SQNR_DB = 34.0
-# each bf16 flash site vs the einsum chain: sound 50.65-53.68 dB, one
-# site dropping one key block 38.63
+# each bf16 flash site vs the einsum chain: sound 50.65-53.67 dB, one
+# site dropping its last 64 keys 38.63
 FLASH_SITE_SQNR_DB = 45.0
 # whole SDXL-Turbo step, each out-fusion set against the default one (one
 # deploy, the same integer sums; the whole-block kernels round the output
@@ -135,12 +145,17 @@ OUTFUSE_FAULT_SITES = (
 # on the same input: sound qk 40.12-48.16, qkv 39.71-47.09 dB; the q scale
 # doubled 12.94 / 12.50
 INT8_FLASH_SITE_SQNR_DB = {"qk": 30.0, "qkv": 30.0}
+# keys the planted flash fault drops at the end of every flash site
+FLASH_DROPPED_KEYS = 64
+# timed calls of each kernel benchmark row in phase 8
+KB_ITERS = 5
 _NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
              geglu_qmatmul=0, qmatmul=0, sec_attention_qkv=0,
              sec_attention_q_out=0, flash_attention=0, sec_attention=0,
              sec_attention_q=0, wq4_matmul=0, wq_matmul=0,
              sec_attention_qkv_out=0, geglu_out_qmatmul=0,
-             int8_flash_attention=0, int8qkv_flash_attention=0)
+             int8_flash_attention=0, int8qkv_flash_attention=0,
+             qmatmul_fused=0, qmatmul_fused2=0)
 # launches per SDXL-Turbo W8A8 step, B=1, under the default kernel options
 # (out-fusion at attn2, LN folded)
 TURBO_CALLS = dict(_NONE, qconv2d=38, qconv2d_s2=2, gn_silu_quantize=46,
@@ -219,9 +234,9 @@ TPU_KERNELS = [
     ("pallas_ln_quant.py:55 ln_quantize", "ln_quantize"),
     ("pallas_qmatmul.py:352 geglu_qmatmul", "geglu_qmatmul"),
     ("pallas_qmatmul.py:67 qmatmul", "qmatmul"),
-    ("pallas_qmatmul.py:205 qmatmul_fused2", None),
+    ("pallas_qmatmul.py:205 qmatmul_fused2", "qmatmul_fused2"),
     ("pallas_qmatmul.py:557 geglu_out_qmatmul", "geglu_out_qmatmul"),
-    ("pallas_qmatmul.py:724 qmatmul_fused", None),
+    ("pallas_qmatmul.py:724 qmatmul_fused", "qmatmul_fused"),
     ("pallas_sec_attention.py:99 sec_attention", "sec_attention"),
     ("pallas_sec_attention.py:223 sec_attention_q", "sec_attention_q"),
     ("pallas_sec_attention.py:409 sec_attention_qkv", "sec_attention_qkv"),
@@ -272,6 +287,10 @@ PORTED = {
                              "mixdq_tpu/ops/pallas_attention.py:228"),
     "int8qkv_flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
                                 "mixdq_tpu/ops/pallas_attention.py:330"),
+    "qmatmul_fused": ("mixdq_tpu_torch/csrc/qmatmul_fused.cu",
+                      "mixdq_tpu/ops/pallas_qmatmul.py:760"),
+    "qmatmul_fused2": ("mixdq_tpu_torch/csrc/qmatmul_fused.cu",
+                       "mixdq_tpu/ops/pallas_qmatmul.py:263"),
 }
 
 # what library_ms times, where a kernel has one
@@ -283,7 +302,13 @@ LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
            "wq4_matmul": "torch.matmul(x, w) on the weight dequantized to "
                          "bf16 before the timed region",
            "wq_matmul": "torch.matmul(x, w) on the weight dequantized to "
-                        "bf16 before the timed region"}
+                        "bf16 before the timed region",
+           "qmatmul_fused": "torch._int_mm on the codes quantized before "
+                            "the timed region: the int32 product without "
+                            "the quantize and the epilogue",
+           "qmatmul_fused2": "torch._int_mm on the codes quantized before "
+                             "the timed region: the int32 product without "
+                             "the quantize and the epilogue"}
 
 
 def log(*a):
@@ -337,12 +362,30 @@ def float_err(torch, got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
+def fused_err(torch, got, want, code):
+    """A fused act-quantize GEMM against another computation of the same
+    function: rtol 1e-3 / atol 1e-2, but for under 1% of entries, each of
+    those within one code's worth of its column (``code``: ``scale[n] *
+    max |w[:, n]|``, [N] or a number). Both form the codes from the same
+    bf16 values and sum them exactly, so they agree but where a code
+    lands apart."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    tol = 1e-2 + 1e-3 * want.abs()
+    frac = (d > tol).float().mean().item()
+    if frac >= 0.01 or bool((d > tol + code).any()):
+        raise AssertionError(f"fused GEMM outputs differ: max {d.max().item()}"
+                             f", fraction {frac} beyond rtol 1e-3 / atol "
+                             "1e-2")
+    return d.max().item()
+
+
 def kernel_cases(torch, dev):
     """(kernel, shape label, kernel call, plain call, compare, bytes,
     [(ops, peak) per type], library call or None) at the main-path shapes;
     the first case of each kernel is its reported shape."""
     from mixdq_tpu_torch.ops import (attention, gn_quant, ln_quant, qconv,
-                                     qmatmul, sec_attention, wq_matmul)
+                                     qmatmul, qops, sec_attention, wq_matmul)
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -426,6 +469,28 @@ def kernel_cases(torch, dev):
                       [(2 * M * K * N, INT8_OPS_PER_S)],
                       (lambda x=x, w=w: torch._int_mm(x, w)) if M > 16
                       else None))
+    # the fused act-quantize GEMMs at the kernel benchmark's shapes, ff.net.2
+    # of SDXL 1024's 32x32 level first, and a ragged one (scalar loads,
+    # masked tails); library: torch._int_mm on the codes, the product alone
+    for name in ("qmatmul_fused", "qmatmul_fused2"):
+        for M, K, N in [(1024, 5120, 1280), (4096, 640, 640),
+                        (1024, 1280, 1280), (1024, 1280, 5120),
+                        (48, 300, 130)]:
+            x, w = randn(M, K, dtype=bf16), codes(K, N)
+            scale = (torch.rand(N, generator=g, device=dev) + 0.5) * 1e-5
+            bias0 = -3.0 * w.int().sum(0).float()
+            args = (x, w, 10.0, -3.0, scale, bias0)
+            xq = qops.quantize_per_tensor(x, 10.0, -3.0)
+            cases.append((
+                name, f"M={M} K={K} N={N}",
+                lambda f=getattr(qmatmul, name), a=args: f(*a),
+                lambda a=args: qmatmul.qmatmul_fused_plain(*a),
+                lambda torch, got, want, c=scale * w.abs().amax(0).float():
+                    fused_err(torch, got, want, c),
+                2 * M * K + K * N + 8 * N + 2 * M * N,
+                [(2 * M * K * N, INT8_OPS_PER_S), (4 * M * K, F32_OPS_PER_S)],
+                (lambda xq=xq, w=w: torch._int_mm(xq, w))
+                if M > 16 and K % 8 == 0 and N % 8 == 0 else None))
     # attn1 / attn2 at the 32x32 (T=1024, C=640, 10 heads) and 16x16
     # (T=256, C=1280, 20 heads) levels, d=64, Tk=77
     for T, heads in [(1024, 10), (256, 20)]:
@@ -602,9 +667,9 @@ def wq_err(torch, got, want):
 
 def flash_err(torch, got, want):
     """Flash attention's bf16 output against its plain version at the same
-    key block size: max |diff| <= 2 bf16 ulps of max |want| (the two sum
-    in other orders, so an element or a rounded ``p`` may land one ulp
-    apart) and |diff| / |want| <= 1e-2 (one block of keys dropped moves
+    key blocks: max |diff| <= 2 bf16 ulps of max |want| (the two sum in
+    other orders, so an element or a rounded ``p`` may land one ulp
+    apart) and |diff| / |want| <= 1e-2 (dropping the last 64 keys moves
     it by several per cent)."""
     got, want = got.float(), want.float()
     d = got - want
@@ -1725,15 +1790,15 @@ def paired_step_ms(torch, unet, requests, paths, card, label):
 
 @contextlib.contextmanager
 def flash_drops_key_block():
-    """Within the block, the UNet's flash attention drops the last block of
-    keys at every site (a kernel that skips one key block)."""
+    """Within the block, the UNet's flash attention drops the last
+    ``FLASH_DROPPED_KEYS`` keys at every site (a kernel that skips one
+    chunk of keys)."""
     from mixdq_tpu_torch.models import attention as mod
-    from mixdq_tpu_torch.ops.attention import flash_block_keys
 
     sound = mod.flash_attention
 
     def faulted(q_src, k_src, v_src, **kw):
-        n = k_src.shape[1] - flash_block_keys(kw["head_dim"])
+        n = k_src.shape[1] - FLASH_DROPPED_KEYS
         return sound(q_src, k_src[:, :n].contiguous(),
                      v_src[:, :n].contiguous(), **kw)
 
@@ -1747,7 +1812,7 @@ def flash_drops_key_block():
 def phase_flash_sites(torch, unet, ctx, req):
     """Each flash attention site of the bf16 UNet under ``ctx``
     (``attn_impl='auto'``), teacher-forced on its FP-step input, against
-    the einsum chain (>= ``FLASH_SITE_SQNR_DB``); with its last key block
+    the einsum chain (>= ``FLASH_SITE_SQNR_DB``); with its last 64 keys
     dropped, the first site must fail that check."""
     seen = record_attention_inputs(torch, unet, req)
     kernels = {}
@@ -1761,10 +1826,10 @@ def phase_flash_sites(torch, unet, ctx, req):
                              f"{FLASH_SITE_SQNR_DB}")
     with flash_drops_key_block():
         f = site_sqnrs(torch, unet, ctx, seen, sites[:1])[sites[0]]
-    log(f"sdxl bf16 flash site {sites[0]} with its last key block dropped: "
-        f"{f:.2f} dB")
+    log(f"sdxl bf16 flash site {sites[0]} with its last "
+        f"{FLASH_DROPPED_KEYS} keys dropped: {f:.2f} dB")
     if f >= FLASH_SITE_SQNR_DB:
-        raise AssertionError("the site check misses a dropped key block")
+        raise AssertionError("the site check misses dropped keys")
 
 
 def phase_sdxl(torch, dev, card):
@@ -1772,8 +1837,8 @@ def phase_sdxl(torch, dev, card):
     int8 flash modes) and ``'einsum'`` and the bf16 UNet under ``'auto'``,
     each path's launches against the
     structure (and ``SDXL_CALLS``), SQNR against bf16, bf16 auto (flash
-    attention) against bf16 einsum, whole and per flash site, with a
-    dropped key block that must fail both, every attention site auto
+    attention) against bf16 einsum, whole and per flash site, with the
+    last 64 keys dropped, which must fail both, every attention site auto
     against einsum with zero-point faults, each int8 flash site against
     the bf16 flash site (``phase_int8_flash_sites``), paired step medians
     and one profiled step per path. Returns
@@ -1812,7 +1877,8 @@ def phase_sdxl(torch, dev, card):
         outs[tag], launches[f"sdxl {tag}"] = run_path(
             torch, unet, requests, c, f"sdxl {tag}")
     flash = "bf16 auto vs bf16 einsum"
-    dropped = "bf16 auto, flash dropping a key block, vs bf16 einsum"
+    dropped = (f"bf16 auto, flash dropping its last {FLASH_DROPPED_KEYS} "
+               "keys, vs bf16 einsum")
     sqnrs = {**{tag: [] for tag in int8}, flash: [], dropped: []}
     for i, r in enumerate(requests):
         ref = outs["bf16"][i]
@@ -1836,7 +1902,7 @@ def phase_sdxl(torch, dev, card):
                              f"{FLASH_SQNR_DB}")
     if max(sqnrs[dropped]) >= FLASH_SQNR_DB:
         raise AssertionError(f"the {FLASH_SQNR_DB} dB gate on {flash} misses "
-                             f"a dropped key block: {sqnrs[dropped]} dB")
+                             f"dropped keys: {sqnrs[dropped]} dB")
     paired_step_ms(torch, unet, requests, paths, card, "sdxl")
     phase_attention_sites(torch, unet, ctx, requests[0], SDXL_FAULT_SITES)
     phase_flash_sites(torch, unet, paths[0][1], requests[0])
@@ -1845,6 +1911,45 @@ def phase_sdxl(torch, dev, card):
                   [(f"sdxl_{tag}", c) for tag, c in paths])
     return {p: {k: v // N_SDXL_REQUESTS for k, v in c.items()}
             for p, c in launches.items()}, launches
+
+
+def phase_kernel_bench(torch, dev, card):
+    """The kernel benchmark's path (``mixdq_tpu_torch.scripts.kernel_bench``,
+    ``KB_ITERS`` timed calls of each row at each shape) with the launch
+    counts set to 0 just before it and read just after; each int8 row's
+    last output against the PyTorch int8 row's (``fused_err``, one code
+    being ``W_SCALE`` times the largest weight code). Returns (launches,
+    calls of each row at each shape)."""
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.scripts import kernel_bench as kb
+
+    ops.reset_counts()
+    table = kb.bench(dev, KB_ITERS)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    calls = kb.WARMUP + KB_ITERS
+    n = len(kb.SHAPES) * calls
+    want = dict(_NONE, qmatmul=n, qmatmul_fused=n, qmatmul_fused2=n,
+                wq_matmul=n, wq4_matmul=n)
+    log(f"kernel_bench path launches over {calls} calls of each row at "
+        f"{len(kb.SHAPES)} shapes: {launches}")
+    if launches != want or ops.call_counts() != launches:
+        raise AssertionError(f"kernel_bench launch counts {launches}, calls "
+                             f"{ops.call_counts()}, expected {want}")
+    for shape, rows in table:
+        if len(rows) != 7:
+            raise AssertionError(f"kernel_bench {shape}: {len(rows)} rows")
+        out = {name: y for name, _, y in rows}
+        ref = out["torch int8 (quant+int_gemm)"]
+        for name in ("quantize + qmatmul", "fused-quant (qmatmul_fused)",
+                     "fused-quant v2 (qmatmul_fused2)"):
+            err = fused_err(torch, out[name], ref, kb.W_SCALE * 127)
+            log(f"kernel_bench {shape} {name} vs torch int8: max |diff| "
+                f"{err}")
+    log(f"kernel_bench ({card}, median of {KB_ITERS} calls, CUDA events):")
+    for line in kb.format_table(table):
+        log(line)
+    return launches, calls
 
 
 def main():
@@ -1912,11 +2017,17 @@ def main():
     totals.update(sdxl_totals)
     log("phase 7: sdxl 1024 paths ok (auto, int8 flash qk / qkv, einsum, "
         "bf16 auto)")
+    # kernel_bench "per step": one call of each row at each shape
+    totals["kernel_bench"], kb_calls = phase_kernel_bench(torch, dev, card)
+    per_step["kernel_bench"] = {k: v // kb_calls
+                                for k, v in totals["kernel_bench"].items()}
+    log("phase 8: kernel_bench path ok (four shapes, seven rows)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
-         "status": f"ported: {k}" if k else "still to port"}
-        for tk, k in TPU_KERNELS]}))
+         "status": f"ported: {k}" if k in PORTED else "still to port"}
+        for tk, k in TPU_KERNELS], "ported": f"{len(PORTED)} of "
+        f"{len(TPU_KERNELS)}"}))
     kernels = []
     for name, (src, replaces) in PORTED.items():
         r = report[name]
@@ -1925,15 +2036,17 @@ def main():
             extra["library"] = LIBRARY[name]
         # the main path a kernel runs on: the SDXL-Turbo headline, else the
         # weight-only pallas_dequant step, else SDXL 1024 under auto, else
-        # the path of its kernel option
+        # the path of its kernel option, else the kernel benchmark
         main_path = next((p for p in ("sdxl-turbo auto",
                                       MP_PATHS["pallas_dequant"], "sdxl auto",
                                       "sdxl-turbo outfuse all",
-                                      "sdxl int8_qk", "sdxl int8_qkv")
+                                      "sdxl int8_qk", "sdxl int8_qkv",
+                                      "kernel_bench")
                           if totals[p][name]), None)
         if main_path is None:
             raise AssertionError(f"{name} never launched on a main path")
         requests = (N_SDXL_REQUESTS if main_path.startswith("sdxl ")
+                    else kb_calls if main_path == "kernel_bench"
                     else N_REQUESTS)
         kernels.append({
             **extra, "name": name, "route": "cuda", "source": src,

@@ -4,7 +4,8 @@
 //
 // Replaces mixdq_tpu/ops/pallas_attention.py:flash_attention (pallas_call
 // at :106; mha :135 feeds it head-major copies). Per head, over key
-// blocks of KC keys (Chunk<D>::KC: 64 for d <= 64, 32 for d = 128):
+// blocks of bk keys (mha's 1024, clipped to Tk rounded up to 128: the
+// wrapper's flash_block_keys):
 //
 //   s = (q . k^T) * scale              f32, keys >= Tk masked to -1e30
 //   m' = max(m, max_j s)               m starts at -1e30
@@ -13,18 +14,25 @@
 //   acc = acc alpha + bf16(p) . v      p cast to v's dtype, f32 acc
 //   out = acc / l                      in q's dtype
 //
-// The TPU kernel carries m, l and acc in VMEM scratch along a sequential
-// key grid axis. Here one block owns (batch, head, 64 query rows), warp w
-// rows 16 w ..+16, and walks the key blocks in a loop with m, l and acc in
-// registers; k and v of a key block are staged in shared memory (v
-// transposed), and QK^T and PV run on mma.sync m16n8k16 (bf16 x bf16 ->
-// f32). q/k/v are read in place at their column offsets with their
-// sources' row strides (the fused to_qkv output), and the output is
-// written [B, Tq, heads * d] for to_out: no head-major copies. f32 q/k/v
-// take a scalar path, a warp per row.
+// The bf16 rounding of p is relative to the running max after each key
+// block, so the result depends on the partition, and the kernel keeps the
+// reference's. The TPU kernel carries m, l and acc in VMEM scratch along
+// a sequential key grid axis. Here one block owns (batch, head, 64 query
+// rows), warp w rows 16 w ..+16, and walks the key blocks in a loop with
+// m, l and acc in registers. A key block is too large for shared memory,
+// so it streams through in chunks of Chunk<D>::KC keys (64 for d <= 64,
+// 32 for d = 128) twice: a first pass takes the block's row max from the
+// logits, m, l and acc are rescaled once, and a second pass recomputes
+// the same logits to form p and PV. k and v of a chunk are staged in
+// shared memory (v transposed), and QK^T and PV run on mma.sync m16n8k16
+// (bf16 x bf16 -> f32). q/k/v are read in place at their column offsets
+// with their sources' row strides (the fused to_qkv output), and the
+// output is written [B, Tq, heads * d] for to_out: no head-major copies.
+// f32 q/k/v take a scalar path, a warp per row, over the same blocks.
 //
-// Bound at T=4096, 10 heads, d=64: 4 T^2 d heads = 43 GFLOP of bf16
-// tensor-core work, ~0.043 ms at the dense peak; the bytes (q/k/v and
+// Bound at T=4096, 10 heads, d=64: the two QK^T passes and PV are 6 T^2 d
+// heads = 64 GFLOP of bf16 tensor-core work, ~0.065 ms at the dense peak
+// (the function itself needs 4 T^2 d, ~0.043 ms); the bytes (q/k/v and
 // out, ~21 MB) take ~6 us.
 //
 // int8_flash_attention and int8qkv_flash_attention (int8 self-attention
@@ -66,16 +74,17 @@ struct FlashArgs {
   const T* k;
   const T* v;
   T* out;  // [B*Tq, heads*D]
-  int ldq, ldk, ldv, B, Tq, Tk, heads;
+  int ldq, ldk, ldv, B, Tq, Tk, heads, bk;
   float scale;
 };
 
 // One head over bf16 q/k/v for a 64-row tile (nq valid rows) into out
-// (the tile's first row, the head's first column; row stride ldo).
+// (the tile's first row, the head's first column; row stride ldo), over
+// key blocks of bk keys (a multiple of the chunk).
 template <int D>
 __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
                            int ldq, int ldk, int ldv, int ldo, int nq, int Tk,
-                           float scale) {
+                           int bk, float scale) {
   constexpr int KC = Chunk<D>::KC;
   Chunk<D>& sm = *static_cast<Chunk<D>*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -90,37 +99,30 @@ __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
   // running max of rows ra / rb (the same in the row's four threads) and
   // this thread's share of their running sums
   float ma = MASKED, mb = MASKED, la = 0.f, lb = 0.f;
-  for (int c0 = 0; c0 < Tk; c0 += KC) {
-    load_chunk<D>(sm, h, ldk, ldv, Tk, c0, true);
-    __syncthreads();
-    chunk_logits<D>(sm, qf, s, g, t);
-    float ca = MASKED, cb = MASKED;
+  for (int j0 = 0; j0 < Tk; j0 += bk) {
+    const int jend = min(j0 + bk, Tk);
+    float ca = MASKED, cb = MASKED;  // pass 1: the block's row max
+    for (int c0 = j0; c0 < jend; c0 += KC) {
+      load_chunk<D>(sm, h, ldk, ldv, Tk, c0, false);
+      __syncthreads();
+      chunk_logits<D>(sm, qf, s, g, t);
 #pragma unroll
-    for (int nt = 0; nt < KC / 8; ++nt)
+      for (int nt = 0; nt < KC / 8; ++nt)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const bool in = c0 + nt * 8 + 2 * t + (r & 1) < Tk;
-        const float v = in ? __fmul_rn(s[nt][r], scale) : MASKED;
-        s[nt][r] = v;
-        if (r < 2) ca = fmaxf(ca, v);
-        else cb = fmaxf(cb, v);
-      }
+        for (int r = 0; r < 4; ++r) {
+          if (c0 + nt * 8 + 2 * t + (r & 1) >= Tk) continue;
+          const float v = __fmul_rn(s[nt][r], scale);
+          if (r < 2) ca = fmaxf(ca, v);
+          else cb = fmaxf(cb, v);
+        }
+      __syncthreads();
+    }
     const float na = fmaxf(ma, quad_max(ca)), nb = fmaxf(mb, quad_max(cb));
     const float aa = expf(__fsub_rn(ma, na)), ab = expf(__fsub_rn(mb, nb));
     ma = na;
     mb = nb;
-    float sa = 0.f, sb = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < KC / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = expf(__fsub_rn(s[nt][r], r < 2 ? na : nb));
-        s[nt][r] = p;
-        if (r < 2) sa += p;
-        else sb += p;
-      }
-    la = __fadd_rn(__fmul_rn(la, aa), sa);
-    lb = __fadd_rn(__fmul_rn(lb, ab), sb);
+    la = __fmul_rn(la, aa);
+    lb = __fmul_rn(lb, ab);
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       o[dt][0] = __fmul_rn(o[dt][0], aa);
@@ -128,8 +130,24 @@ __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
       o[dt][2] = __fmul_rn(o[dt][2], ab);
       o[dt][3] = __fmul_rn(o[dt][3], ab);
     }
-    chunk_pv<D>(sm, s, o, g, t);
-    __syncthreads();
+    for (int c0 = j0; c0 < jend; c0 += KC) {  // pass 2: p, l, p.v
+      load_chunk<D>(sm, h, ldk, ldv, Tk, c0, true);
+      __syncthreads();
+      chunk_logits<D>(sm, qf, s, g, t);
+#pragma unroll
+      for (int nt = 0; nt < KC / 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = 0.f;
+          if (c0 + nt * 8 + 2 * t + (r & 1) < Tk)
+            p = expf(__fsub_rn(__fmul_rn(s[nt][r], scale), r < 2 ? na : nb));
+          s[nt][r] = p;
+          if (r < 2) la += p;
+          else lb += p;
+        }
+      chunk_pv<D>(sm, s, o, g, t);
+      __syncthreads();
+    }
   }
   la = quad_sum(la);
   lb = quad_sum(lb);
@@ -147,49 +165,41 @@ __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
     }
 }
 
-// The same over f32 q/k/v for rows [0, nq) of q/out, by one warp, a row at
-// a time: a lane per key for the logits, a lane per column for p.v.
-template <int D>
-__device__ void flash_f32(const float* q, const float* k, const float* v,
-                          float* out, int ldq, int ldk, int ldv, int ldo,
-                          int nq, int Tk, float scale) {
-  constexpr int KC = Chunk<D>::KC, PL = KC / 32, NC = (D + 31) / 32;
+// The f32 scalar path of the flash kernels: rows [0, nq) of out by one
+// warp, a row at a time, over key blocks of bk keys: a pass over the
+// block's logits for its row max, then p, l and p.v (a lane per key for
+// the logits, a lane per column for p.v). logit(r, j) is row r's scaled
+// logit of key j.
+template <int D, typename Logit>
+__device__ void flash_rows_f32(Logit logit, const float* v, float* out,
+                               int ldv, int ldo, int nq, int Tk, int bk) {
+  constexpr int NC = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < nq; ++r) {
-    const float* qr = q + static_cast<size_t>(r) * ldq;
     float m = MASKED, l = 0.f, o[NC] = {};
-    for (int c0 = 0; c0 < Tk; c0 += KC) {
-      float p[PL], cm = MASKED;
-#pragma unroll
-      for (int i = 0; i < PL; ++i) {
-        const int j = c0 + 32 * i + lane;
-        p[i] = j < Tk ? __fmul_rn(dot_f32(qr, k + static_cast<size_t>(j) * ldk,
-                                          D),
-                                  scale)
-                      : MASKED;
-        cm = fmaxf(cm, p[i]);
-      }
+    for (int j0 = 0; j0 < Tk; j0 += bk) {
+      const int jend = min(j0 + bk, Tk);
+      float cm = MASKED;
+      for (int j = j0 + lane; j < jend; j += 32) cm = fmaxf(cm, logit(r, j));
       const float nm = fmaxf(m, warp_max(cm));
       const float alpha = expf(__fsub_rn(m, nm));
       m = nm;
-      float ps = 0.f;
-#pragma unroll
-      for (int i = 0; i < PL; ++i) {
-        p[i] = expf(__fsub_rn(p[i], nm));
-        ps += p[i];
-      }
-      l = __fadd_rn(__fmul_rn(l, alpha), warp_sum(ps));
 #pragma unroll
       for (int c = 0; c < NC; ++c) o[c] = __fmul_rn(o[c], alpha);
-#pragma unroll
-      for (int i = 0; i < PL; ++i)
-        for (int jj = 0; jj < 32 && c0 + 32 * i + jj < Tk; ++jj) {
-          const float pj = __shfl_sync(0xffffffffu, p[i], jj);
-          const float* vr = v + static_cast<size_t>(c0 + 32 * i + jj) * ldv;
+      float ps = 0.f;
+      for (int j1 = j0; j1 < jend; j1 += 32) {
+        const int j = j1 + lane;
+        const float pj = j < jend ? expf(__fsub_rn(logit(r, j), nm)) : 0.f;
+        ps += pj;
+        for (int jj = 0; jj < 32 && j1 + jj < jend; ++jj) {
+          const float pb = __shfl_sync(0xffffffffu, pj, jj);
+          const float* vr = v + static_cast<size_t>(j1 + jj) * ldv;
 #pragma unroll
           for (int c = 0; c < NC; ++c)
-            if (lane + 32 * c < D) o[c] += pj * vr[lane + 32 * c];
+            if (lane + 32 * c < D) o[c] += pb * vr[lane + 32 * c];
         }
+      }
+      l = __fadd_rn(__fmul_rn(l, alpha), warp_sum(ps));
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -212,14 +222,22 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const FlashArgs<T> a) {
                               a.k + key0 * a.ldk + h * D,
                               a.v + key0 * a.ldv + h * D, nullptr};
     flash_bf16<D>(smem, hp, a.out + row0 * ldo + h * D, a.ldq, a.ldk, a.ldv,
-                  ldo, nq, a.Tk, a.scale);
+                  ldo, nq, a.Tk, a.bk, a.scale);
   } else {  // a warp per 16 rows
     const size_t w0 = row0 + (threadIdx.x >> 5) * 16;
-    flash_f32<D>(a.q + w0 * a.ldq + h * D, a.k + key0 * a.ldk + h * D,
-                 a.v + key0 * a.ldv + h * D, a.out + w0 * ldo + h * D, a.ldq,
-                 a.ldk, a.ldv, ldo,
-                 max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) * 16)),
-                 a.Tk, a.scale);
+    const int ldq = a.ldq, ldk = a.ldk;
+    const float scale = a.scale;
+    const float* q = a.q + w0 * ldq + h * D;
+    const float* k = a.k + key0 * ldk + h * D;
+    flash_rows_f32<D>(
+        [=](int i, int j) {
+          return __fmul_rn(dot_f32(q + static_cast<size_t>(i) * ldq,
+                                   k + static_cast<size_t>(j) * ldk, D),
+                           scale);
+        },
+        a.v + key0 * a.ldv + h * D, a.out + w0 * ldo + h * D, a.ldv, ldo,
+        max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) * 16)), a.Tk,
+        a.bk);
   }
 }
 
@@ -233,10 +251,12 @@ static int launch_flash(const FlashArgs<T>& a, cudaStream_t stream) {
 template <typename T>
 static int flash(const void* q, const void* k, const void* v, void* out,
                  int ldq, int ldk, int ldv, int B, int Tq, int Tk, int heads,
-                 int d, float scale, cudaStream_t stream) {
+                 int d, int bk, float scale, cudaStream_t stream) {
+  // the bf16 path walks a block in whole chunks of 64 (32 at d = 128) keys
+  if (bk <= 0 || bk % 64) return static_cast<int>(cudaErrorInvalidValue);
   const FlashArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                        static_cast<const T*>(v), static_cast<T*>(out), ldq,
-                       ldk, ldv, B, Tq, Tk, heads, scale};
+                       ldk, ldv, B, Tq, Tk, heads, bk, scale};
   switch (d) {
     case 16: return launch_flash<T, 16>(a, stream);
     case 32: return launch_flash<T, 32>(a, stream);
@@ -249,10 +269,11 @@ static int flash(const void* q, const void* k, const void* v, void* out,
 extern "C" int mixdq_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int ldq,
                                      int ldk, int ldv, int B, int Tq, int Tk,
-                                     int heads, int d, int is_bf16,
+                                     int heads, int d, int bk, int is_bf16,
                                      float scale, cudaStream_t stream) {
   auto fn = is_bf16 ? flash<bf16> : flash<float>;
-  return fn(q, k, v, out, ldq, ldk, ldv, B, Tq, Tk, heads, d, scale, stream);
+  return fn(q, k, v, out, ldq, ldk, ldv, B, Tq, Tk, heads, d, bk, scale,
+            stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -491,57 +512,6 @@ __device__ __forceinline__ int dot_s8(const int8_t* a, const int8_t* b,
   return s;
 }
 
-// int8_flash over f32 v, rows [0, nq) of q/out, by one warp, a row at a
-// time: a lane per key for the logits, a lane per column for p.v.
-template <int D>
-__device__ void int8_flash_f32(const int8_t* q, const int8_t* k,
-                               const float* v, float* out, int ld, int ldv,
-                               int nq, int Tk, int bk, float ls) {
-  constexpr int NC = (D + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < nq; ++r) {
-    const int8_t* qr = q + static_cast<size_t>(r) * ld;
-    float m = MASKED, l = 0.f, o[NC] = {};
-    for (int j0 = 0; j0 < Tk; j0 += bk) {
-      const int jend = min(j0 + bk, Tk);
-      float cm = MASKED;
-      for (int j = j0 + lane; j < jend; j += 32)
-        cm = fmaxf(cm, __fmul_rn(__int2float_rn(dot_s8(
-                                     qr, k + static_cast<size_t>(j) * ld, D)),
-                                 ls));
-      const float nm = fmaxf(m, warp_max(cm));
-      const float alpha = expf(__fsub_rn(m, nm));
-      m = nm;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[c] = __fmul_rn(o[c], alpha);
-      float ps = 0.f;
-      for (int j1 = j0; j1 < jend; j1 += 32) {
-        const int j = j1 + lane;
-        float pj = 0.f;
-        if (j < jend)
-          pj = expf(__fsub_rn(
-              __fmul_rn(__int2float_rn(dot_s8(
-                            qr, k + static_cast<size_t>(j) * ld, D)),
-                        ls),
-              nm));
-        ps += pj;
-        for (int jj = 0; jj < 32 && j1 + jj < jend; ++jj) {
-          const float pb = __shfl_sync(0xffffffffu, pj, jj);
-          const float* vr = v + static_cast<size_t>(j1 + jj) * ldv;
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            if (lane + 32 * c < D) o[c] += pb * vr[lane + 32 * c];
-        }
-      }
-      l = __fadd_rn(__fmul_rn(l, alpha), warp_sum(ps));
-    }
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lane + 32 * c < D)
-        out[static_cast<size_t>(r) * ld + lane + 32 * c] = __fdiv_rn(o[c], l);
-  }
-}
-
 template <typename TV, typename TO, int D, bool V8>
 __global__ void __launch_bounds__(THREADS) int8_flash_kernel(const I8Args a) {
   constexpr bool SCALAR = std::is_same<TV, float>::value;
@@ -556,14 +526,19 @@ __global__ void __launch_bounds__(THREADS) int8_flash_kernel(const I8Args a) {
   const int8_t* k = a.k + key0 * ld + h * D;
   const TV* v = static_cast<const TV*>(a.v) + key0 * a.ldv + h * D;
   TO* out = static_cast<TO*>(a.out);
-  if constexpr (SCALAR) {  // a warp per 16 rows
+  if constexpr (SCALAR) {  // int8 QK^T, f32 v: a warp per 16 rows
     const size_t w0 = row0 + (threadIdx.x >> 5) * 16;
-    int8_flash_f32<D>(a.q + w0 * ld + h * D, k, v,
-                      reinterpret_cast<float*>(out) + w0 * ld + h * D, ld,
-                      a.ldv,
-                      max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) *
-                                              16)),
-                      a.Tk, a.bk, ls);
+    const int8_t* q = a.q + w0 * ld + h * D;
+    flash_rows_f32<D>(
+        [=](int i, int j) {
+          return __fmul_rn(
+              __int2float_rn(dot_s8(q + static_cast<size_t>(i) * ld,
+                                    k + static_cast<size_t>(j) * ld, D)),
+              ls);
+        },
+        v, reinterpret_cast<float*>(out) + w0 * ld + h * D, a.ldv, ld,
+        max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) * 16)), a.Tk,
+        a.bk);
   } else {
     int8_flash_mma<D, V8, TV, TO>(smem, a.q + row0 * ld + h * D, k, v,
                                   out + row0 * ld + h * D, ld, a.ldv, nq,

@@ -141,27 +141,28 @@ __device__ __forceinline__ void for_each_acc(int wm, int wn, int lane,
           acc0[mi][ni][r], acc1[mi][ni][r]);
 }
 
-// One 64x64 output tile of A [M, K] x W [K, N] (row-major codes): rows
-// [m0, m0 + 64), columns [n0, n0 + 64). Calls epi(m, n, acc) for every
-// element of the tile, in or out of range (the caller masks). Every
-// thread of the 128-thread block calls it: it synchronizes the block,
-// and As/Bs are free again when it returns.
-template <typename Epi>
-__device__ __forceinline__ void gemm_tile(
-    const int8_t* __restrict__ A, int M, int K, int m0, bool avec,
-    const int8_t* __restrict__ W, int N, int n0, bool bvec,
-    int8_t (*As)[LDS], int8_t (*Bs)[LDS], Epi epi) {
+// One 64x64 output tile of A [M, K] x W [K, N] (row-major W codes): rows
+// [m0, m0 + 64), columns [n0, n0 + 64), with this thread's share of each
+// A tile from a_share(k0) (load_a's share of the 32 k from k0, as s8
+// codes). Calls epi(m, n, acc) for every element of the tile, in or out
+// of range (the caller masks). Every thread of the 128-thread block calls
+// it: it synchronizes the block, and As/Bs are free again when it
+// returns.
+template <typename AShare, typename Epi>
+__device__ __forceinline__ void gemm_tile_a(
+    AShare a_share, int K, int m0, const int8_t* __restrict__ W, int N,
+    int n0, bool bvec, int8_t (*As)[LDS], int8_t (*Bs)[LDS], Epi epi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   int acc[2][4][4] = {};
-  Chunk16 ra = load_a(A, M, K, m0, 0, tid, avec);
+  Chunk16 ra = a_share(0);
   Chunk16 rb = load_b(W, N, 0, N, K, 0, n0, tid, bvec);
   for (int k0 = 0; k0 < K; k0 += BK) {
     store_a(As, ra, tid);
     store_b(Bs, rb, tid);
     __syncthreads();
     if (k0 + BK < K) {
-      ra = load_a(A, M, K, m0, k0 + BK, tid, avec);
+      ra = a_share(k0 + BK);
       rb = load_b(W, N, 0, N, K, k0 + BK, n0, tid, bvec);
     }
     warp_mma(As, Bs, wm, wn, lane, acc);
@@ -169,6 +170,17 @@ __device__ __forceinline__ void gemm_tile(
   }
   for_each_acc(wm, wn, lane, acc, acc,
                [&](int r, int c, int v, int) { epi(m0 + r, n0 + c, v); });
+}
+
+// gemm_tile_a over row-major A codes [M, K].
+template <typename Epi>
+__device__ __forceinline__ void gemm_tile(
+    const int8_t* __restrict__ A, int M, int K, int m0, bool avec,
+    const int8_t* __restrict__ W, int N, int n0, bool bvec,
+    int8_t (*As)[LDS], int8_t (*Bs)[LDS], Epi epi) {
+  gemm_tile_a(
+      [=](int k0) { return load_a(A, M, K, m0, k0, threadIdx.x, avec); }, K,
+      m0, W, N, n0, bvec, As, Bs, epi);
 }
 
 // 16-byte vector loads need the row stride and the base address aligned.

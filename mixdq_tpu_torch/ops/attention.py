@@ -10,9 +10,10 @@ Plain version: ``flash_attention_plain``, a step-by-step copy of the
 online softmax of the TPU kernel.
 
 The rounding of ``p`` to v's dtype is relative to the running max of the
-key blocks seen so far, so the result depends on the key block size:
-the kernel's is ``flash_block_keys(head_dim)``, and the plain version
-takes it as ``bk``.
+key blocks seen so far, so the result depends on the key partition:
+kernel and plain version keep ``mha``'s (``flash_block_keys``: 1024
+keys, clipped to ``Tk`` rounded up to 128); the plain version also
+takes another block size as ``bk``.
 
 ``int8_flash_attention`` and ``int8qkv_flash_attention`` (ports of
 ``int8_mha`` and ``int8qkv_mha``) take the same panels, quantize q and k
@@ -46,24 +47,25 @@ INT8QKV_COUNT = register("int8qkv_flash_attention")
 MASKED = -1e30
 
 
-def flash_block_keys(head_dim: int) -> int:
-    """Keys per block of the kernel (its shared-memory chunk)."""
-    return 64 if head_dim <= 64 else 32
+def flash_block_keys(Tk: int) -> int:
+    """Keys per block of the bf16/f32 flash kernel: ``mha``'s 1024, clipped
+    to ``Tk`` rounded up to 128 (``pallas_attention.py:96``, ``:135``)."""
+    return min(1024, -(-Tk // 128) * 128)
 
 
 def flash_attention_plain(q_src, k_src, v_src, *, heads: int, head_dim: int,
                           scale: float, q_off: int = 0, k_off: int = 0,
                           v_off: int = 0, bk: Optional[int] = None):
-    """Online softmax over key blocks of ``bk`` (default: the kernel's),
-    per head: f32 logits scaled after the dot, ``alpha = exp(m - m')``,
+    """Online softmax over key blocks of ``bk`` (default:
+    ``flash_block_keys``), per head: f32 logits scaled after the dot, ``alpha = exp(m - m')``,
     ``l = l alpha + sum p`` from the f32 ``p``, ``acc = acc alpha +
     p.astype(v.dtype) . v`` in f32, then ``acc / l`` in q's dtype. A
     ragged last block is sliced where the TPU pads and masks it; its
     masked keys add nothing."""
     d, C = head_dim, heads * head_dim
-    bk = bk or flash_block_keys(d)
     B, Tq = q_src.shape[:2]
     Tk = k_src.shape[1]
+    bk = bk or flash_block_keys(Tk)
 
     def per_head(src, off, T):  # [B, heads, T, d]
         return src[..., off:off + C].reshape(B, T, heads, d).transpose(1, 2)
@@ -91,7 +93,7 @@ def _lib():
     lib = _build.load("flash_attention.cu")
     if lib.mixdq_flash_attention.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
-        lib.mixdq_flash_attention.argtypes = [P] * 4 + [I] * 9 + [F, P]
+        lib.mixdq_flash_attention.argtypes = [P] * 4 + [I] * 10 + [F, P]
         lib.mixdq_flash_attention.restype = I
         lib.mixdq_int8_flash_attention.argtypes = [P] * 4 + [I] * 10 + [
             P] * 3
@@ -125,7 +127,8 @@ def flash_attention(q_src: torch.Tensor, k_src: torch.Tensor,
         _panel_ptr(q_src, q_off), _panel_ptr(k_src, k_off),
         _panel_ptr(v_src, v_off), _build.ptr(out), q_src.shape[-1],
         k_src.shape[-1], v_src.shape[-1], B, Tq, Tk, heads, head_dim,
-        int(dt == torch.bfloat16), scale, _build.stream(q_src.device))
+        flash_block_keys(Tk), int(dt == torch.bfloat16), scale,
+        _build.stream(q_src.device))
     _build.check(lib, err, "flash_attention")
     FLASH_COUNT.launches += 1
     return out

@@ -17,6 +17,14 @@
   with ``qmatmul``'s epilogue, its bias and the residual add, in the
   model dtype. Kernel: ``csrc/geglu_qmatmul.cu``; plain version:
   ``geglu_out_qmatmul_plain``.
+* ``qmatmul_fused`` and ``qmatmul_fused2`` (ports of ``qmatmul_fused``
+  and ``qmatmul_fused2``): raw activations ``[M, K]``, cast to bf16 and
+  act-quantized inside the kernel, times int8 ``[K, N]`` weights, with the
+  epilogue ``f32(acc - int32(bias0)) * scale`` (no layer bias). The
+  first quantizes in every output tile at every K step, the second once
+  per block of rows. No model path calls them; the kernel benchmark
+  (``mixdq_tpu_torch/scripts/kernel_bench.py``) does. Kernels:
+  ``csrc/qmatmul_fused.cu``; plain version (both): ``qmatmul_fused_plain``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,11 @@ from .ln_quant import check_block_input, ln_or_codes_plain
 COUNT = register("geglu_qmatmul")
 QMATMUL_COUNT = register("qmatmul")
 GEGLU_OUT_COUNT = register("geglu_out_qmatmul")
+FUSED_COUNT = register("qmatmul_fused")
+FUSED2_COUNT = register("qmatmul_fused2")
+#: the longest K whose codes (16 rows) and a weight tile fit in one
+#: block's 227 KB of shared memory (``csrc/qmatmul_fused.cu``)
+FUSED2_MAX_K = 14080
 
 _SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi),
                                      dtype=torch.float32))
@@ -261,3 +274,75 @@ def geglu_out_qmatmul(x: torch.Tensor, w_int8: torch.Tensor,
     _build.check(lib, err, "geglu_out_qmatmul")
     GEGLU_OUT_COUNT.launches += 1
     return out
+
+
+def qmatmul_fused_plain(x, w_int8, scale_inv: float, zp_shifted: float,
+                        scale, bias0, out_dtype=torch.bfloat16):
+    codes = qops.quantize_per_tensor(x.to(torch.bfloat16), scale_inv,
+                                     zp_shifted)
+    acc = qops.int_gemm(codes, w_int8) - bias0.to(torch.int32)
+    return (acc.float() * scale).to(out_dtype)
+
+
+def _fused(count, entry, x, w_int8, scale_inv, zp_shifted, scale, bias0,
+           out_dtype):
+    """One wrapper of the two fused kernels (``entry``: the C function)."""
+    name = count.name
+    count.calls += 1
+    if not use_kernel(x, w_int8, scale, bias0):
+        return qmatmul_fused_plain(x, w_int8, scale_inv, zp_shifted, scale,
+                                   bias0, out_dtype)
+    M, K = x.shape
+    K2, N = w_int8.shape
+    if w_int8.dtype != torch.int8 or K2 != K:
+        raise ValueError(f"{name}: bad operands x {tuple(x.shape)}, "
+                         f"w {tuple(w_int8.shape)}")
+    if scale.shape != (N,) or bias0.shape != (N,) or \
+            scale.dtype != torch.float32 or bias0.dtype != torch.float32:
+        raise ValueError(f"{name}: scale/bias0 must be f32 [N]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: out_dtype {out_dtype}")
+    if count is FUSED2_COUNT and K > FUSED2_MAX_K:
+        raise ValueError(f"{name}: K={K} > {FUSED2_MAX_K}")
+    xb = x.to(torch.bfloat16).contiguous()
+    check_cuda_args(name, w=w_int8, scale=scale, bias0=bias0)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    lib = _fused_lib()
+    p = _build.ptr
+    err = getattr(lib, entry)(
+        p(xb), p(w_int8), p(scale), p(bias0), p(out), M, K, N, scale_inv,
+        zp_shifted, int(out_dtype == torch.bfloat16), _build.stream(x.device))
+    _build.check(lib, err, name)
+    count.launches += 1
+    return out
+
+
+def _fused_lib():
+    lib = _build.load("qmatmul_fused.cu")
+    if lib.mixdq_qmatmul_fused.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        for f in (lib.mixdq_qmatmul_fused, lib.mixdq_qmatmul_fused2):
+            f.argtypes = [P] * 5 + [I] * 3 + [F] * 2 + [I, P]
+            f.restype = I
+    return lib
+
+
+def qmatmul_fused(x: torch.Tensor, w_int8: torch.Tensor, scale_inv: float,
+                  zp_shifted: float, scale: torch.Tensor, bias0: torch.Tensor,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Raw activations ``[M, K]`` (any float dtype, cast to bf16) x int8
+    ``[K, N]`` -> ``f32(acc - int32(bias0)) * scale`` ``[M, N]`` in
+    ``out_dtype`` (bf16 or f32), the codes ``clip(round(x * scale_inv) +
+    zp_shifted, -128, 127)`` formed in every output tile."""
+    return _fused(FUSED_COUNT, "mixdq_qmatmul_fused", x, w_int8, scale_inv,
+                  zp_shifted, scale, bias0, out_dtype)
+
+
+def qmatmul_fused2(x: torch.Tensor, w_int8: torch.Tensor, scale_inv: float,
+                   zp_shifted: float, scale: torch.Tensor,
+                   bias0: torch.Tensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``qmatmul_fused``'s function, the codes formed once per block of
+    rows and kept in shared memory (K up to ``FUSED2_MAX_K``)."""
+    return _fused(FUSED2_COUNT, "mixdq_qmatmul_fused2", x, w_int8, scale_inv,
+                  zp_shifted, scale, bias0, out_dtype)

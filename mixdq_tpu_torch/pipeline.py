@@ -127,7 +127,8 @@ def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
 #: the kernels whose launches ``expected_kernel_calls`` counts
 KERNELS = ("qconv2d", "qconv2d_s2", "gn_silu_quantize", "ln_quantize",
            "geglu_qmatmul", "qmatmul") + routing.KERNELS + (
-    "wq4_matmul", "wq_matmul", "geglu_out_qmatmul")
+    "wq4_matmul", "wq_matmul", "geglu_out_qmatmul", "qmatmul_fused",
+    "qmatmul_fused2")
 
 
 @functools.lru_cache(maxsize=None)

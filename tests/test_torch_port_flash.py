@@ -7,7 +7,8 @@ take each new route under ``'auto'`` in both packages; and the ``sdxl``
 family's structure. Inputs come from numpy seeds.
 
 Tolerances: int8 codes max |diff| <= 1 on < 1% (another float summation
-order); flash f32 |d| <= 1e-5; flash bf16 at the same key block size
+order); flash f32 |d| <= 1e-5; flash bf16 at the same key blocks (the
+cases at ``Tk > 1024``: ``mha``'s 1024-key blocks, the port's default)
 max |d| <= 2 bf16 ulps of max |v| (``p`` rounds to bf16 relative to a
 running max the two reach by other sum orders) and |d| / |ref| <= 1e-2;
 modules as
@@ -69,8 +70,14 @@ def _heads_major(a, heads):
 @pytest.mark.parametrize("Tq,Tk,heads,d,bk", [
     (256, 256, 2, 64, 64),   # self, four key blocks
     (128, 77, 2, 64, 64),    # cross, ragged (masked) last block
-    (64, 200, 1, 128, 32),   # d=128 at its kernel block, masked tail
+    (64, 200, 1, 128, 32),   # d=128, masked tail
     (128, 384, 2, 32, 128),  # three blocks of 128
+    # mha's partition (bk=1024), the port's default: two full blocks, and
+    # a 1024-key block then a masked ragged one (round_up(1100, 128) = 1152)
+    (64, 2048, 2, 64, 1024),
+    (128, 2048, 1, 32, 1024),
+    (128, 1100, 2, 64, 1024),
+    (64, 1100, 1, 32, 1024),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_vs_pallas(Tq, Tk, heads, d, bk, dtype):
@@ -99,7 +106,13 @@ def test_flash_plain_vs_pallas(Tq, Tk, heads, d, bk, dtype):
         assert err <= 2 * 2.0 ** (np.floor(np.log2(vmax)) - 7), err
         rel = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
         assert rel <= 1e-2, rel
-    if bk == tfa.flash_block_keys(d):  # the wrapper's CPU path
+        if bk == 1024:  # mha's partition: p rounds against the same maxima
+            assert (got.float().numpy() != want).mean() < 0.01
+            # which 64-key blocks do not: the check tells partitions apart
+            off = tfa.flash_attention_plain(_tensor(q, tdt), _tensor(kv, tdt),
+                                            _tensor(kv, tdt), bk=64, **kw)
+            assert (off.float().numpy() != want).mean() > 0.05
+    if bk == tfa.flash_block_keys(Tk):  # the default: the wrapper's CPU path
         wrapped = tfa.flash_attention(_tensor(q, tdt), _tensor(kv, tdt),
                                       _tensor(kv, tdt), **kw)
         torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
@@ -108,9 +121,9 @@ def test_flash_plain_vs_pallas(Tq, Tk, heads, d, bk, dtype):
 
 def test_chip_smoke_flash_checks():
     """``chip_smoke.py``'s two checks of flash attention fail on a kernel
-    that drops the last block of keys: its comparison with the plain
-    version (phase 1 and the card tests), and its ``flash_drops_key_block``
-    fault, which the model's flash sites call in the 1024 px phase."""
+    that drops the last 64 keys: its comparison with the plain version
+    (phase 1 and the card tests), and its ``flash_drops_key_block`` fault,
+    which the model's flash sites call in the 1024 px phase."""
     from mixdq_tpu_torch.models import attention as mattn
 
     smoke = load_smoke()
@@ -118,6 +131,7 @@ def test_chip_smoke_flash_checks():
     srcs, kw = smoke.attn_case(torch, g, "cpu", 1, 1024, 1024, 2, 64,
                                torch.bfloat16, False)
     want = tfa.flash_attention_plain(*srcs, **kw)
+    assert tfa.flash_block_keys(1024) == 1024  # one block by default
     # the same attention summed in other key blocks: sound
     assert smoke.flash_err(torch, tfa.flash_attention_plain(
         *srcs, bk=32, **kw), want) <= 2 ** -6
@@ -125,7 +139,7 @@ def test_chip_smoke_flash_checks():
     with smoke.flash_drops_key_block():
         bad = mattn.flash_attention(*srcs, **kw)
     assert mattn.flash_attention is sound
-    y, n = srcs[0], 1024 - tfa.flash_block_keys(64)
+    y, n = srcs[0], 1024 - smoke.FLASH_DROPPED_KEYS
     torch.testing.assert_close(bad, tfa.flash_attention_plain(
         y, y[:, :n], y[:, :n], **kw), rtol=0, atol=0)
     with pytest.raises(AssertionError, match="limit"):

@@ -7,7 +7,9 @@ imports torch only, so it also runs where JAX is not installed:
 
 Tolerances: int8 codes max |diff| <= 1 on under 1% of elements; float
 outputs rtol 1e-3 / atol 1e-2 (the same integer sums, f32 epilogues that
-round at the same steps; bf16 outputs may differ by one bf16 ulp).
+round at the same steps; bf16 outputs may differ by one bf16 ulp); the
+fused act-quantize GEMMs the same but for < 1% of entries, each within
+one code's worth of its column (``chip_smoke.fused_err``).
 """
 
 import pytest
@@ -231,6 +233,10 @@ def test_sec_attention_q_out_kernel(dev, B, Tq, heads, d, C_in, dtype, ln):
     (2, 130, 130, 4, 16, torch.bfloat16, True),
     (1, 100, 90, 2, 32, torch.float32, False),      # f32 scalar path
     (2, 70, 70, 2, 128, torch.float32, True),
+    # mha's 1024-key blocks: a full block then a masked ragged one
+    (1, 256, 1100, 2, 64, torch.bfloat16, False),
+    (1, 200, 2100, 2, 128, torch.bfloat16, False),
+    (1, 100, 1300, 2, 32, torch.float32, False),
 ])
 def test_flash_attention_kernel(dev, B, Tq, Tk, heads, d, dtype, self_attn):
     from mixdq_tpu_torch.ops.attention import (flash_attention,
@@ -417,3 +423,29 @@ def test_int8_flash_kernels(dev, name, B, Tq, Tk, heads, d, dtype,
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
     else:  # p rounds against a running max (chip_smoke.py)
         smoke().flash_err(torch, got, want)
+
+
+@pytest.mark.parametrize("kernel", ["qmatmul_fused", "qmatmul_fused2"])
+@pytest.mark.parametrize("M,K,N", [
+    (4096, 640, 640), (1024, 1280, 1280), (1024, 1280, 5120),
+    (1024, 5120, 1280),           # the kernel benchmark's shapes
+    (48, 300, 130),               # ragged: scalar loads, masked tails
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qmatmul_fused_kernels(dev, kernel, M, K, N, dtype):
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops import qmatmul as qm
+
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(M, K, generator=g).to(dev)  # f32: the wrapper casts
+    w = _codes(g, dev, K, N)
+    scale = ((torch.rand(N, generator=g) + 0.5) * 1e-5).to(dev)
+    bias0 = (-3.0 * w.int().sum(0)).float()
+    ops.reset_counts()
+    got = getattr(qm, kernel)(x, w, 10.0, -3.0, scale, bias0, dtype)
+    want = qm.qmatmul_fused_plain(x, w, 10.0, -3.0, scale, bias0, dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kernel] == ops.call_counts()[kernel] == 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    smoke().fused_err(torch, got, want,
+                      scale * w.abs().amax(0).float())
