@@ -52,6 +52,7 @@ Phases (none catches its own failure; any failure exits non-zero):
    the phase 3 requests: ``int8_sec`` under ``'auto'`` and the weight-only
    ``'dequant'`` and ``'pallas_dequant'`` (``wq4_matmul`` for every packed
    entry, ``wq_matmul`` for the int8 ones). Launch counts (``MP_CALLS``),
+   the wq kernels' calls in one ``pallas_dequant`` step by (M, K, N),
    SQNR against bf16 (>= ``MP_SQNR_DB``), ``pallas_dequant`` against
    ``dequant`` (>= ``WONLY_SQNR_DB``), every deploy entry against fake
    quantization at its bits and every attention site auto against
@@ -631,11 +632,16 @@ def kernel_cases(torch, dev):
                       [(2 * B * Tq * C * C, INT8_OPS_PER_S),
                        (4 * B * Tq * 77 * C, BF16_OPS_PER_S)], None))
     # the weight-only step: ff.net.0.proj at 32x32, ff.net.2 at 16x16,
-    # attn2 to_k/to_v at 16x16, time_emb_proj, and a ragged N; library:
-    # torch.matmul on the weight dequantized to bf16 beforehand
+    # attn2 to_k/to_v at 16x16, time_emb_proj, a ragged N, and a K that is
+    # no multiple of the split-K plan's ranges; library: torch.matmul on
+    # the weight dequantized to bf16 beforehand. The label carries the
+    # kernel's plan (wq_plan) on this card.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for w4 in (True, False):
         for M, K, N in [(1024, 640, 5120), (256, 5120, 1280),
-                        (77, 2048, 1280), (1, 1280, 1280), (77, 2048, 1000)]:
+                        (77, 2048, 1280), (1, 1280, 1280), (77, 2048, 1000),
+                        (77, 2056, 1280)]:
+            plan = wq_matmul.wq_plan(M, K, N, w4, sms)
             x = randn(M, K, dtype=bf16)
             lim = 8 if w4 else 128
             w = torch.randint(-lim, lim, (K, N), generator=g, device=dev,
@@ -650,7 +656,9 @@ def kernel_cases(torch, dev):
                 args, name = (x, w, s), "wq_matmul"
                 fn, plain = wq_matmul.wq_matmul, wq_matmul.wq_matmul_plain
             cases.append((
-                name, f"M={M} K={K} N={N}", lambda f=fn, a=args: f(*a),
+                name, f"M={M} K={K} N={N} plan {plan.tm}x{plan.tn} tiles, "
+                f"{plan.splits} split(s) of {plan.split_rows} rows",
+                lambda f=fn, a=args: f(*a),
                 lambda f=plain, a=args: f(*a), wq_err,
                 2 * M * K + K * N // (2 if w4 else 1) + 4 * N + 2 * M * N,
                 [(2 * M * K * N, BF16_OPS_PER_S), (K * N, F32_OPS_PER_S)],
@@ -1214,6 +1222,13 @@ def phase_mixed(torch, unet, calib, requests, w8a8_ctx, qparams, seen,
                                  f"{launches[labels[c]]['wq4_matmul']} "
                                  "wq4_matmul launches")
 
+    with wq_shape_counts() as counts:  # each shape's share of a step
+        pipeline.unet_step(unet, requests[0], ctxs["pallas_dequant"])
+    torch.cuda.synchronize()
+    log(f"{labels['pallas_dequant']}: wq kernel calls in one step by "
+        "(kernel, M, K, N): "
+        + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+
     refs = [pipeline.unet_step(unet, r) for r in requests]
     sqnrs = {labels[c]: [] for c in ctxs}
     wonly = "pallas_dequant vs dequant"
@@ -1293,6 +1308,30 @@ def phase_mixed(torch, unet, calib, requests, w8a8_ctx, qparams, seen,
     phase_profile(torch, unet, requests[0],
                   [(f"mp_{c}", ctxs[c]) for c in ctxs])
     return launches
+
+
+@contextlib.contextmanager
+def wq_shape_counts():
+    """Within the block, counts the UNet's ``wq_matmul`` / ``wq4_matmul``
+    calls by (M, K, N), yielded as a Counter of (kernel, M, K, N)."""
+    from mixdq_tpu_torch.models import layers
+
+    counts = collections.Counter()
+    sound = {n: getattr(layers, n) for n in ("wq_matmul", "wq4_matmul")}
+
+    def counted(name):
+        def fn(x, w, *a, **kw):
+            counts[(name, x.shape[0], x.shape[1], w.shape[1])] += 1
+            return sound[name](x, w, *a, **kw)
+        return fn
+
+    for n in sound:
+        setattr(layers, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, f in sound.items():
+            setattr(layers, n, f)
 
 
 def step_ms(torch, fn):

@@ -19,12 +19,12 @@
 // reference's. The TPU kernel carries m, l and acc in VMEM scratch along
 // a sequential key grid axis. Here one block owns (batch, head, 64 query
 // rows), warp w rows 16 w ..+16, and walks the key blocks in a loop with
-// m, l and acc in registers. A key block is too large for shared memory,
-// so it streams through in chunks of Chunk<D>::KC keys (64 for d <= 64,
-// 32 for d = 128) twice: a first pass takes the block's row max from the
-// logits, m, l and acc are rescaled once, and a second pass recomputes
-// the same logits to form p and PV. k and v of a chunk are staged in
-// shared memory (v transposed), and QK^T and PV run on mma.sync m16n8k16
+// m, l and acc in registers. 64 rows' f32 logits of a key block (256 KB)
+// do not fit in shared memory, so each block's keys stream through twice:
+// a first pass takes the block's row max from the logits, m, l and acc
+// are rescaled once, and a second pass recomputes the same logits to form
+// p and PV (recomputing QK^T costs less than writing and reading the
+// logits through shared memory). QK^T and PV run on mma.sync m16n8k16
 // (bf16 x bf16 -> f32). q/k/v are read in place at their column offsets
 // with their sources' row strides (the fused to_qkv output), and the
 // output is written [B, Tq, heads * d] for to_out: no head-major copies.
@@ -33,7 +33,19 @@
 // Bound at T=4096, 10 heads, d=64: the two QK^T passes and PV are 6 T^2 d
 // heads = 64 GFLOP of bf16 tensor-core work, ~0.065 ms at the dense peak
 // (the function itself needs 4 T^2 d, ~0.043 ms); the bytes (q/k/v and
-// out, ~21 MB) take ~6 us.
+// out, ~21 MB) take ~6 us. The exact expf and the bf16 packing of p
+// (168 M logits at B=1) load the ALU and conversion pipes beside the
+// tensor cores. The bf16 path keeps 3 chunks of k (and v) in flight
+// through a cp.async ring (see "The bf16 path" below) and reads fragments
+// by ldmatrix.
+//
+// Waves: at B=1 the grid is 10 heads x 64 row tiles = 640 blocks of 4
+// warps. Each holds 36 KB of ring (4 stages x 32 keys x 2 x 72 bf16) and
+// is built for <= 128 registers a thread, so 4 blocks fit on an SM: 528
+// slots on 132 SMs, 1.21 waves, 4.85 blocks per SM (B=2: 1280 blocks,
+// 2.4 waves). Built for 5 blocks an SM (one wave at B=1, <= 96
+// registers) it spilled, so the spill-free 4 was chosen. At d = 128 the
+// ring is 68 KB and 2 blocks fit on an SM.
 //
 // int8_flash_attention and int8qkv_flash_attention (int8 self-attention
 // sites at Tq * Tk >= 2^22 under QuantCtx.int8_flash "qk" / "qkv"; replace
@@ -63,6 +75,7 @@
 #include <type_traits>
 
 #include "attn_mma.cuh"
+#include "cp_async.cuh"
 
 using namespace mixdq;
 
@@ -78,23 +91,170 @@ struct FlashArgs {
   float scale;
 };
 
-// One head over bf16 q/k/v for a 64-row tile (nq valid rows) into out
-// (the tile's first row, the head's first column; row stride ldo), over
-// key blocks of bk keys (a multiple of the chunk).
+// The bf16 path: a block owns (batch, head, BQ = 64 query rows), warp w
+// rows 16 w ..+16, q fragments in registers for both passes. k and v
+// stream through a ring of STAGES stages of KCH keys in dynamic shared
+// memory, filled by cp.async (cp_async.cuh) in the order the passes read
+// them: per key block, its chunks of k for the max pass, then the same
+// chunks of k and v for the p pass. So the copies of the next
+// STAGES - 1 chunks are in flight while one is multiplied, across the
+// switch between passes and between key blocks. Rows are padded by 8
+// bf16 (16 bytes): the 8 row addresses of an ldmatrix land in distinct
+// banks. k fragments come from ldmatrix.x4, v stays row-major and PV's B
+// fragments come from ldmatrix.x4.trans.
+constexpr int BQ = 64;     // query rows per block: a warp per 16
+constexpr int FT = BQ / 16 * 32;  // threads per block
+constexpr int KCH = 32;    // keys per ring stage
+constexpr int STAGES = 4;  // ring stages: 3 chunks in flight
+
 template <int D>
-__device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
+struct FlashRing {
+  static constexpr int LD = D + 8;            // padded row, bf16
+  static constexpr int STAGE = 2 * KCH * LD;  // k rows, then v rows
+  static constexpr int BYTES = STAGES * STAGE * 2;
+  // blocks per SM the kernel is built for, as many as its registers
+  // allow without spills (<= 96 a thread at d <= 32, <= 128 at d = 64,
+  // <= 255 at d = 128); shared memory would allow 6 / 6 / 3
+  static constexpr int MIN_BLOCKS = D <= 32 ? 5 : D == 64 ? 4 : 2;
+};
+
+// Where the ring's next fill comes from: chunk c0 of the key block at j0,
+// pass 0 (k) or 1 (k and v); j0 >= Tk once every chunk is issued.
+struct ChunkCursor {
+  int c0, j0, pass;
+  __device__ __forceinline__ void next(int Tk, int bk) {
+    c0 += KCH;
+    if (c0 < min(j0 + bk, Tk)) return;
+    if (pass == 0) {
+      pass = 1;
+      c0 = j0;
+    } else {
+      j0 += bk;
+      c0 = j0;
+      pass = 0;
+    }
+  }
+};
+
+// Block-wide: the cursor's chunk into the ring stage at shared address
+// `st` (keys >= Tk zero), then one commit group (empty once the cursor is
+// done).
+template <int D>
+__device__ __forceinline__ void issue_chunk(uint32_t st,
+                                            const HeadPanels<bf16>& h,
+                                            int ldk, int ldv, int Tk,
+                                            const ChunkCursor& cur) {
+  constexpr int CPR = D / 8, N = KCH * CPR, LD = FlashRing<D>::LD;
+  if (cur.j0 < Tk) {
+#pragma unroll
+    for (int it = 0; it < (N + FT - 1) / FT; ++it) {
+      const int i = threadIdx.x + it * FT;
+      if (N % FT == 0 || i < N) {
+        const int key = i / CPR, c = (i % CPR) * 8;
+        const bool ok = cur.c0 + key < Tk;
+        const size_t j = ok ? cur.c0 + key : 0;
+        cp_async16(st + (key * LD + c) * 2, h.k + j * ldk + c, ok);
+        if (cur.pass)
+          cp_async16(st + ((KCH + key) * LD + c) * 2, h.v + j * ldv + c, ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The warp's 16 x KCH logits of one stage (unscaled): A = q fragments,
+// B = k rows by ldmatrix.x4 (two key tiles of 8 per load).
+template <int D>
+__device__ __forceinline__ void ring_logits(uint32_t st,
+                                            const uint32_t (&qf)[D / 16][4],
+                                            float (&s)[KCH / 8][4],
+                                            int lane) {
+  constexpr int LD = FlashRing<D>::LD;
+  const uint32_t kb =
+      st + (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8) * 2;
+#pragma unroll
+  for (int nt = 0; nt < KCH / 8; nt += 2) {
+    // the key pair's fragments at every depth first, then the products
+    uint32_t b[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(b[kk], kb + (nt * 8 * LD + kk * 16) * 2);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] = s[nt + 1][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      mma_bf16(s[nt], qf[kk], b[kk][0], b[kk][1]);
+      mma_bf16(s[nt + 1], qf[kk], b[kk][2], b[kk][3]);
+    }
+  }
+}
+
+// o += bf16(p) . v over one stage: p in the layout of ring_logits, cast
+// to bf16 as the A fragments; v's B fragments by ldmatrix.x4.trans (two
+// column tiles of 8 per load).
+template <int D>
+__device__ __forceinline__ void ring_pv(uint32_t st,
+                                        const float (&p)[KCH / 8][4],
+                                        float (&o)[D / 8][4], int lane) {
+  constexpr int LD = FlashRing<D>::LD;
+  const uint32_t vb =
+      st + ((KCH + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
+               2;
+#pragma unroll
+  for (int kb = 0; kb < KCH / 16; ++kb) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
+                            pack_bf16(p[2 * kb][2], p[2 * kb][3]),
+                            pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
+                            pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
+    uint32_t b[D / 16][4];
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp)
+      ldsm_x4_trans(b[dp], vb + (kb * 16 * LD + dp * 16) * 2);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      mma_bf16(o[2 * dp], pa, b[dp][0], b[dp][1]);
+      mma_bf16(o[2 * dp + 1], pa, b[dp][2], b[dp][3]);
+    }
+  }
+}
+
+// One head over bf16 q/k/v for a BQ-row tile (nq valid rows) into out
+// (the tile's first row, the head's first column; row stride ldo), over
+// key blocks of bk keys (a multiple of KCH); ring: the shared address of
+// the STAGES stages.
+template <int D>
+__device__ void flash_bf16(uint32_t ring, const HeadPanels<bf16>& h, bf16* out,
                            int ldq, int ldk, int ldv, int ldo, int nq, int Tk,
                            int bk, float scale) {
-  constexpr int KC = Chunk<D>::KC;
-  Chunk<D>& sm = *static_cast<Chunk<D>*>(smem);
+  constexpr int STAGE = FlashRing<D>::STAGE * 2;  // bytes
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int ra = warp * 16 + g, rb = ra + 8;  // this thread's rows
 
+  ChunkCursor fill{0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    issue_chunk<D>(ring + i * STAGE, h, ldk, ldv, Tk, fill);
+    fill.next(Tk, bk);
+  }
   uint32_t qf[D / 16][4];
   load_q_frags<D>(qf, h.q, ldq, ra, rb, nq, t);
 
-  float s[KC / 8][4];
+  // The next stage once its copies have landed; the stage consumed before
+  // it (every warp is past it) is refilled from the cursor.
+  int stage = 0;
+  auto next_stage = [&]() {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    issue_chunk<D>(ring + (stage == 0 ? STAGES - 1 : stage - 1) * STAGE, h,
+                   ldk, ldv, Tk, fill);
+    fill.next(Tk, bk);
+    const uint32_t st = ring + stage * STAGE;
+    stage = stage + 1 == STAGES ? 0 : stage + 1;
+    return st;
+  };
+
+  float s[KCH / 8][4];
   float o[D / 8][4] = {};
   // running max of rows ra / rb (the same in the row's four threads) and
   // this thread's share of their running sums
@@ -102,20 +262,18 @@ __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
   for (int j0 = 0; j0 < Tk; j0 += bk) {
     const int jend = min(j0 + bk, Tk);
     float ca = MASKED, cb = MASKED;  // pass 1: the block's row max
-    for (int c0 = j0; c0 < jend; c0 += KC) {
-      load_chunk<D>(sm, h, ldk, ldv, Tk, c0, false);
-      __syncthreads();
-      chunk_logits<D>(sm, qf, s, g, t);
+    for (int c0 = j0; c0 < jend; c0 += KCH) {
+      ring_logits<D>(next_stage(), qf, s, lane);
+      const int live = Tk - c0;  // keys of the stage below Tk
 #pragma unroll
-      for (int nt = 0; nt < KC / 8; ++nt)
+      for (int nt = 0; nt < KCH / 8; ++nt)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          if (c0 + nt * 8 + 2 * t + (r & 1) >= Tk) continue;
+          if (live < KCH && nt * 8 + 2 * t + (r & 1) >= live) continue;
           const float v = __fmul_rn(s[nt][r], scale);
           if (r < 2) ca = fmaxf(ca, v);
           else cb = fmaxf(cb, v);
         }
-      __syncthreads();
     }
     const float na = fmaxf(ma, quad_max(ca)), nb = fmaxf(mb, quad_max(cb));
     const float aa = expf(__fsub_rn(ma, na)), ab = expf(__fsub_rn(mb, nb));
@@ -130,23 +288,22 @@ __device__ void flash_bf16(void* smem, const HeadPanels<bf16>& h, bf16* out,
       o[dt][2] = __fmul_rn(o[dt][2], ab);
       o[dt][3] = __fmul_rn(o[dt][3], ab);
     }
-    for (int c0 = j0; c0 < jend; c0 += KC) {  // pass 2: p, l, p.v
-      load_chunk<D>(sm, h, ldk, ldv, Tk, c0, true);
-      __syncthreads();
-      chunk_logits<D>(sm, qf, s, g, t);
+    for (int c0 = j0; c0 < jend; c0 += KCH) {  // pass 2: p, l, p.v
+      const uint32_t st = next_stage();
+      ring_logits<D>(st, qf, s, lane);
+      const int live = Tk - c0;
 #pragma unroll
-      for (int nt = 0; nt < KC / 8; ++nt)
+      for (int nt = 0; nt < KCH / 8; ++nt)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           float p = 0.f;
-          if (c0 + nt * 8 + 2 * t + (r & 1) < Tk)
+          if (live >= KCH || nt * 8 + 2 * t + (r & 1) < live)
             p = expf(__fsub_rn(__fmul_rn(s[nt][r], scale), r < 2 ? na : nb));
           s[nt][r] = p;
           if (r < 2) la += p;
           else lb += p;
         }
-      chunk_pv<D>(sm, s, o, g, t);
-      __syncthreads();
+      ring_pv<D>(st, s, o, lane);
     }
   }
   la = quad_sum(la);
@@ -208,43 +365,75 @@ __device__ void flash_rows_f32(Logit logit, const float* v, float* out,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_kernel(const FlashArgs<T> a) {
-  constexpr bool BF16 = std::is_same<T, bf16>::value;
-  __shared__ __align__(16) char smem[BF16 ? sizeof(Chunk<D>) : 16];
+template <int D>
+__global__ void __launch_bounds__(FT, FlashRing<D>::MIN_BLOCKS)
+    flash_bf16_kernel(const FlashArgs<bf16> a) {
+  extern __shared__ __align__(16) unsigned char flash_ring[];
+  const int rt = (a.Tq + BQ - 1) / BQ, tile = blockIdx.x;
+  const int r = tile % rt, h = tile / rt % a.heads, b = tile / rt / a.heads;
+  const size_t row0 = static_cast<size_t>(b) * a.Tq + r * BQ;
+  const size_t key0 = static_cast<size_t>(b) * a.Tk;
+  const int nq = min(BQ, a.Tq - r * BQ), ldo = a.heads * D;
+  const HeadPanels<bf16> hp{a.q + row0 * a.ldq + h * D,
+                            a.k + key0 * a.ldk + h * D,
+                            a.v + key0 * a.ldv + h * D, nullptr};
+  flash_bf16<D>(smem_addr(flash_ring), hp,
+                a.out + row0 * ldo + h * D, a.ldq, a.ldk, a.ldv, ldo, nq,
+                a.Tk, a.bk, a.scale);
+}
+
+// f32 q/k/v: the scalar path, a warp per 16 rows of a 64-row tile.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_f32_kernel(const FlashArgs<float> a) {
   const int rt = (a.Tq + 63) / 64, tile = blockIdx.x;
   const int r = tile % rt, h = tile / rt % a.heads, b = tile / rt / a.heads;
   const size_t row0 = static_cast<size_t>(b) * a.Tq + r * 64;
   const size_t key0 = static_cast<size_t>(b) * a.Tk;
   const int nq = min(64, a.Tq - r * 64), ldo = a.heads * D;
-  if constexpr (BF16) {
-    const HeadPanels<bf16> hp{a.q + row0 * a.ldq + h * D,
-                              a.k + key0 * a.ldk + h * D,
-                              a.v + key0 * a.ldv + h * D, nullptr};
-    flash_bf16<D>(smem, hp, a.out + row0 * ldo + h * D, a.ldq, a.ldk, a.ldv,
-                  ldo, nq, a.Tk, a.bk, a.scale);
-  } else {  // a warp per 16 rows
-    const size_t w0 = row0 + (threadIdx.x >> 5) * 16;
-    const int ldq = a.ldq, ldk = a.ldk;
-    const float scale = a.scale;
-    const float* q = a.q + w0 * ldq + h * D;
-    const float* k = a.k + key0 * ldk + h * D;
-    flash_rows_f32<D>(
-        [=](int i, int j) {
-          return __fmul_rn(dot_f32(q + static_cast<size_t>(i) * ldq,
-                                   k + static_cast<size_t>(j) * ldk, D),
-                           scale);
-        },
-        a.v + key0 * a.ldv + h * D, a.out + w0 * ldo + h * D, a.ldv, ldo,
-        max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) * 16)), a.Tk,
-        a.bk);
-  }
+  const size_t w0 = row0 + (threadIdx.x >> 5) * 16;
+  const int ldq = a.ldq, ldk = a.ldk;
+  const float scale = a.scale;
+  const float* q = a.q + w0 * ldq + h * D;
+  const float* k = a.k + key0 * ldk + h * D;
+  flash_rows_f32<D>(
+      [=](int i, int j) {
+        return __fmul_rn(dot_f32(q + static_cast<size_t>(i) * ldq,
+                                 k + static_cast<size_t>(j) * ldk, D),
+                         scale);
+      },
+      a.v + key0 * a.ldv + h * D, a.out + w0 * ldo + h * D, a.ldv, ldo,
+      max(0, min(16, nq - static_cast<int>(threadIdx.x >> 5) * 16)), a.Tk,
+      a.bk);
 }
 
-template <typename T, int D>
-static int launch_flash(const FlashArgs<T>& a, cudaStream_t stream) {
+// The ring's dynamic shared memory (above 48 KB at d = 128) and the
+// largest carveout, so that MIN_BLOCKS blocks fit on an SM; once per
+// kernel.
+template <int D>
+static cudaError_t flash_bf16_attrs() {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FlashRing<D>::BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(flash_bf16_kernel<D>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+static int launch_flash(const FlashArgs<bf16>& a, cudaStream_t stream) {
+  static const cudaError_t attrs = flash_bf16_attrs<D>();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  const int grid = a.B * a.heads * ((a.Tq + BQ - 1) / BQ);
+  flash_bf16_kernel<D><<<grid, FT, FlashRing<D>::BYTES, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+static int launch_flash(const FlashArgs<float>& a, cudaStream_t stream) {
   const int grid = a.B * a.heads * ((a.Tq + 63) / 64);
-  flash_kernel<T, D><<<grid, THREADS, 0, stream>>>(a);
+  flash_f32_kernel<D><<<grid, THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,20 +441,20 @@ template <typename T>
 static int flash(const void* q, const void* k, const void* v, void* out,
                  int ldq, int ldk, int ldv, int B, int Tq, int Tk, int heads,
                  int d, int bk, float scale, cudaStream_t stream) {
-  // the bf16 path walks a block in whole chunks of 64 (32 at d = 128) keys
+  // both paths walk a block in whole chunks (KCH keys for bf16, 64 for
+  // the int8 kernels' blocks)
   if (bk <= 0 || bk % 64) return static_cast<int>(cudaErrorInvalidValue);
   const FlashArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                        static_cast<const T*>(v), static_cast<T*>(out), ldq,
                        ldk, ldv, B, Tq, Tk, heads, bk, scale};
   switch (d) {
-    case 16: return launch_flash<T, 16>(a, stream);
-    case 32: return launch_flash<T, 32>(a, stream);
-    case 64: return launch_flash<T, 64>(a, stream);
-    case 128: return launch_flash<T, 128>(a, stream);
+    case 16: return launch_flash<16>(a, stream);
+    case 32: return launch_flash<32>(a, stream);
+    case 64: return launch_flash<64>(a, stream);
+    case 128: return launch_flash<128>(a, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
 extern "C" int mixdq_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int ldq,
                                      int ldk, int ldv, int B, int Tq, int Tk,

@@ -10,10 +10,14 @@
   ``csrc/wq_matmul.cu``; plain version: ``wq4_matmul_plain``.
 
 Both cast x to bf16 first, whatever its dtype, as the TPU kernels do.
+The kernels' schedule (tile, k step, split-K) is ``wq_plan``, a function
+of the shapes and the card's SM count alone.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -66,13 +70,81 @@ def wq4_matmul_plain(x, w_packed, w_scale, out_dtype=torch.bfloat16):
     return out.to(out_dtype)
 
 
+#: the kernels' block tile (rows, columns), the x columns of a k step and
+#: the ring depths where two blocks share an SM / a block has it alone
+#: (``csrc/wq_matmul.cu``: TM, TN, XCOLS, STAGES_SHARED, STAGES_ALONE)
+WQ_TILE = (128, 128)
+WQ_XCOLS = 64
+WQ_STAGES = (3, 5)
+
+
+@dataclasses.dataclass(frozen=True)
+class WqPlan:
+    """One launch's schedule. ``tk`` weight rows per k step (64; 32 packed
+    rows for W4, each feeding both halves of x); ``stages`` of the copy
+    ring; ``rows`` weight rows in all (K, or K/2 packed); split ``s``
+    takes rows ``[s * split_rows, min((s + 1) * split_rows, rows))``,
+    whole k steps but for the last; ``ws_elems`` f32 partial sums
+    ``[splits, M, N]`` (0 for one split)."""
+    tm: int
+    tn: int
+    tk: int
+    stages: int
+    rows: int
+    splits: int
+    split_rows: int
+    ws_elems: int
+
+
+@functools.lru_cache(maxsize=4096)
+def wq_plan(M: int, K: int, N: int, w4: bool, sms: int) -> WqPlan:
+    """Split K only where the (M, N) tiles fill fewer than ``sms`` SMs:
+    then into at most ``sms // tiles`` ranges of whole k steps, none
+    empty, so that every block has an SM of its own in one wave. A block
+    alone on its SM takes the deeper ring; where blocks outnumber the
+    SMs, two share one with the shallower ring."""
+    tm, tn = WQ_TILE
+    tk = WQ_XCOLS // (2 if w4 else 1)
+    rows = K // 2 if w4 else K
+    steps = max(1, -(-rows // tk))
+    tiles = -(-M // tm) * -(-N // tn)
+    splits = 1 if tiles >= sms else min(steps, max(1, sms // tiles))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    stages = WQ_STAGES[0] if tiles * splits > sms else WQ_STAGES[1]
+    return WqPlan(tm, tn, tk, stages, rows, splits, per * tk,
+                  splits * M * N if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(fn, name, xb, w, scale, bias, M, K, N, out_dtype, w4):
+    """One launch of ``fn`` (``mixdq_wq_matmul`` / ``mixdq_wq4_matmul``;
+    bias is passed for the first only) under ``wq_plan``."""
+    dev = xb.device
+    plan = wq_plan(M, K, N, w4, _sm_count(dev.index or 0))
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    ws = (torch.empty(plan.ws_elems, dtype=torch.float32, device=dev)
+          if plan.splits > 1 else None)
+    p = _build.ptr
+    ptrs = [p(xb), p(w), p(scale)] + ([] if w4 else [p(bias)])
+    err = fn(*ptrs, p(out), p(ws), M, K, N, int(out_dtype == torch.bfloat16),
+             plan.tm, plan.tn, plan.tk, plan.stages, plan.splits,
+             plan.split_rows, _build.stream(dev))
+    _build.check(_lib(), err, name)
+    return out
+
+
 def _lib():
     lib = _build.load("wq_matmul.cu")
     if lib.mixdq_wq_matmul.argtypes is None:
         P, I = _build.P, _build.I
-        lib.mixdq_wq_matmul.argtypes = [P] * 5 + [I] * 4 + [P]
+        lib.mixdq_wq_matmul.argtypes = [P] * 6 + [I] * 10 + [P]
         lib.mixdq_wq_matmul.restype = I
-        lib.mixdq_wq4_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+        lib.mixdq_wq4_matmul.argtypes = [P] * 5 + [I] * 10 + [P]
         lib.mixdq_wq4_matmul.restype = I
     return lib
 
@@ -110,14 +182,8 @@ def wq_matmul(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
     if bias is not None:
         bias = bias.float().contiguous()
     M, K = x.shape
-    N = w_int.shape[1]
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_wq_matmul(p(xb), p(w_int), p(scale), p(bias), p(out), M,
-                              K, N, int(out_dtype == torch.bfloat16),
-                              _build.stream(x.device))
-    _build.check(lib, err, "wq_matmul")
+    out = _launch(_lib().mixdq_wq_matmul, "wq_matmul", xb, w_int, scale,
+                  bias, M, K, w_int.shape[1], out_dtype, False)
     WQ_COUNT.launches += 1
     return out
 
@@ -135,13 +201,7 @@ def wq4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     xb, scale = _check("wq4_matmul", x, w_packed, w_scale, out_dtype,
                        x.shape[1] // 2)
     M, K = x.shape
-    N = w_packed.shape[1]
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_wq4_matmul(p(xb), p(w_packed), p(scale), p(out), M, K, N,
-                               int(out_dtype == torch.bfloat16),
-                               _build.stream(x.device))
-    _build.check(lib, err, "wq4_matmul")
+    out = _launch(_lib().mixdq_wq4_matmul, "wq4_matmul", xb, w_packed, scale,
+                  None, M, K, w_packed.shape[1], out_dtype, True)
     WQ4_COUNT.launches += 1
     return out

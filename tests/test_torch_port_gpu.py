@@ -237,6 +237,18 @@ def test_sec_attention_q_out_kernel(dev, B, Tq, heads, d, C_in, dtype, ln):
     (1, 256, 1100, 2, 64, torch.bfloat16, False),
     (1, 200, 2100, 2, 128, torch.bfloat16, False),
     (1, 100, 1300, 2, 32, torch.float32, False),
+    # the bf16 ring (4 stages of 32 keys, 3 in flight) and 64-row tile: Tq
+    # off the tile, Tk around the prologue (96), the ring (128, 256) and
+    # a key block plus one, every head dim (cross: self-attention takes
+    # Tk = Tq)
+    (1, 4000, 4000, 2, 64, torch.bfloat16, True),
+    (1, 100, 95, 2, 16, torch.bfloat16, False),
+    (1, 100, 97, 2, 32, torch.bfloat16, False),
+    (2, 70, 127, 2, 64, torch.bfloat16, False),
+    (1, 130, 129, 3, 128, torch.bfloat16, False),
+    (1, 64, 255, 2, 64, torch.bfloat16, False),
+    (1, 65, 257, 2, 128, torch.bfloat16, False),
+    (1, 300, 1025, 2, 32, torch.bfloat16, False),
 ])
 def test_flash_attention_kernel(dev, B, Tq, Tk, heads, d, dtype, self_attn):
     from mixdq_tpu_torch.ops.attention import (flash_attention,
@@ -302,7 +314,13 @@ def test_sec_attention_q_kernel(dev, B, Tq, heads, d, C_in, dtype):
 #: at 32x32, ff.net.2 at 16x16, to_k/to_v on the text, time_emb_proj, and
 #: ragged N / K / M
 WQ_SHAPES = [(1024, 640, 5120), (256, 5120, 1280), (77, 2048, 1280),
-             (1, 1280, 1280), (77, 2048, 1000), (33, 72, 20), (5, 100, 37)]
+             (1, 1280, 1280), (77, 2048, 1000), (33, 72, 20), (5, 100, 37),
+             # split-K regimes of wq_plan on 132 SMs: M = 1 / 77 / 256
+             # split, K = 2056 no multiple of splits x k step, ragged and
+             # odd N (4-byte and byte weight copies), M = 1000 on 128-row
+             # tiles (no split)
+             (1, 2056, 1280), (77, 2056, 1000), (256, 2056, 1280),
+             (1, 640, 999), (1000, 640, 1280), (129, 640, 130)]
 
 
 def wq_err(got, want):
@@ -344,6 +362,31 @@ def test_wq_matmul_kernels(dev, M, K, N, w4, dtype):
     assert ops.launch_counts()[name] == ops.call_counts()[name] == 1
     assert got.dtype == dtype and got.shape == (M, N) and got.is_cuda
     wq_err(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1280, 1280), (77, 2048, 1280),
+                                   (256, 5120, 1280), (77, 2056, 1000)])
+@pytest.mark.parametrize("w4", [True, False])
+def test_wq_matmul_split_k_deterministic(dev, M, K, N, w4):
+    """Split-K sums its partials in a fixed order: two calls agree bit for
+    bit."""
+    from mixdq_tpu_torch.ops import wq_matmul as wq
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert wq.wq_plan(M, K, N, w4, sms).splits > 1
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    lo = -8 if w4 else -128
+    w = torch.randint(lo, -lo, (K, N), generator=g, dtype=torch.int8).to(dev)
+    s = ((torch.rand(N, generator=g) + 0.5) / (K ** 0.5 * -lo)).to(dev)
+    if w4:
+        packed = wq.pack_w4_halves(w)
+        a, b = (wq.wq4_matmul(x, packed, s) for _ in range(2))
+    else:
+        bias = torch.randn(N, generator=g).to(dev)
+        a, b = (wq.wq_matmul(x, w, s, bias) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,T,heads,d,dtype,ln", [
