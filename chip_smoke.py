@@ -11,7 +11,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    per source, all at once); the compiler's register / shared memory /
    spill report goes to ``chiprun_out/nvcc_build.txt``.
 1. Each kernel against its plain PyTorch version at the main-path shapes,
-   at B=1 and B=2 for the 1024 px kernels (int8 codes: max |diff| <= 1
+   at B=1 and B=2 for the 1024 px kernels (``qmatmul`` and ``qconv2d`` /
+   ``qconv2d_s2``, whose labels carry their split-K plans: equal bit for
+   bit, the int32 sums being exact in any split; int8 codes: max |diff| <= 1
    on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
    the kernel's key blocks: max |diff| <= 2 bf16 ulps of the plain
    output's max |x| and |diff| / |plain| <= 1e-2; the fused act-quantize
@@ -19,8 +21,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    one code's worth of their column),
    with the kernel's and the plain version's time, the card's bound for
    the same work and, where one PyTorch call computes the same function,
-   its time (``torch._int_mm`` for ``qmatmul`` and, on codes quantized
-   beforehand, for ``qmatmul_fused`` / ``qmatmul_fused2``, the product alone;
+   its time (``torch._int_mm`` for ``qmatmul``, on w as stored and on a
+   K-major copy, and, on codes quantized beforehand, for
+   ``qmatmul_fused`` / ``qmatmul_fused2``, the product alone;
    ``scaled_dot_product_attention`` for flash attention; ``torch.matmul``
    on the weight dequantized beforehand for ``wq4_matmul`` /
    ``wq_matmul``, whose check is flash attention's).
@@ -35,7 +38,8 @@ Phases (none catches its own failure; any failure exits non-zero):
    QKV/KV, BoS-aware), answering a few requests at bf16 under
    ``attn_impl='auto'`` (the headline: whole-attention kernels) and
    ``'einsum'`` (the same deploy, the context's ``attn_impl`` swapped).
-   Asserts each path's kernel launch counts, finite outputs, and the
+   Asserts each path's kernel launch counts (and logs one auto step's
+   ``qmatmul`` / ``qconv2d`` calls by shape), finite outputs, and the
    SQNR of int8 against the bf16 FP UNet (>= 16 dB); prints the SQNR of
    auto against einsum and paired median step times. One-layer faults
    injected into the deploy show what the SQNR gate sees.
@@ -65,7 +69,8 @@ Phases (none catches its own failure; any failure exits non-zero):
    place of SDXL-Turbo: the same deploy under ``'auto'`` (flash
    attention, ``sec_attention`` and ``sec_attention_q``) and
    ``'einsum'``, and the bf16 UNet under ``'auto'`` (flash attention);
-   launch counts, SQNR against bf16 (>= 16 dB), bf16 auto against bf16
+   launch counts (one auto step's int8 GEMM calls by shape), SQNR
+   against bf16 (>= 16 dB), bf16 auto against bf16
    einsum (>= ``FLASH_SQNR_DB``) and each bf16 flash site against the
    einsum chain (>= ``FLASH_SITE_SQNR_DB``), both failed by flash attention
    that drops the last 64 keys, every attention module auto against
@@ -296,7 +301,11 @@ PORTED = {
 
 # what library_ms times, where a kernel has one
 LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
-                      "product without the epilogue",
+                      "product without the epilogue, w row-major [K, N] as "
+                      "the port stores it (library_ms) and a K-major copy "
+                      "of w made before the timed region "
+                      "(library_kmajor_ms), the layout cuBLASLt's int8 "
+                      "path prefers",
            "flash_attention": "torch.nn.functional.scaled_dot_product_"
                               "attention on head-major views of the same "
                               "q/k/v (output [B, heads, T, d])",
@@ -357,6 +366,16 @@ def codes_err(torch, got, want, what="codes"):
     return float(err)
 
 
+def exact_err(torch, got, want):
+    """The int8 GEMMs (``qmatmul``, ``qconv2d``) against their plain
+    versions: equal bit for bit (exact int32 sums in any split and order,
+    then the same f32 steps)."""
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"int8 GEMM differs: max "
+                             f"{(got.float() - want.float()).abs().max()}")
+    return 0.0
+
+
 def float_err(torch, got, want):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
                                atol=1e-2)
@@ -399,11 +418,21 @@ def kernel_cases(torch, dev):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     cases = []
+    # the int8 GEMMs' plans (qmm_plan / qconv_plan) on this card go into
+    # each label
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_label(plan):
+        return (f" plan {plan.bm}x{plan.bn} tiles x{plan.tiles}, "
+                f"{plan.stages} stages, {plan.splits} split(s) of "
+                f"{plan.split_k} k, {plan.blocks} blocks")
+
     convs = [("qconv2d", 1, 64, 320, 320, True), ("qconv2d", 1, 16, 2560,
              1280, True), ("qconv2d", 1, 64, 4, 320, False),
              ("qconv2d", 1, 64, 320, 4, False), ("qconv2d", 1, 32, 1920,
              640, True), ("qconv2d_s2", 2, 64, 320, 320, False),
-             ("qconv2d_s2", 2, 32, 640, 640, False)]
+             ("qconv2d_s2", 2, 32, 640, 640, False),
+             ("qconv2d", 1, 16, 1280, 1280, True)]
     for name, stride, H, C, K, epi in convs:
         x, w = codes(1, H, H, C), codes(3, 3, C, K)
         scale = (torch.rand(K, generator=g, device=dev) + 0.5) * 1e-4
@@ -414,12 +443,14 @@ def kernel_cases(torch, dev):
                   residual=randn(1, P, P, K, dtype=bf16) if epi else None)
         fn = qconv.qconv2d if stride == 1 else qconv.qconv2d_s2
         nbytes = (H * H * C + 9 * C * K + 2 * P * P * K * (2 if epi else 1))
+        plan = qconv.qconv_plan(1, H, H, C, K, 3, 3, stride, (1, 1), sms)
         cases.append((
-            name, f"{C}->{K} @{H}x{H}" + (" +temb+res" if epi else ""),
+            name, f"{C}->{K} @{H}x{H}" + (" +temb+res" if epi else "")
+            + plan_label(plan),
             lambda fn=fn, a=(x, w, scale, bias0), kw=kw: fn(*a, -3.0, **kw),
             lambda s=stride, a=(x, w, scale, bias0), kw=kw:
                 qconv.qconv2d_plain(*a, -3.0, stride=s, **kw),
-            float_err, nbytes, [(2 * P * P * K * 9 * C, INT8_OPS_PER_S)],
+            exact_err, nbytes, [(2 * P * P * K * 9 * C, INT8_OPS_PER_S)],
             None))
     for shape, silu, eps in [((1, 64, 64, 320), True, 1e-5),
                              ((1, 32, 32, 640), False, 1e-6),
@@ -455,20 +486,28 @@ def kernel_cases(torch, dev):
                       codes_err, M * K + 2 * K * H + M * H,
                       [(4 * M * K * H, INT8_OPS_PER_S)], None))
     # qmatmul: ff.net.2 @32x32 first, time_emb_proj, to_kv, ff.net.2
-    # @16x16, conv_shortcut @64x64; library: torch._int_mm, the product
-    # alone (cuBLASLt refuses M <= 16)
+    # @16x16, conv_shortcut @64x64, to_out / proj_in / proj_out @16x16 (the
+    # headline step's most frequent shape), attn1 to_out @32x32; library:
+    # torch._int_mm, the product alone (cuBLASLt refuses M <= 16), on w as
+    # the port stores it (row-major [K, N]) and on a K-major copy made
+    # beforehand
     for M, K, N in [(1024, 2560, 640), (1, 1280, 1280), (77, 2048, 2560),
-                    (256, 5120, 1280), (4096, 960, 320)]:
+                    (256, 5120, 1280), (4096, 960, 320), (256, 1280, 1280),
+                    (1024, 640, 640)]:
         x, w = codes(M, K), codes(K, N)
+        wk = w.t().contiguous().t()  # [K, N], K-major
         scale = (torch.rand(N, generator=g, device=dev) + 0.5) * 1e-5
         bias0 = -9.0 * w.int().sum(0).float()
         args = (x, w, scale, bias0, randn(N, dtype=bf16))
-        cases.append(("qmatmul", f"M={M} K={K} N={N}",
+        cases.append(("qmatmul", f"M={M} K={K} N={N}"
+                      + plan_label(qmatmul.qmm_plan(M, K, N, sms)),
                       lambda a=args: qmatmul.qmatmul(*a),
                       lambda a=args: qmatmul.qmatmul_plain(*a),
-                      float_err, M * K + K * N + 10 * N + 2 * M * N,
+                      exact_err, M * K + K * N + 10 * N + 2 * M * N,
                       [(2 * M * K * N, INT8_OPS_PER_S)],
                       (lambda x=x, w=w: torch._int_mm(x, w)) if M > 16
+                      else None,
+                      (lambda x=x, w=wk: torch._int_mm(x, w)) if M > 16
                       else None))
     # the fused act-quantize GEMMs at the kernel benchmark's shapes, ff.net.2
     # of SDXL 1024's 32x32 level first, and a ragged one (scalar loads,
@@ -636,7 +675,6 @@ def kernel_cases(torch, dev):
     # no multiple of the split-K plan's ranges; library: torch.matmul on
     # the weight dequantized to bf16 beforehand. The label carries the
     # kernel's plan (wq_plan) on this card.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for w4 in (True, False):
         for M, K, N in [(1024, 640, 5120), (256, 5120, 1280),
                         (77, 2048, 1280), (1, 1280, 1280), (77, 2048, 1000),
@@ -849,8 +887,9 @@ def phase_kernels(torch, dev, flush):
                            ("sdxl", " qk", dict(int8_flash="qk")),
                            ("sdxl", " qkv", dict(int8_flash="qkv")))}
     report = {}
-    for name, label, fn, plain, cmp, nbytes, ops, lib in kernel_cases(
-            torch, dev):
+    for name, label, fn, plain, cmp, nbytes, ops, lib, *more in \
+            kernel_cases(torch, dev):
+        lib_kmajor = more[0] if more else None  # qmatmul: w K-major
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -858,16 +897,19 @@ def phase_kernels(torch, dev, flush):
         k_ms = time_ms(torch, fn, 20, flush)
         p_ms = time_ms(torch, plain, 3, flush)
         l_ms = None if lib is None else time_ms(torch, lib, 20, flush)
+        lk_ms = (None if lib_kmajor is None
+                 else time_ms(torch, lib_kmajor, 20, flush))
         b_ms, b_by = bound(nbytes, ops)
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
             f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
-            f" launches/step {({p: c[name] for p, c in per_step.items()})}")
+            + ("" if lk_ms is None else f" library_kmajor_ms={lk_ms:.4f}")
+            + f" launches/step {({p: c[name] for p, c in per_step.items()})}")
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
                                 bound_ms=b_ms, bound_by=b_by,
-                                library_ms=l_ms))
+                                library_ms=l_ms, library_kmajor_ms=lk_ms))
     return report
 
 
@@ -1334,6 +1376,55 @@ def wq_shape_counts():
             setattr(layers, n, f)
 
 
+@contextlib.contextmanager
+def igemm_shape_counts():
+    """Within the block, counts the UNet's ``qmatmul`` calls by (M, K, N)
+    and its ``qconv2d`` / ``qconv2d_s2`` calls by (B, H, W, C, K), yielded
+    as a Counter of (kernel, *shape)."""
+    from mixdq_tpu_torch.models import layers
+    from mixdq_tpu_torch.ops import qmatmul as qmm
+
+    counts = collections.Counter()
+    sound = [(qmm, "qmatmul"), (layers, "qconv2d"), (layers, "qconv2d_s2")]
+    orig = [getattr(m, n) for m, n in sound]
+
+    def counted(name, f):
+        def fn(x, w, *a, **kw):
+            shape = ((x.shape[0], x.shape[1], w.shape[1]) if x.ndim == 2
+                     else (*x.shape, w.shape[-1]))
+            counts[(name, *shape)] += 1
+            return f(x, w, *a, **kw)
+        return fn
+
+    for (m, n), f in zip(sound, orig):
+        setattr(m, n, counted(n, f))
+    try:
+        yield counts
+    finally:
+        for (m, n), f in zip(sound, orig):
+            setattr(m, n, f)
+
+
+def log_igemm_shapes(torch, unet, req, ctx, label):
+    """One step of ``ctx`` with its int8 GEMM calls counted by shape;
+    fails unless they sum to the launch table's counts."""
+    from mixdq_tpu_torch import pipeline
+
+    with igemm_shape_counts() as counts:
+        pipeline.unet_step(unet, req, ctx)
+    torch.cuda.synchronize()
+    want = pipeline.ctx_kernel_calls(unet.config, ctx)
+    for kernel in ("qmatmul", "qconv2d", "qconv2d_s2"):
+        by = {k[1:]: v for k, v in sorted(counts.items(), key=lambda kv:
+                                          -kv[1]) if k[0] == kernel}
+        log(f"{label} step: {kernel} calls by shape "
+            f"({'M, K, N' if kernel == 'qmatmul' else 'B, H, W, C, K'}): "
+            f"{by}")
+        if sum(by.values()) != want[kernel]:
+            raise AssertionError(f"{label}: {sum(by.values())} {kernel} "
+                                 f"calls, expected {want[kernel]}")
+
+
 def step_ms(torch, fn):
     a, b = (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
@@ -1392,6 +1483,7 @@ def phase_main_path(torch, dev, card):
     outs, launches = run_path(torch, unet, requests, ctx, "sdxl-turbo auto")
     e_outs, e_launches = run_path(torch, unet, requests, ectx,
                                   "sdxl-turbo einsum")
+    log_igemm_shapes(torch, unet, requests[0], ctx, "sdxl-turbo auto")
 
     refs = []
     sqnrs = {"auto": [], "einsum": [], "auto vs einsum": []}
@@ -1915,6 +2007,7 @@ def phase_sdxl(torch, dev, card):
     for tag, c in paths:
         outs[tag], launches[f"sdxl {tag}"] = run_path(
             torch, unet, requests, c, f"sdxl {tag}")
+    log_igemm_shapes(torch, unet, requests[0], ctx, "sdxl auto")
     flash = "bf16 auto vs bf16 einsum"
     dropped = (f"bf16 auto, flash dropping its last {FLASH_DROPPED_KEYS} "
                "keys, vs bf16 einsum")
@@ -2073,6 +2166,8 @@ def main():
         first, extra = r["shapes"][0], {}
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
+        if first["library_kmajor_ms"] is not None:
+            extra["library_kmajor_ms"] = first["library_kmajor_ms"]
         # the main path a kernel runs on: the SDXL-Turbo headline, else the
         # weight-only pallas_dequant step, else SDXL 1024 under auto, else
         # the path of its kernel option, else the kernel benchmark

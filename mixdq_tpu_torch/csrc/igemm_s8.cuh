@@ -1,0 +1,614 @@
+// Pipelined int8 GEMM mainloop with split-K in one launch, shared by the
+// dense GEMM (qmatmul.cu) and the implicit-GEMM convolution (qconv.cu).
+//
+// C [M, N] = A [M, Kdim] x B [Kdim, N] in int32, A int8 codes behind a
+// loader (row-major codes, or the im2col view of an NHWC image), B the
+// row-major int8 weight as deployed (HWIO for a conv is [kh kw C, K]).
+//
+// Tiles. A block of 8 warps (2 x 4) owns a 128 x 128 output tile; each
+// warp 64 rows x 32 columns (4 x 4 mma.sync m16n8k32 s8 tiles). Warps
+// skip the 16-row m tiles that lie wholly past M (M = 1 multiplies one
+// m16 tile per column slab, M = 77 five) and their whole 32-column slab
+// when it lies past N. One block an SM: the plans (ops/qmatmul.py:
+// qmm_plan) launch at most one wave where they split.
+//
+// Ring. A k step is 128 bytes of Kdim. The A tile (128 x 128) and the B
+// tile (128 x 128) of a step land in one of STAGES ring stages in dynamic
+// shared memory (4 x 32 KB) through cp.async.cg 16-byte copies, one
+// commit group per stage: while step i is multiplied, steps i+1 ..
+// i+STAGES-1 are in flight. One barrier a step. The copy modes are known
+// at compile time on the fast path (A rows and B rows in 16-byte chunks);
+// ragged widths take the run-time modes (4-byte or byte copies).
+//
+// Fragments. A stays [m][k] (rows of 128 bytes, 16-byte chunks
+// XOR-swizzled by row % 8) and its fragments come from ldmatrix.x4. B
+// stays [k][n] as cp.async lands it (rows of 128 bytes, chunks
+// XOR-swizzled by 2 ((k / 4) % 4)). The mma's .col B register wants 4
+// consecutive k of one column: a thread loads the 32-bit words of rows
+// 4t..4t+3 at bytes 4g..4g+3 of its warp's slab and transposes the 4 x 4
+// bytes in registers (8 prmt), which gives the B registers of four mma
+// tiles at once, mma tile i reading physical column 4g + i as its column
+// g. So the accumulators of thread (g, t) hold 8 consecutive physical
+// columns 8t .. 8t+7 of its rows, and the epilogue stores them as one
+// 16-byte (bf16) or two 16-byte (f32) vectors. Both fragment loads are
+// free of bank conflicts under the swizzles.
+//
+// Split-K. Where the plan splits Kdim (whole k steps but the last), each
+// block writes its int32 partial tile to a workspace, and the last block
+// of a tile to arrive (a per-tile counter, reset to 0 by that block) sums
+// the partials and runs the epilogue, in the same launch. Integer sums are
+// exact in any order, so the output does not depend on the arrival order.
+//
+// What bounds it (H100 runs with parts of the loop turned off): with one
+// 8-warp block an SM, the per-step instructions (fragment loads, byte
+// transposes, copies, the barrier) leave mma.sync at a fraction of its
+// rate; wgmma on a K-major weight (B [n][k] in shared memory, no
+// transpose) is the next lever.
+#pragma once
+
+#include "cp_async.cuh"
+#include "mma_s8.cuh"
+
+namespace mixdq {
+namespace igemm {
+
+constexpr int BM = 128, BN = 128, BK = 128;  // block tile, k bytes a step
+constexpr int NT = 256;                      // 8 warps: 2 (rows) x 4 (cols)
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * BK, B_BYTES = BK * BN;
+constexpr int STAGE = A_BYTES + B_BYTES;
+constexpr int SMEM = STAGES * STAGE;
+constexpr int TILE_INTS = BM * BN;  // one split's partial tile
+// A copies: thread t takes rows t / 4 and t / 4 + 64, 16-byte chunks
+// t % 4 and t % 4 + 4 of each; B copies: chunks t + 256 j, j < 4
+static_assert(BM == 2 * (NT / 4) && BK == 8 * 16, "A copy layout");
+static_assert(B_BYTES == 4 * NT * 16, "B copy layout");
+
+// Byte offsets in a stage: A row r (0..127), 16-byte chunk c (0..7),
+// chunks XOR-swizzled by r % 8; B row k (0..127), chunk c (0..7), chunks
+// XOR-swizzled by 2 ((k / 4) % 4).
+__device__ __forceinline__ int a_off(int r, int c) {
+  return r * BK + ((c ^ (r & 7)) << 4);
+}
+__device__ __forceinline__ int b_off(int k, int c) {
+  return k * BN + ((c ^ (((k >> 2) & 3) << 1)) << 4);
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, int word) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+               "r"(word));
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, const Chunk16& u) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(u.v.x), "r"(u.v.y), "r"(u.v.z), "r"(u.v.w));
+}
+
+__device__ __forceinline__ int splat(int code) {
+  return static_cast<int>(static_cast<uint8_t>(code)) * 0x01010101;
+}
+
+// How the B rows are copied: 16-byte cp.async (N a multiple of 16 and w
+// on 16 bytes), 4-byte cp.async (N a multiple of 4), or byte loads.
+enum BMode { B_COPY16 = 0, B_COPY4 = 1, B_COPY1 = 2 };
+
+struct BSrc {
+  const int8_t* w;
+  int N, mode;
+};
+
+// This thread's share of the B tile of the step at k0: rows k0 .. k0+127,
+// columns n0 .. n0+127; rows at or past k_end and columns past N read 0.
+// FAST: the 16-byte mode, known at compile time.
+template <bool FAST>
+__device__ __forceinline__ void issue_b(uint32_t bs, const BSrc& b, int k0,
+                                        int k_end, int n0) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int kl = i >> 3, c = i & 7;
+    const int k = k0 + kl, n = n0 + c * 16;
+    const uint32_t dst = bs + b_off(kl, c);
+    const int8_t* src = b.w + static_cast<size_t>(k) * b.N + n;
+    const bool krow = k < k_end;
+    if (FAST || b.mode == B_COPY16) {
+      const bool ok = krow && n < b.N;
+      cp_async16(dst, ok ? src : b.w, ok);
+    } else if (b.mode == B_COPY4) {
+#pragma unroll
+      for (int j = 0; j < 16; j += 4) {
+        const bool ok = krow && n + j < b.N;
+        cp_async4(dst + j, ok ? src + j : b.w, ok);
+      }
+    } else {
+      Chunk16 u = fill16(0);
+      if (krow) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (n + j < b.N) u.s[j] = src[j];
+      }
+      st_shared16(dst, u);
+    }
+  }
+}
+
+// Row-major A codes [M, K]; `vec`: K a multiple of 16 and x on 16 bytes
+// (FAST: known to hold).
+template <bool FAST>
+struct DenseA {
+  const int8_t* x;
+  int M, K;
+  bool vec;
+  const int8_t* row[2];  // this thread's two rows, null past M
+
+  __device__ __forceinline__ void init(int m0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = m0 + (threadIdx.x >> 2) + j * (BM / 2);
+      row[j] = m < M ? x + static_cast<size_t>(m) * K : nullptr;
+    }
+  }
+
+  __device__ __forceinline__ void issue(uint32_t as, int k0,
+                                        int k_end) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = (threadIdx.x & 3) + 4 * h, k = k0 + c * 16;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t dst = as + a_off((threadIdx.x >> 2) + j * (BM / 2), c);
+        if (FAST || vec) {
+          const bool ok = row[j] != nullptr && k < k_end;
+          cp_async16(dst, ok ? row[j] + k : x, ok);
+        } else {
+          Chunk16 u = fill16(0);
+          if (row[j] != nullptr) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              if (k + i < k_end) u.s[i] = row[j][k + i];
+          }
+          st_shared16(dst, u);
+        }
+      }
+    }
+  }
+};
+
+// The im2col view of NHWC codes [B, H, W, C] under a kh x kw window of
+// the given stride and padding: row m = output pixel (b, p, q), column
+// k = (r kw + s) C + c. Out-of-image taps read the zero-point code zp.
+// `vec` (FAST: known to hold): C a multiple of 16 and x on 16 bytes, so
+// a 16-byte chunk is 16 channels of one tap.
+template <bool FAST>
+struct ConvA {
+  const int8_t* x;
+  int H, W, C, kw, zp;
+  bool vec;
+  const int8_t* img[2];  // this thread's rows: image base, null past M
+  int ih0[2], iw0[2];
+  // FAST: the tap (r, s) and channel c of this thread's two chunks of the
+  // next step, kept across steps (a step moves k by BK)
+  int tr[2], ts[2], tc[2];
+
+  __device__ __forceinline__ void init(int m0, int M, int PQ, int Q,
+                                       int stride, int ph, int pw,
+                                       int k_begin) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = m0 + (threadIdx.x >> 2) + j * (BM / 2);
+      const int b = m / PQ, pq = m - b * PQ, p = pq / Q, q = pq - p * Q;
+      img[j] = m < M ? x + static_cast<size_t>(b) * H * W * C : nullptr;
+      ih0[j] = p * stride - ph;
+      iw0[j] = q * stride - pw;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k_begin + ((threadIdx.x & 3) + 4 * h) * 16;
+      const int tap = k / C;
+      tc[h] = k - tap * C;
+      tr[h] = tap / kw;
+      ts[h] = tap - tr[h] * kw;
+    }
+  }
+
+  __device__ __forceinline__ int8_t tap_byte(int j, int k) const {
+    const int tap = k / C, c = k - tap * C;
+    const int r = tap / kw, s = tap - r * kw;
+    const int ih = ih0[j] + r, iw = iw0[j] + s;
+    if (ih < 0 || ih >= H || iw < 0 || iw >= W)
+      return static_cast<int8_t>(zp);
+    return img[j][(static_cast<size_t>(ih) * W + iw) * C + c];
+  }
+
+  // the next step's chunks, at k0 (every step in order)
+  __device__ __forceinline__ void issue(uint32_t as, int k0, int k_end) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = (threadIdx.x & 3) + 4 * h, k = k0 + cc * 16;
+      if (FAST || vec) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t dst =
+              as + a_off((threadIdx.x >> 2) + j * (BM / 2), cc);
+          const int ih = ih0[j] + tr[h], iw = iw0[j] + ts[h];
+          if (img[j] == nullptr || k >= k_end) {
+            cp_async16(dst, x, false);
+          } else if (ih < 0 || ih >= H || iw < 0 || iw >= W) {
+            st_shared16(dst, splat(zp));
+          } else {
+            cp_async16(
+                dst, img[j] + (static_cast<size_t>(ih) * W + iw) * C + tc[h],
+                true);
+          }
+        }
+        tc[h] += BK;  // the same chunk of the next step
+        while (tc[h] >= C) {
+          tc[h] -= C;
+          if (++ts[h] == kw) {
+            ts[h] = 0;
+            ++tr[h];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          Chunk16 u = fill16(0);
+          if (img[j] != nullptr) {
+#pragma unroll 4
+            for (int i = 0; i < 16; ++i)
+              if (k + i < k_end) u.s[i] = tap_byte(j, k + i);
+          }
+          st_shared16(as + a_off((threadIdx.x >> 2) + j * (BM / 2), cc), u);
+        }
+      }
+    }
+  }
+};
+
+// 4 x 4 byte transpose: in w[r] byte i = (row r, col i); out[i] byte r.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ void mma_i8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The fragments of one 32-k substep of a warp's 64 x 32 tile: A of its 4
+// m tiles, B of its 4 mma column tiles (b[0]: k 0..15, b[1]: k 16..31).
+struct Frags {
+  uint32_t a[4][4];
+  uint32_t b[2][4];
+};
+
+// Fragments of substep kk (0, 32, 64, 96) of the stage at `stage`
+// (generic pointer) / `as` (its shared address); m tiles mi >= mtiles are
+// not loaded.
+__device__ __forceinline__ void load_frags(Frags& f, uint32_t as,
+                                           const unsigned char* stage,
+                                           int kk, int wm, uint32_t bcol,
+                                           int mtiles) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const unsigned char* bs = stage + A_BYTES;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = *reinterpret_cast<const uint32_t*>(
+          bs + (kk + 16 * h + 4 * t + r) * BN + bcol);
+    transpose4x4(w, f.b[h]);
+  }
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int achunk = kk / 16 + (lane >> 4);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+    if (mi < mtiles)
+      ldsm_x4(f.a[mi], as + a_off(wm + mi * 16 + arow, achunk));
+}
+
+__device__ __forceinline__ void mma_frags(const Frags& f, int mtiles,
+                                          int (&acc)[4][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+    if (mi < mtiles)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma_i8(acc[mi][i], f.a[mi], f.b[0][i], f.b[1][i]);
+}
+
+// The block's tile over Kdim range [k_begin, k_end) into acc. Every
+// thread of the block calls it (it synchronizes the block). The A loader
+// is called for the steps in order.
+template <bool FAST, class ALoad>
+__device__ __forceinline__ void mainloop(ALoad& a, const BSrc& b,
+                                         int n0, int k_begin, int k_end,
+                                         unsigned char* smem, int wm,
+                                         int wn, int mtiles, bool nlive,
+                                         int (&acc)[4][4][4]) {
+  const uint32_t base = smem_addr(smem);
+  const int steps = (k_end - k_begin + BK - 1) / BK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool live = nlive && mtiles > 0;
+  // this thread's byte in a B row: word g % 4 of chunk wn / 16 + g / 4,
+  // the chunk swizzled by 2 ((k / 4) % 4) = 2t for every row it reads
+  const uint32_t bcol =
+      ((((wn >> 4) + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  auto issue = [&](int step) {
+    const uint32_t st = base + (step % STAGES) * STAGE;
+    a.issue(st, k_begin + step * BK, k_end);
+    issue_b<FAST>(st + A_BYTES, b, k_begin + step * BK, k_end, n0);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  Frags f;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<STAGES - 2>();
+    // step i landed, and every warp is done with step i - 1's stage
+    __syncthreads();
+    if (i + STAGES - 1 < steps) issue(i + STAGES - 1);
+    cp_async_commit();
+    const int slot = i % STAGES;
+    if (!live) continue;
+#pragma unroll
+    for (int s = 0; s < BK / 32; ++s) {
+      load_frags(f, base + slot * STAGE, smem + slot * STAGE, 32 * s, wm,
+                 bcol, mtiles);
+      mma_frags(f, mtiles, acc);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Split-K: this block's partial tile to the workspace, then the last
+// block of the tile to arrive sums every split's partials into acc.
+// Returns false in the blocks that are not last (they are done).
+__device__ __forceinline__ bool reduce_splits(int* __restrict__ ws,
+                                              unsigned* __restrict__ counters,
+                                              int tile, int split,
+                                              int splits, int mtiles,
+                                              bool nlive,
+                                              int (&acc)[4][4][4]) {
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  // fragment order: int4 r of thread tid at (r * NT + tid); the last
+  // block's threads read the same places of the other splits
+  auto part = [&](int s) {
+    return reinterpret_cast<int4*>(ws) +
+           (static_cast<size_t>(tile) * splits + s) * (TILE_INTS / 4);
+  };
+  if (nlive) {
+    int4* mine = part(split);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+      if (mi < mtiles)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mine[(mi * 4 + i) * NT + tid] =
+              make_int4(acc[mi][i][0], acc[mi][i][1], acc[mi][i][2],
+                        acc[mi][i][3]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned prev = atomicAdd(counters + tile, 1u);
+    s_last = prev == static_cast<unsigned>(splits - 1);
+    if (s_last) counters[tile] = 0;  // every split has arrived
+  }
+  __syncthreads();
+  if (!s_last) return false;
+  __threadfence();
+  if (nlive) {
+    // every split's partial, own included, a few splits' loads in flight
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][i][0] = acc[mi][i][1] =
+          acc[mi][i][2] = acc[mi][i][3] = 0;
+#pragma unroll 4
+    for (int s = 0; s < splits; ++s) {
+      const int4* p = part(s);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        if (mi < mtiles)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int4 v = __ldcg(p + (mi * 4 + i) * NT + tid);
+            acc[mi][i][0] += v.x;
+            acc[mi][i][1] += v.y;
+            acc[mi][i][2] += v.z;
+            acc[mi][i][3] += v.w;
+          }
+    }
+  }
+  return true;
+}
+
+// A per-column or per-row vector read in its stored type (f32 or bf16;
+// the bf16 -> f32 conversion is exact).
+__device__ __forceinline__ float ldf(const void* p, bool bf, size_t i) {
+  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+            : static_cast<const float*>(p)[i];
+}
+
+struct EpiArgs {
+  const float* scale;
+  const float* bias0;
+  const void* bias;   // [N] f32 or bf16, or null
+  const void* ebias;  // [B, N] f32 or bf16 (row m reads batch m / PQ), or null
+  const void* res;    // [M, N] of the output type, or null
+  void* out;          // [M, N]
+  int M, N, PQ;
+  bool bias_bf16, ebias_bf16, res_vec;
+};
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[8]);
+template <>
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+    v[2 * j] = __low2float(h);
+    v[2 * j + 1] = __high2float(h);
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// out = T(((f32(acc) - bias0) * scale + bias + ebias[b]) + res), each
+// step rounded as the plain version rounds it. Thread (g, t) of the warp
+// at (wm, wn) holds rows wm + 16 mi + g (+8) and columns wn + 8t .. +8:
+// column j < 4 in acc[mi][j][0 / 2], j >= 4 in acc[mi][j - 4][1 / 3].
+template <typename T>
+__device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
+                                         int wm, int wn, int mtiles,
+                                         const int (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nb = n0 + wn + 8 * t;
+  if (nb >= e.N) return;
+  const int ncols = min(8, e.N - nb);
+  // bf16: 16 bytes a row need N % 8; f32: two 16-byte halves need N % 4
+  const bool vec = ncols == 8 && e.N % (sizeof(T) == 2 ? 8 : 4) == 0;
+  float sc[8], b0[8], bi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = j < ncols ? nb + j : nb;
+    sc[j] = e.scale[n];
+    b0[j] = e.bias0[n];
+    bi[j] = e.bias ? ldf(e.bias, e.bias_bf16, n) : 0.f;
+  }
+  T* out = static_cast<T*>(e.out);
+  const T* res = static_cast<const T*>(e.res);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if (mi >= mtiles) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + mi * 16 + g + 8 * h;
+      if (m >= e.M) continue;
+      const size_t o = static_cast<size_t>(m) * e.N + nb;
+      float y[8], r[8];
+      if (res && vec && e.res_vec) {
+        load8(res + o, r);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          r[j] = res && j < ncols ? to_f32(res[o + j]) : 0.f;
+      }
+      const size_t eb = e.ebias ? static_cast<size_t>(m / e.PQ) * e.N : 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int v = j < 4 ? acc[mi][j][2 * h] : acc[mi][j - 4][2 * h + 1];
+        float yy = __fmul_rn(__fsub_rn(__int2float_rn(v), b0[j]), sc[j]);
+        if (e.bias) yy = __fadd_rn(yy, bi[j]);
+        if (e.ebias && j < ncols)
+          yy = __fadd_rn(yy, ldf(e.ebias, e.ebias_bf16, eb + nb + j));
+        if (res) yy = __fadd_rn(yy, r[j]);
+        y[j] = yy;
+      }
+      if (vec) {
+        store8(out + o, y);
+      } else {
+        for (int j = 0; j < ncols; ++j) store_f32(out + o + j, y[j]);
+      }
+    }
+  }
+}
+
+// The whole block: mainloop over this split's k range, split-K reduction,
+// epilogue. Grid: x = column tiles, y = row tiles, z = splits.
+template <typename T, bool FAST, class ALoad>
+__device__ __forceinline__ void run_block(ALoad& a, const BSrc& b,
+                                          const EpiArgs& e, int Kdim,
+                                          int split_k, int* ws,
+                                          unsigned* counters) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int k_begin = split * split_k;
+  const int k_end = min(Kdim, k_begin + split_k);
+  const int mtiles = max(0, min(4, (e.M - m0 - wm + 15) / 16));
+  const bool nlive = n0 + wn < e.N;
+  int acc[4][4][4] = {};
+  mainloop<FAST>(a, b, n0, k_begin, k_end, smem, wm, wn, mtiles, nlive,
+                 acc);
+  if (splits > 1 &&
+      !reduce_splits(ws, counters, blockIdx.y * gridDim.x + blockIdx.x,
+                        split, splits, mtiles, nlive, acc))
+    return;
+  if (nlive) epilogue<T>(e, m0, n0, wm, wn, mtiles, acc);
+}
+
+// The plan passed from Python (ops/qmatmul.py:qmm_plan) must be this
+// build's: its tile and ring depth, whole k steps per split but the last,
+// the splits covering Kdim once, a workspace and counters when split.
+inline bool plan_ok(int bm, int stages, int splits, int split_k, int Kdim,
+                    const int* ws, const unsigned* counters) {
+  if (bm != BM || stages != STAGES) return false;
+  if (splits < 1 || split_k <= 0 || split_k % BK) return false;
+  if (static_cast<long long>(splits) * split_k < Kdim ||
+      static_cast<long long>(splits - 1) * split_k >= (Kdim > 0 ? Kdim : 1))
+    return false;
+  return splits == 1 || (ws != nullptr && counters != nullptr);
+}
+
+inline int b_mode(const int8_t* w, int N) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(w);
+  return vec16(w, N) ? B_COPY16 : (N % 4 == 0 && a % 4 == 0) ? B_COPY4
+                                                             : B_COPY1;
+}
+
+// The ring's dynamic shared memory and the largest carveout, once per
+// kernel.
+template <typename Kern>
+cudaError_t set_smem(Kern kernel) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+}  // namespace igemm
+}  // namespace mixdq

@@ -9,52 +9,86 @@
 //
 // acc converts to f32 before bias0 is subtracted, as qops.qlinear does
 // (the Pallas kernel subtracts in int32; bias0 is integer-valued, so the
-// two agree while |acc| < 2^24). One block owns a 64x64 output tile and
-// loops over the whole K (mma_s8.cuh:gemm_tile), so there is no
-// cross-block reduction; tails in M, N and K read zero codes, which add
-// 0. Bound, at the main-path shapes: the weight bytes at M <= 256 (e.g.
-// M=1 K=1280 N=1280: 1.6 MB, ~0.5 us at 3.35 TB/s), int8 operations at
-// M=4096 K=960 N=320 (2.5 GOP, ~1.3 us at 1,979 TOP/s). With one 64-row
-// tile for M=1 and no split-K, the small-M layers run far from either.
+// two agree while |acc| < 2^24). bias is read in its stored type (f32 or
+// bf16). Bound, at the main-path shapes: the weight bytes at M <= 256
+// (M=1 K=1280 N=1280: 1.6 MB, ~0.5 us at 3.35 TB/s; 256x5120x1280: 6.6
+// MB, ~2.5 us), int8 operations at M >= 1024 (1024x2560x640: 3.4 GOP,
+// ~1.7 us at 1,979 TOP/s).
+//
+// Design: the pipelined mma.sync mainloop of igemm_s8.cuh (cp.async ring
+// of 128-byte k steps, B kept [k][n] and transposed in registers, 128 x
+// 128 tiles of 8 warps, split-K reduced by the last block of each tile in
+// the same launch), its A loader reading the row-major codes. The plan is
+// ops/qmatmul.py:qmm_plan: split K only where the tiles fill fewer SMs
+// than the card has, into at most SMs / tiles ranges of at least two
+// steps. Waves on 132 SMs (tiles x splits = blocks, steps per split):
+//   1024x2560x640   40 x 3 = 120   (7, 7, 6)
+//   1024x640x640    40 x 2 = 80    (3, 2)
+//   4096x960x320    96 x 1 = 96    (8, the last one partial)
+//   256x5120x1280   20 x 6 = 120   (7 each, 5 the last)
+//   256x1280x1280   20 x 5 = 100   (2 each)
+//   77x2048x2560    20 x 6 = 120   (3 each, 1 the last; 5 live m16 tiles)
+//   77x2048x1280    10 x 8 = 80    (2 each)
+//   1x1280x1280     10 x 5 = 50    (2 each; one live m16 tile)
 
-#include "mma_s8.cuh"
+#include "igemm_s8.cuh"
 
 using namespace mixdq;
+using igemm::BSrc;
+using igemm::EpiArgs;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ bias0,
-                   const float* __restrict__ bias, T* __restrict__ out, int M,
-                   int K, int N, bool avec, bool bvec) {
-  __shared__ __align__(16) int8_t As[BM][LDS];
-  __shared__ __align__(16) int8_t Bs[BN][LDS];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  gemm_tile(x, M, K, m0, avec, w, N, n0, bvec, As, Bs,
-            [&](int m, int n, int acc) {
-              if (m >= M || n >= N) return;
-              float v = __fmul_rn(__fsub_rn(__int2float_rn(acc), bias0[n]),
-                                  scale[n]);
-              if (bias) v = __fadd_rn(v, bias[n]);
-              store_f32(out + static_cast<size_t>(m) * N + n, v);
-            });
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(igemm::NT, 1)
+    qmatmul_kernel(igemm::DenseA<FAST> a, BSrc b, EpiArgs e, int split_k,
+                   int* ws, unsigned* counters) {
+  a.init(blockIdx.y * igemm::BM);
+  igemm::run_block<T, FAST>(a, b, e, a.K, split_k, ws, counters);
 }
 
+template <typename T, bool FAST>
+static int launch(const igemm::DenseA<FAST>& a, const BSrc& b,
+                  const EpiArgs& e, int splits, int split_k, int* ws,
+                  unsigned* counters, cudaStream_t stream) {
+  static const cudaError_t attrs = igemm::set_smem(qmatmul_kernel<T, FAST>);
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  const dim3 grid((e.N + igemm::BN - 1) / igemm::BN,
+                  (e.M + igemm::BM - 1) / igemm::BM, splits);
+  qmatmul_kernel<T, FAST><<<grid, igemm::NT, igemm::SMEM, stream>>>(
+      a, b, e, split_k, ws, counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 16-byte copies of A and B known at compile time (FAST), or chosen
+// at run time.
+template <typename T>
+static int launch_any(const igemm::DenseA<false>& a, const BSrc& b,
+                      const EpiArgs& e, int splits, int split_k, int* ws,
+                      unsigned* counters, cudaStream_t stream) {
+  if (a.vec && b.mode == igemm::B_COPY16) {
+    const igemm::DenseA<true> f{a.x, a.M, a.K, true, {nullptr, nullptr}};
+    return launch<T, true>(f, b, e, splits, split_k, ws, counters, stream);
+  }
+  return launch<T, false>(a, b, e, splits, split_k, ws, counters, stream);
+}
+
+// x [M, K] int8, w [K, N] int8, scale / bias0 [N] f32, bias [N] f32 or
+// bf16 (bias_bf16) or null, out [M, N] bf16 or f32. bm, stages, splits,
+// split_k: the plan of ops/qmatmul.py:qmm_plan; ws: int32 [tiles, splits,
+// 128, 128] and counters: tiles zeroed uint32 when splits > 1.
 extern "C" int mixdq_qmatmul(const int8_t* x, const int8_t* w,
                              const float* scale, const float* bias0,
-                             const float* bias, void* out, int M, int K,
-                             int N, int out_bf16, cudaStream_t stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const bool avec = vec16(x, K), bvec = vec16(w, N);
-  if (out_bf16) {
-    qmatmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        x, w, scale, bias0, bias, static_cast<__nv_bfloat16*>(out), M, K, N,
-        avec, bvec);
-  } else {
-    qmatmul_kernel<float><<<grid, THREADS, 0, stream>>>(
-        x, w, scale, bias0, bias, static_cast<float*>(out), M, K, N, avec,
-        bvec);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             const void* bias, int bias_bf16, void* out,
+                             int* ws, unsigned* counters, int M, int K,
+                             int N, int out_bf16, int bm, int stages,
+                             int splits, int split_k, cudaStream_t stream) {
+  if (!igemm::plan_ok(bm, stages, splits, split_k, K, ws, counters))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const igemm::DenseA<false> a{x, M, K, vec16(x, K), {nullptr, nullptr}};
+  const BSrc b{w, N, igemm::b_mode(w, N)};
+  const EpiArgs e{scale, bias0, bias, nullptr, nullptr, out, M, N, 1,
+                  bias_bf16 != 0, false, false};
+  return out_bf16 ? launch_any<__nv_bfloat16>(a, b, e, splits, split_k, ws,
+                                              counters, stream)
+                  : launch_any<float>(a, b, e, splits, split_k, ws, counters,
+                                      stream);
 }

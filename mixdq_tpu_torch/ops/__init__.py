@@ -12,6 +12,7 @@ device), ``launches`` only the calls that launched the CUDA kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -67,3 +68,10 @@ def check_cuda_args(name: str, **tensors: torch.Tensor) -> None:
     for k, t in tensors.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    split-K plans are functions of the shapes and this count)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

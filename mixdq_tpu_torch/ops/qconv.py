@@ -4,9 +4,11 @@
 
 ``out = (acc - bias0) * scale + bias + extra_bias[b] + residual`` with
 zp-code padding. Kernel: ``csrc/qconv.cu`` (implicit GEMM on int8
-tensor cores, any stride); plain version: ``qconv2d_plain``. The two
-wrappers keep the reference's split into a stride-1 and a stride-2 entry,
-each with its own launch count.
+tensor cores, any stride, on the mainloop of ``csrc/igemm_s8.cuh``);
+plain version: ``qconv2d_plain``. Its tile, ring depth and split-K are
+``qconv_plan``: ``qmm_plan`` over ``M = B P Q`` pixels, ``Kdim = kh kw
+C`` and ``K`` channels. The two wrappers keep the reference's split into
+a stride-1 and a stride-2 entry, each with its own launch count.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from . import _build, check_cuda_args, qops, register, use_kernel
+from . import _build, check_cuda_args, qops, register, sm_count, use_kernel
+from .qmatmul import QmmPlan, igemm_scratch, qmm_plan, stored_vector
 
 COUNT_S1 = register("qconv2d")
 COUNT_S2 = register("qconv2d_s2")
@@ -41,13 +44,22 @@ def _lib():
     f = lib.mixdq_qconv2d
     if f.argtypes is None:
         P, I = _build.P, _build.I
-        f.argtypes = [P] * 8 + [I] * 12 + [P]
+        f.argtypes = [P] * 5 + [I, P, I] + [P] * 4 + [I] * 16 + [P]
         f.restype = I
     return lib
 
 
-def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    return None if t is None else t.float().contiguous()
+def conv_out_size(H: int, W: int, kh: int, kw: int, stride: int,
+                  padding) -> tuple:
+    ph, pw = padding
+    return (H + 2 * ph - kh) // stride + 1, (W + 2 * pw - kw) // stride + 1
+
+
+def qconv_plan(B: int, H: int, W: int, C: int, K: int, kh: int, kw: int,
+               stride: int, padding, sms: int) -> QmmPlan:
+    """The kernel's plan for one conv: ``qmm_plan`` of its GEMM view."""
+    P, Q = conv_out_size(H, W, kh, kw, stride, padding)
+    return qmm_plan(B * P * Q, kh * kw * C, K, sms)
 
 
 def _launch(x_int8, w_int8, scale, bias0, zp_shifted, bias, extra_bias,
@@ -55,7 +67,7 @@ def _launch(x_int8, w_int8, scale, bias0, zp_shifted, bias, extra_bias,
     B, H, W, C = x_int8.shape
     kh, kw, C2, K = w_int8.shape
     ph, pw = padding
-    P, Q = (H + 2 * ph - kh) // stride + 1, (W + 2 * pw - kw) // stride + 1
+    P, Q = conv_out_size(H, W, kh, kw, stride, padding)
     if x_int8.dtype != torch.int8 or w_int8.dtype != torch.int8 or C2 != C:
         raise ValueError(f"qconv2d: bad operands x {tuple(x_int8.shape)} "
                          f"{x_int8.dtype}, w {tuple(w_int8.shape)} "
@@ -65,26 +77,30 @@ def _launch(x_int8, w_int8, scale, bias0, zp_shifted, bias, extra_bias,
     if scale.shape != (K,) or bias0.shape != (K,) or \
             scale.dtype != torch.float32 or bias0.dtype != torch.float32:
         raise ValueError("qconv2d: scale/bias0 must be f32 [K]")
-    if extra_bias is not None and extra_bias.shape != (B, K):
-        raise ValueError(f"qconv2d: extra_bias {tuple(extra_bias.shape)}")
     if residual is not None and (residual.shape != (B, P, Q, K)
                                  or residual.dtype != out_dtype):
         raise ValueError(f"qconv2d: residual {tuple(residual.shape)} "
                          f"{residual.dtype}")
-    bias, extra_bias = _f32(bias), _f32(extra_bias)
+    bias_bf16 = stored_vector("qconv2d", "bias", bias, (K,))
+    eb_bf16 = stored_vector("qconv2d", "extra_bias", extra_bias, (B, K))
     check_cuda_args("qconv2d", x=x_int8, w=w_int8, scale=scale, bias0=bias0,
                     residual=residual)
     if (C % 16 == 0 and x_int8.data_ptr() % 16) or \
             (K % 16 == 0 and w_int8.data_ptr() % 16):
         raise ValueError("qconv2d: x/w must be 16-byte aligned")
-    out = torch.empty((B, P, Q, K), dtype=out_dtype, device=x_int8.device)
+    dev = x_int8.device
+    plan = qconv_plan(B, H, W, C, K, kh, kw, stride, padding,
+                      sm_count(dev.index or 0))
+    out = torch.empty((B, P, Q, K), dtype=out_dtype, device=dev)
+    ws, counters = igemm_scratch(plan, dev)
     lib = _lib()
     p = _build.ptr
     err = lib.mixdq_qconv2d(
-        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), p(extra_bias),
-        p(residual), p(out), B, H, W, C, K, kh, kw, stride, ph, pw,
-        int(zp_shifted), int(out_dtype == torch.bfloat16),
-        _build.stream(x_int8.device))
+        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), bias_bf16,
+        p(extra_bias), eb_bf16, p(residual), p(out), p(ws), p(counters), B,
+        H, W, C, K, kh, kw, stride, ph, pw, int(zp_shifted),
+        int(out_dtype == torch.bfloat16), plan.bm, plan.stages, plan.splits,
+        plan.split_k, _build.stream(dev))
     _build.check(lib, err, "qconv2d")
     return out
 

@@ -3,8 +3,10 @@
 
 * ``qmatmul`` (port of ``qmatmul``): codes ``[M, K]`` x weights
   ``[K, N]`` with the dequant epilogue of ``qops.qlinear``, for every
-  dense layer and 1x1 conv. Kernel: ``csrc/qmatmul.cu``; plain version:
-  ``qmatmul_plain``.
+  dense layer and 1x1 conv. Kernel: ``csrc/qmatmul.cu`` (the mainloop of
+  ``csrc/igemm_s8.cuh``, shared with ``qconv2d``); plain version:
+  ``qmatmul_plain``. Its tile, ring depth and split-K are ``qmm_plan``,
+  a function of the shapes and the card's SM count alone.
 * ``geglu_qmatmul`` (port of ``geglu_qmatmul``): the proj GEMM over the
   value and gate halves of ``[K, 2H]``, the dequant epilogues (``bias0``
   cast to int32 before the subtraction), the gate ``v * gelu(g)`` and
@@ -29,12 +31,14 @@
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build, check_cuda_args, qops, register, use_kernel
+from . import _build, check_cuda_args, qops, register, sm_count, use_kernel
 from .ln_quant import check_block_input, ln_or_codes_plain
 
 COUNT = register("geglu_qmatmul")
@@ -137,12 +141,104 @@ def qmatmul_plain(x_int8, w_int8, scale, bias0, bias=None,
     return out.to(out_dtype)
 
 
+#: the int8 GEMM mainloop's block tile, k step (bytes) and ring depth
+#: (``csrc/igemm_s8.cuh``: BM, BN, BK, STAGES)
+QMM_TILE = (128, 128)
+QMM_BK = 128
+QMM_STAGES = 4
+#: the fewest k steps a split takes (fewer cost more in partial sums than
+#: they save)
+QMM_MIN_SPLIT_STEPS = 2
+#: split-K arrival counters per device (a split plan has fewer tiles than
+#: SMs)
+QMM_COUNTERS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """One launch of the int8 GEMM mainloop over ``C [M, N] = A [M, kdim]
+    B [kdim, N]``: ``bm x bn`` tiles, a ring of ``stages`` steps of ``bk``
+    bytes of kdim; split ``s`` takes ``[s * split_k, min((s + 1) *
+    split_k, kdim))``, whole steps but for the last. ``ws_elems`` int32
+    partial tiles ``[tiles, splits, bm, bn]`` and ``counters`` per-tile
+    arrival counters (both 0 for one split)."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    kdim: int
+    splits: int
+    split_k: int
+    tiles: int
+    ws_elems: int
+    counters: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+@functools.lru_cache(maxsize=4096)
+def qmm_plan(M: int, kdim: int, N: int, sms: int) -> QmmPlan:
+    """Split K only where the (M, N) tiles fill fewer than ``sms`` SMs:
+    then into at most ``sms // tiles`` ranges of whole k steps, none
+    empty and none under ``QMM_MIN_SPLIT_STEPS`` steps but the last, so
+    that every block has an SM of its own in one wave."""
+    bm, bn = QMM_TILE
+    steps = max(1, -(-kdim // QMM_BK))
+    tiles = -(-M // bm) * -(-N // bn)
+    splits = 1 if tiles >= sms else max(1, min(
+        sms // tiles, steps // QMM_MIN_SPLIT_STEPS))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    split = splits > 1
+    return QmmPlan(bm, bn, QMM_BK, QMM_STAGES, kdim, splits, per * QMM_BK,
+                   tiles, tiles * splits * bm * bn if split else 0,
+                   tiles if split else 0)
+
+
+_COUNTERS: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def igemm_scratch(plan: QmmPlan, dev: torch.device):
+    """(int32 workspace, arrival counters) of one launch under ``plan``,
+    (None, None) for one split. The workspace is new (``torch.empty``);
+    the counters are one zeroed buffer per device, allocated at the first
+    split launch and kept: each tile's last block resets its counter."""
+    if plan.splits == 1:
+        return None, None
+    key = (dev.type, dev.index or 0)
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        counters = _COUNTERS[key] = torch.zeros(QMM_COUNTERS,
+                                                dtype=torch.int32, device=dev)
+    if plan.counters > counters.numel():
+        raise ValueError(f"split plan of {plan.counters} tiles exceeds the "
+                         f"{counters.numel()} counters")
+    return torch.empty(plan.ws_elems, dtype=torch.int32, device=dev), counters
+
+
+def stored_vector(name: str, what: str, t: Optional[torch.Tensor],
+                  shape) -> int:
+    """Checks a vector the kernels read in its stored type (f32 or bf16,
+    contiguous, of ``shape``); returns 1 for bf16, else 0."""
+    if t is None:
+        return 0
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: {what} must be f32 or bf16, not {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    check_cuda_args(name, **{what: t})
+    return int(t.dtype == torch.bfloat16)
+
+
 def _qmatmul_lib():
     lib = _build.load("qmatmul.cu")
     f = lib.mixdq_qmatmul
     if f.argtypes is None:
         P, I = _build.P, _build.I
-        f.argtypes = [P] * 6 + [I] * 4 + [P]
+        f.argtypes = [P] * 5 + [I] + [P] * 3 + [I] * 8 + [P]
         f.restype = I
     return lib
 
@@ -152,7 +248,8 @@ def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
             out_dtype=torch.bfloat16) -> torch.Tensor:
     """Codes ``[M, K]`` x ``[K, N]`` -> ``(f32(acc) - bias0) * scale
     (+ bias)`` in ``out_dtype`` (bf16 or f32), ``[M, N]``; ``scale`` and
-    ``bias0`` are f32 ``[N]``.
+    ``bias0`` are f32 ``[N]``, ``bias`` f32 or bf16 ``[N]`` (read as
+    stored).
 
     The epilogue is ``qops.qlinear``'s: the int32 sum converts to f32
     before ``bias0`` is subtracted. The Pallas ``qmatmul`` subtracts
@@ -172,15 +269,18 @@ def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         raise ValueError("qmatmul: scale/bias0 must be f32 [N]")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qmatmul: out_dtype {out_dtype}")
-    if bias is not None:
-        bias = bias.float().contiguous()
+    bias_bf16 = stored_vector("qmatmul", "bias", bias, (N,))
     check_cuda_args("qmatmul", x=x_int8, w=w_int8, scale=scale, bias0=bias0)
-    out = torch.empty((M, N), dtype=out_dtype, device=x_int8.device)
+    dev = x_int8.device
+    plan = qmm_plan(M, K, N, sm_count(dev.index or 0))
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    ws, counters = igemm_scratch(plan, dev)
     lib = _qmatmul_lib()
     p = _build.ptr
     err = lib.mixdq_qmatmul(
-        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), p(out), M, K, N,
-        int(out_dtype == torch.bfloat16), _build.stream(x_int8.device))
+        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), bias_bf16, p(out),
+        p(ws), p(counters), M, K, N, int(out_dtype == torch.bfloat16),
+        plan.bm, plan.stages, plan.splits, plan.split_k, _build.stream(dev))
     _build.check(lib, err, "qmatmul")
     QMATMUL_COUNT.launches += 1
     return out

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, check_cuda_args, register, use_kernel
+from . import _build, check_cuda_args, register, sm_count, use_kernel
 
 WQ_COUNT = register("wq_matmul")
 WQ4_COUNT = register("wq4_matmul")
@@ -116,16 +116,11 @@ def wq_plan(M: int, K: int, N: int, w4: bool, sms: int) -> WqPlan:
                   splits * M * N if splits > 1 else 0)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(fn, name, xb, w, scale, bias, M, K, N, out_dtype, w4):
     """One launch of ``fn`` (``mixdq_wq_matmul`` / ``mixdq_wq4_matmul``;
     bias is passed for the first only) under ``wq_plan``."""
     dev = xb.device
-    plan = wq_plan(M, K, N, w4, _sm_count(dev.index or 0))
+    plan = wq_plan(M, K, N, w4, sm_count(dev.index or 0))
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     ws = (torch.empty(plan.ws_elems, dtype=torch.float32, device=dev)
           if plan.splits > 1 else None)

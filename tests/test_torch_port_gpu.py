@@ -182,6 +182,78 @@ def test_qmatmul_kernel(dev, M, K, N, with_bias, dtype):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("M", [1, 77, 256, 1000])
+@pytest.mark.parametrize("K,N,bias_dtype,dtype", [
+    (2056, 1280, torch.bfloat16, torch.bfloat16),  # K not a whole k step
+    (40, 1000, torch.float32, torch.bfloat16),     # one partial step
+    (1280, 40, None, torch.float32),               # ragged N, f32 out
+    (5120, 1280, torch.float32, torch.float32),    # the longest split
+])
+def test_qmatmul_split_regimes(dev, M, K, N, bias_dtype, dtype):
+    """``qmatmul`` under every plan regime (one split, split-K with a
+    partial last step, ragged N): equal to its plain version bit for bit,
+    since the int32 sums are exact in any split and order, and two calls
+    equal each other."""
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain, qmm_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = qmm_plan(M, K, N, sms)
+    g = torch.Generator().manual_seed(15)
+    x, w = _codes(g, dev, M, K), _codes(g, dev, K, N)
+    scale = ((torch.rand(N, generator=g) + 0.5) * 1e-5).to(dev)
+    bias0 = (-9.0 * w.int().sum(0)).float()
+    bias = (None if bias_dtype is None
+            else torch.randn(N, generator=g).to(dev, bias_dtype))
+    ops.reset_counts()
+    a = qmatmul(x, w, scale, bias0, bias, dtype)
+    b = qmatmul(x, w, scale, bias0, bias, dtype)
+    want = qmatmul_plain(x, w, scale, bias0, bias, dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["qmatmul"] == ops.call_counts()["qmatmul"] == 2
+    assert a.dtype == dtype and a.shape == (M, N)
+    assert torch.equal(a, want), (plan, (a.float() - want.float()).abs().max())
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,W,C,K,stride,dtype,epilogue", [
+    (1, 16, 16, 1280, 1280, 1, torch.bfloat16, True),   # 16x16, split-K
+    (1, 16, 16, 2560, 1280, 1, torch.bfloat16, True),   # the longest Kdim
+    (2, 16, 16, 640, 1280, 1, torch.float32, True),     # two images
+    (1, 64, 64, 320, 320, 2, torch.bfloat16, False),    # stride 2, split
+    (1, 32, 32, 640, 640, 2, torch.bfloat16, True),     # stride 2, 13 splits
+    (2, 9, 6, 24, 40, 2, torch.float32, True),          # odd, ragged K
+    (1, 64, 64, 4, 320, 1, torch.bfloat16, False),      # C % 16 != 0
+    (1, 64, 64, 320, 4, 1, torch.bfloat16, False),      # K % 16 != 0
+    (2, 7, 9, 12, 8, 1, torch.float32, True),           # both, bytes
+])
+def test_qconv_split_regimes(dev, B, H, W, C, K, stride, dtype, epilogue):
+    """``qconv2d`` / ``qconv2d_s2`` with split-K, a border of zero-point
+    taps (pad 1, zp -5), stride 2 and the byte paths: equal to the plain
+    version bit for bit, and two calls equal each other; bias and the
+    extra bias in bf16 and f32 alike (read as stored)."""
+    from mixdq_tpu_torch.ops.qconv import qconv2d, qconv2d_plain, qconv2d_s2
+
+    g = torch.Generator().manual_seed(16)
+    x, w = _codes(g, dev, B, H, W, C), _codes(g, dev, 3, 3, C, K)
+    scale = ((torch.rand(K, generator=g) + 0.5) * 1e-4).to(dev)
+    bias0 = (-5.0 * w.int().sum((0, 1, 2))).float()
+    bias = torch.randn(K, generator=g).to(dev, torch.bfloat16)
+    P, Q = (H - 1) // stride + 1, (W - 1) // stride + 1
+    eb = torch.randn(B, K, generator=g).to(dev) if epilogue else None
+    res = (torch.randn(B, P, Q, K, generator=g).to(dev, dtype)
+           if epilogue else None)
+    fn = qconv2d if stride == 1 else qconv2d_s2
+    kw = dict(bias=bias, extra_bias=eb, residual=res, out_dtype=dtype)
+    a = fn(x, w, scale, bias0, -5.0, **kw)
+    b = fn(x, w, scale, bias0, -5.0, **kw)
+    want = qconv2d_plain(x, w, scale, bias0, -5.0, stride=stride, **kw)
+    torch.cuda.synchronize()
+    assert a.shape == (B, P, Q, K) and a.dtype == dtype
+    assert torch.equal(a, want), (a.float() - want.float()).abs().max()
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("B,T,heads,d", [
     (1, 1024, 10, 64),   # SDXL-Turbo attn1 at 32x32
     (1, 256, 20, 64),    # attn1 at 16x16
