@@ -17,16 +17,19 @@ Phases (none catches its own failure; any failure exits non-zero):
    on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
    the kernel's key blocks: max |diff| <= 2 bf16 ulps of the plain
    output's max |x| and |diff| / |plain| <= 1e-2; the fused act-quantize
-   GEMMs: rtol 1e-3 / atol 1e-2 but on < 1% of entries, and those within
-   one code's worth of their column),
+   GEMMs ``qmatmul_fused`` / ``qmatmul_fused2``, on the same mainloop as
+   ``qmatmul``: equal bit for bit too, at K % 128 != 0, M = 1, a bf16
+   column slice of x, f32 output and K = 16384 as well),
    with the kernel's and the plain version's time, the card's bound for
    the same work and, where one PyTorch call computes the same function,
    its time (``torch._int_mm`` for ``qmatmul``, on w as stored and on a
-   K-major copy, and, on codes quantized beforehand, for
-   ``qmatmul_fused`` / ``qmatmul_fused2``, the product alone;
-   ``scaled_dot_product_attention`` for flash attention; ``torch.matmul``
-   on the weight dequantized beforehand for ``wq4_matmul`` /
-   ``wq_matmul``, whose check is flash attention's).
+   K-major copy, and the same on codes quantized beforehand for the
+   fused GEMMs, the product alone, beside the act-quantize then
+   ``qmatmul``; ``scaled_dot_product_attention`` for flash attention;
+   ``torch.matmul`` on the weight dequantized beforehand for
+   ``wq4_matmul`` / ``wq_matmul``, whose check is flash attention's).
+   Then each fused GEMM at M=1024 K=5120 N=1280 under torch.profiler:
+   one device kernel per call.
 2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
    take the whole-attention kernels), W8A8 steps in float32
    under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
@@ -153,6 +156,8 @@ OUTFUSE_FAULT_SITES = (
 INT8_FLASH_SITE_SQNR_DB = {"qk": 30.0, "qkv": 30.0}
 # keys the planted flash fault drops at the end of every flash site
 FLASH_DROPPED_KEYS = 64
+# profiled calls of each fused act-quantize GEMM in phase 1
+FUSED_PROFILE_CALLS = 5
 # timed calls of each kernel benchmark row in phase 8
 KB_ITERS = 5
 _NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
@@ -299,6 +304,11 @@ PORTED = {
                        "mixdq_tpu/ops/pallas_qmatmul.py:263"),
 }
 
+_FUSED_LIBRARY = ("torch._int_mm on the codes quantized before the timed "
+                  "region: the int32 product without the quantize and the "
+                  "epilogue, w row-major as stored (library_ms) and a "
+                  "K-major copy (library_kmajor_ms); quantize_qmatmul_ms: "
+                  "the act-quantize then the qmatmul kernel")
 # what library_ms times, where a kernel has one
 LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
                       "product without the epilogue, w row-major [K, N] as "
@@ -313,12 +323,8 @@ LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
                          "bf16 before the timed region",
            "wq_matmul": "torch.matmul(x, w) on the weight dequantized to "
                         "bf16 before the timed region",
-           "qmatmul_fused": "torch._int_mm on the codes quantized before "
-                            "the timed region: the int32 product without "
-                            "the quantize and the epilogue",
-           "qmatmul_fused2": "torch._int_mm on the codes quantized before "
-                             "the timed region: the int32 product without "
-                             "the quantize and the epilogue"}
+           "qmatmul_fused": _FUSED_LIBRARY,
+           "qmatmul_fused2": _FUSED_LIBRARY}
 
 
 def log(*a):
@@ -367,9 +373,10 @@ def codes_err(torch, got, want, what="codes"):
 
 
 def exact_err(torch, got, want):
-    """The int8 GEMMs (``qmatmul``, ``qconv2d``) against their plain
-    versions: equal bit for bit (exact int32 sums in any split and order,
-    then the same f32 steps)."""
+    """The int8 GEMMs on the shared mainloop (``qmatmul``, ``qconv2d``,
+    ``qmatmul_fused``, ``qmatmul_fused2``) against their plain versions:
+    equal bit for bit (exact int32 sums in any split and order, then the
+    same f32 steps)."""
     if got.dtype != want.dtype or not torch.equal(got, want):
         raise AssertionError(f"int8 GEMM differs: max "
                              f"{(got.float() - want.float()).abs().max()}")
@@ -510,27 +517,46 @@ def kernel_cases(torch, dev):
                       (lambda x=x, w=wk: torch._int_mm(x, w)) if M > 16
                       else None))
     # the fused act-quantize GEMMs at the kernel benchmark's shapes, ff.net.2
-    # of SDXL 1024's 32x32 level first, and a ragged one (scalar loads,
-    # masked tails); library: torch._int_mm on the codes, the product alone
+    # of SDXL 1024's 32x32 level first, the ragged one (scalar loads,
+    # masked tails), K % 128 != 0, M = 1, a bf16 column slice of x (rows
+    # unaligned, read in place), f32 output and K = 16384; both equal the
+    # plain version bit for bit. Library: torch._int_mm on the codes
+    # quantized beforehand (the product alone), w row-major as stored and a
+    # K-major copy; chain: the act-quantize then the qmatmul kernel
     for name in ("qmatmul_fused", "qmatmul_fused2"):
-        for M, K, N in [(1024, 5120, 1280), (4096, 640, 640),
-                        (1024, 1280, 1280), (1024, 1280, 5120),
-                        (48, 300, 130)]:
-            x, w = randn(M, K, dtype=bf16), codes(K, N)
+        for M, K, N, xcol, odt in [
+                (1024, 5120, 1280, 0, bf16), (4096, 640, 640, 0, bf16),
+                (1024, 1280, 1280, 0, bf16), (1024, 1280, 5120, 0, bf16),
+                (48, 300, 130, 0, bf16), (200, 1000, 384, 0, bf16),
+                (1, 1280, 1280, 0, bf16), (256, 1280, 640, 3, bf16),
+                (1024, 5120, 1280, 0, torch.float32),
+                (64, 16384, 128, 0, bf16)]:
+            x = randn(M, K + xcol, dtype=bf16)[:, xcol:]
+            w = codes(K, N)
+            wk = w.t().contiguous().t()  # [K, N], K-major
             scale = (torch.rand(N, generator=g, device=dev) + 0.5) * 1e-5
             bias0 = -3.0 * w.int().sum(0).float()
-            args = (x, w, 10.0, -3.0, scale, bias0)
+            args = (x, w, 10.0, -3.0, scale, bias0, odt)
             xq = qops.quantize_per_tensor(x, 10.0, -3.0)
+            plan = qmatmul.qmm_plan(M, K, N, sms)
+            grid = (f", grid {qmatmul.fused2_grid(plan, 1, sms)} at one "
+                    "block an SM" if name == "qmatmul_fused2" else "")
+            lib_ok = M > 16 and K % 8 == 0 and N % 8 == 0
             cases.append((
-                name, f"M={M} K={K} N={N}",
+                name, f"M={M} K={K} N={N}"
+                + (f" x[:, {xcol}:] slice" if xcol else "")
+                + (" f32 out" if odt == torch.float32 else "")
+                + plan_label(plan) + grid,
                 lambda f=getattr(qmatmul, name), a=args: f(*a),
                 lambda a=args: qmatmul.qmatmul_fused_plain(*a),
-                lambda torch, got, want, c=scale * w.abs().amax(0).float():
-                    fused_err(torch, got, want, c),
-                2 * M * K + K * N + 8 * N + 2 * M * N,
+                exact_err,
+                2 * M * K + K * N + 8 * N + odt.itemsize * M * N,
                 [(2 * M * K * N, INT8_OPS_PER_S), (4 * M * K, F32_OPS_PER_S)],
-                (lambda xq=xq, w=w: torch._int_mm(xq, w))
-                if M > 16 and K % 8 == 0 and N % 8 == 0 else None))
+                (lambda xq=xq, w=w: torch._int_mm(xq, w)) if lib_ok else None,
+                (lambda xq=xq, w=wk: torch._int_mm(xq, w)) if lib_ok else None,
+                lambda a=args: qmatmul.qmatmul(
+                    qops.quantize_per_tensor(a[0], 10.0, -3.0), a[1], a[4],
+                    a[5], out_dtype=a[6])))
     # attn1 / attn2 at the 32x32 (T=1024, C=640, 10 heads) and 16x16
     # (T=256, C=1280, 20 heads) levels, d=64, Tk=77
     for T, heads in [(1024, 10), (256, 20)]:
@@ -889,28 +915,70 @@ def phase_kernels(torch, dev, flush):
     report = {}
     for name, label, fn, plain, cmp, nbytes, ops, lib, *more in \
             kernel_cases(torch, dev):
-        lib_kmajor = more[0] if more else None  # qmatmul: w K-major
+        # qmatmul and the fused GEMMs: w K-major; the fused GEMMs: the
+        # act-quantize then qmatmul
+        lib_kmajor, chain = (list(more) + [None, None])[:2]
         got = fn()
         want = plain()
         torch.cuda.synchronize()
         err = cmp(torch, got, want)
         k_ms = time_ms(torch, fn, 20, flush)
         p_ms = time_ms(torch, plain, 3, flush)
-        l_ms = None if lib is None else time_ms(torch, lib, 20, flush)
-        lk_ms = (None if lib_kmajor is None
-                 else time_ms(torch, lib_kmajor, 20, flush))
+        l_ms, lk_ms, c_ms = (None if f is None else time_ms(torch, f, 20,
+                                                            flush)
+                             for f in (lib, lib_kmajor, chain))
         b_ms, b_by = bound(nbytes, ops)
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
             f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
             + ("" if lk_ms is None else f" library_kmajor_ms={lk_ms:.4f}")
+            + ("" if c_ms is None else f" quantize_qmatmul_ms={c_ms:.4f}")
             + f" launches/step {({p: c[name] for p, c in per_step.items()})}")
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
                                 bound_ms=b_ms, bound_by=b_by,
-                                library_ms=l_ms, library_kmajor_ms=lk_ms))
+                                library_ms=l_ms, library_kmajor_ms=lk_ms,
+                                quantize_qmatmul_ms=c_ms))
     return report
+
+
+def fused_one_kernel(torch, dev):
+    """Each fused act-quantize GEMM at M=1024 K=5120 N=1280 (bf16 x, as
+    the kernel benchmark gives it) under torch.profiler: exactly one
+    device kernel per call, its own (no quantize, cast, reduce or memset
+    kernel beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixdq_tpu_torch.ops import qmatmul
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    M, K, N = 1024, 5120, 1280
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    args = (x, w, 10.0, -3.0, torch.full((N,), 1e-5, device=dev),
+            -3.0 * w.int().sum(0).float())
+    for name in ("qmatmul_fused", "qmatmul_fused2"):
+        fn = getattr(qmatmul, name)
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(FUSED_PROFILE_CALLS):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and (getattr(e, "device_time_total", None)
+                        or getattr(e, "cuda_time_total", 0))}
+        log(f"profile {name} M={M} K={K} N={N}, {FUSED_PROFILE_CALLS} "
+            f"calls: device kernels {kernels}")
+        if (len(kernels) != 1
+                or list(kernels.values()) != [FUSED_PROFILE_CALLS]
+                or f"{name}_kernel" not in next(iter(kernels))):
+            raise AssertionError(f"{name}: expected one {name}_kernel per "
+                                 f"call, profiled {kernels}")
 
 
 def to_device(qparams, dev):
@@ -2114,6 +2182,7 @@ def main():
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     report = phase_kernels(torch, dev, flush)
     del flush
+    fused_one_kernel(torch, dev)
     log("phase 1: every kernel matches its plain version")
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
@@ -2166,8 +2235,9 @@ def main():
         first, extra = r["shapes"][0], {}
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
-        if first["library_kmajor_ms"] is not None:
-            extra["library_kmajor_ms"] = first["library_kmajor_ms"]
+        for key in ("library_kmajor_ms", "quantize_qmatmul_ms"):
+            if first[key] is not None:
+                extra[key] = first[key]
         # the main path a kernel runs on: the SDXL-Turbo headline, else the
         # weight-only pallas_dequant step, else SDXL 1024 under auto, else
         # the path of its kernel option, else the kernel benchmark

@@ -1,9 +1,13 @@
 // Pipelined int8 GEMM mainloop with split-K in one launch, shared by the
-// dense GEMM (qmatmul.cu) and the implicit-GEMM convolution (qconv.cu).
+// dense GEMM (qmatmul.cu), the implicit-GEMM convolution (qconv.cu) and
+// the fused act-quantize GEMMs (qmatmul_fused.cu).
 //
 // C [M, N] = A [M, Kdim] x B [Kdim, N] in int32, A int8 codes behind a
-// loader (row-major codes, or the im2col view of an NHWC image), B the
+// loader (row-major codes: DenseA; the im2col view of an NHWC image:
+// ConvA; bf16 activations quantized on their way in: QuantA), B the
 // row-major int8 weight as deployed (HWIO for a conv is [kh kw C, K]).
+// run_tile computes one output tile (a persistent grid walks several);
+// run_block the tile at the block's place in the grid.
 //
 // Tiles. A block of 8 warps (2 x 4) owns a 128 x 128 output tile; each
 // warp 64 rows x 32 columns (4 x 4 mma.sync m16n8k32 s8 tiles). Warps
@@ -265,6 +269,154 @@ struct ConvA {
   }
 };
 
+// 1.5 * 2^23: for |t| <= 2^22, fl(t + QMAGIC) = QMAGIC + rint(t) (ties to
+// even, as rintf), exact, the integer in the low mantissa bits.
+constexpr float QMAGIC = 12582912.f;
+
+// The per-tensor act quantizer's codes of 8 bf16 values (one 16-byte
+// load; the bf16 -> f32 widening is exact), quant_code's result bit for
+// bit. zint (zp integer-valued, |zp| <= 2^21): in QMAGIC's range,
+// u = clip(fl(fl(t + QMAGIC) + zp), QMAGIC - 128, QMAGIC + 127), t =
+// fl(y sinv), holds QMAGIC + the code exactly, its low byte the code; past
+// |t| = 2^22 u lies beyond the same clip bound as quant_code's value, and
+// NaN clips low in both. Five f32 instructions an element against
+// quant_code's rint and int conversions, which run at a fraction of the
+// f32 rate. Any other zp takes quant_code.
+__device__ __forceinline__ uint2 quant8_bf16(const uint4& v, float sinv,
+                                             float zp, bool zint) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t c[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t u = w[2 * h + j / 2];
+      const float y = __uint_as_float(j % 2 ? u & 0xffff0000u : u << 16);
+      if (zint) {
+        float m = __fadd_rn(__fadd_rn(__fmul_rn(y, sinv), QMAGIC), zp);
+        m = fminf(fmaxf(m, QMAGIC - 128.f), QMAGIC + 127.f);
+        q[j] = __float_as_uint(m);
+      } else {
+        q[j] = static_cast<uint32_t>(quant_code(y, sinv, zp, -128.f, 127.f));
+      }
+    }
+    c[h] = __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                       __byte_perm(q[2], q[3], 0x0040), 0x5410);
+  }
+  return make_uint2(c[0], c[1]);
+}
+
+// zp qualifies for quant8_bf16's f32 path.
+inline bool zp_integral(float zp) {
+  return zp == rintf(zp) && fabsf(zp) <= 2097152.f;
+}
+
+// 8 bf16 values at src of which the first n are in range (zeros past
+// them): one 16-byte load when vec and n >= 8.
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* src, int n,
+                                            bool vec) {
+  if (vec) return n >= 8 ? __ldg(reinterpret_cast<const uint4*>(src))
+                         : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    e[j] = j < n ? reinterpret_cast<const uint16_t*>(src)[j] : 0u;
+  return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,
+                    e[6] | e[7] << 16);
+}
+
+// The quantizing ring (qmatmul_fused): QSTAGES stages of the bf16 x tile
+// of a step (128 rows x 128 k, 32 KB) and its B tile, and two A stages of
+// codes (16 KB each) that the products read.
+constexpr int X_BYTES = 2 * BM * BK;
+constexpr int QSTAGE = X_BYTES + B_BYTES;
+constexpr int QSTAGES = 4;
+constexpr int QSMEM = QSTAGES * QSTAGE + 2 * A_BYTES;
+static_assert(QSMEM <= 232448, "quantizing ring exceeds a block's 227 KB");
+
+// Byte offset of 16-byte chunk c (0..15, 8 bf16) of row r in an x stage:
+// rows of 256 bytes, chunks XOR-swizzled by r % 2, so the quarter-warp of
+// quantize_stage's 16-byte loads (2 rows, 4 chunks apart) hits 32 banks.
+__device__ __forceinline__ int x_off(int r, int c) {
+  return r * 2 * BK + ((c ^ (r & 1)) << 4);
+}
+
+// Raw bf16 activations x [M, K] (rows of stride ldx) as the A operand
+// (qmatmul_fused). issue() copies the step's x tile into an x stage
+// (cp.async 16-byte copies when `vec`, FAST: known to hold, which needs
+// ldx and K multiples of 8 and x on 16 bytes; byte-exact loads and 16-byte
+// shared stores otherwise); quantize_stage() turns a landed x stage into
+// an A stage of codes, this thread's share being DenseA's (rows t / 4 and
+// t / 4 + 64, 16-code chunks t % 4 and t % 4 + 4). Values at or past
+// k_end and rows past M read 0: their codes meet zero weight rows or rows
+// that are not stored.
+template <bool FAST>
+struct QuantA {
+  const __nv_bfloat16* x;
+  int M, ldx;
+  float sinv, zp;
+  bool zint;  // zp_integral(zp)
+  bool vec;
+  int m0;
+
+  __device__ __forceinline__ void init(int m0_) { m0 = m0_; }
+
+  // 128 rows x 16 chunks: thread t takes chunk t % 16 of rows t / 16 +
+  // 16 i, i < 8
+  __device__ __forceinline__ void issue(uint32_t xs, int k0,
+                                        int k_end) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (threadIdx.x >> 4) + 16 * i, c = threadIdx.x & 15;
+      const int m = m0 + r, k = k0 + 8 * c;
+      const __nv_bfloat16* src = x + static_cast<size_t>(m) * ldx + k;
+      if (FAST || vec) {
+        const bool ok = m < M && k < k_end;
+        cp_async16(xs + x_off(r, c), ok ? src : x, ok);
+      } else {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m < M) v = load8_bf16(src, k_end - k, false);
+        Chunk16 u;
+        u.v = make_int4(static_cast<int>(v.x), static_cast<int>(v.y),
+                        static_cast<int>(v.z), static_cast<int>(v.w));
+        st_shared16(xs + x_off(r, c), u);
+      }
+    }
+  }
+
+  // x stage (generic pointer) -> A stage of codes at shared address `as`
+  __device__ __forceinline__ void quantize_stage(const unsigned char* xs,
+                                                 uint32_t as) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = (threadIdx.x >> 2) + j * (BM / 2);
+        const int c = (threadIdx.x & 3) + 4 * h;
+        const uint2 lo = quant8_bf16(
+            *reinterpret_cast<const uint4*>(xs + x_off(r, 2 * c)), sinv, zp,
+            zint);
+        const uint2 hi = quant8_bf16(
+            *reinterpret_cast<const uint4*>(xs + x_off(r, 2 * c + 1)), sinv,
+            zp, zint);
+        Chunk16 u;
+        u.v = make_int4(static_cast<int>(lo.x), static_cast<int>(lo.y),
+                        static_cast<int>(hi.x), static_cast<int>(hi.y));
+        st_shared16(as + a_off(r, c), u);
+      }
+  }
+};
+
+template <class ALoad>
+struct IsQuantA {
+  static constexpr bool value = false;
+};
+template <bool FAST>
+struct IsQuantA<QuantA<FAST>> {
+  static constexpr bool value = true;
+};
+
 // 4 x 4 byte transpose: in w[r] byte i = (row r, col i); out[i] byte r.
 __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
                                              uint32_t (&o)[4]) {
@@ -371,6 +523,68 @@ __device__ __forceinline__ void mainloop(ALoad& a, const BSrc& b,
                  bcol, mtiles);
       mma_frags(f, mtiles, acc);
     }
+  }
+  cp_async_wait<0>();
+}
+
+// mainloop's work over the quantizing ring (QuantA): step i's x and B
+// tiles land in x stage i % QSTAGES; step i is multiplied from code stage
+// i % 2, then step i + 1's landed x tile is quantized into code stage
+// (i + 1) % 2 (after the products: 2-3% faster than before them on an
+// H100); copies run up to three steps ahead. One barrier a step: it
+// publishes step i's codes and frees step i - 1's stages.
+template <bool FAST>
+__device__ __forceinline__ void mainloop_quant(const QuantA<FAST>& a,
+                                               const BSrc& b, int n0,
+                                               int k_begin, int k_end,
+                                               unsigned char* smem, int wm,
+                                               int wn, int mtiles,
+                                               bool nlive,
+                                               int (&acc)[4][4][4]) {
+  const uint32_t base = smem_addr(smem);
+  const uint32_t codes = base + QSTAGES * QSTAGE;
+  const int steps = (k_end - k_begin + BK - 1) / BK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool live = nlive && mtiles > 0;
+  const uint32_t bcol =
+      ((((wn >> 4) + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  auto issue = [&](int step) {
+    const uint32_t st = base + (step % QSTAGES) * QSTAGE;
+    a.issue(st, k_begin + step * BK, k_end);
+    issue_b<FAST>(st + X_BYTES, b, k_begin + step * BK, k_end, n0);
+  };
+  auto quantize = [&](int step) {
+    a.quantize_stage(smem + (step % QSTAGES) * QSTAGE,
+                     codes + (step & 1) * A_BYTES);
+  };
+#pragma unroll
+  for (int s = 0; s < QSTAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  cp_async_wait<QSTAGES - 2>();  // step 0 landed
+  __syncthreads();
+  if (steps > 0) quantize(0);
+  Frags f;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<QSTAGES - 3>();
+    // step i + 1 landed, step i's codes are written, and every warp is
+    // done with step i - 1's stages
+    __syncthreads();
+    if (i + QSTAGES - 1 < steps) issue(i + QSTAGES - 1);
+    cp_async_commit();
+    if (live) {
+      // load_frags reads B at stage + A_BYTES
+      const unsigned char* bstage =
+          smem + (i % QSTAGES) * QSTAGE + X_BYTES - A_BYTES;
+#pragma unroll
+      for (int s = 0; s < BK / 32; ++s) {
+        load_frags(f, codes + (i & 1) * A_BYTES, bstage, 32 * s, wm, bcol,
+                   mtiles);
+        mma_frags(f, mtiles, acc);
+      }
+    }
+    if (i + 1 < steps) quantize(i + 1);
   }
   cp_async_wait<0>();
 }
@@ -494,10 +708,13 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
 }
 
 // out = T(((f32(acc) - bias0) * scale + bias + ebias[b]) + res), each
-// step rounded as the plain version rounds it. Thread (g, t) of the warp
-// at (wm, wn) holds rows wm + 16 mi + g (+8) and columns wn + 8t .. +8:
-// column j < 4 in acc[mi][j][0 / 2], j >= 4 in acc[mi][j - 4][1 / 3].
-template <typename T>
+// step rounded as the plain version rounds it; INT_BIAS0 (the fused
+// act-quantize GEMMs, which take no bias, ebias or res): out = T(f32(acc
+// - int32(bias0)) * scale), bias0 truncated and subtracted in int32.
+// Thread (g, t) of the warp at (wm, wn) holds rows wm + 16 mi + g (+8)
+// and columns wn + 8t .. +8: column j < 4 in acc[mi][j][0 / 2], j >= 4
+// in acc[mi][j - 4][1 / 3].
+template <typename T, bool INT_BIAS0 = false>
 __device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
                                          int wm, int wn, int mtiles,
                                          const int (&acc)[4][4][4]) {
@@ -537,6 +754,10 @@ __device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int v = j < 4 ? acc[mi][j][2 * h] : acc[mi][j - 4][2 * h + 1];
+        if constexpr (INT_BIAS0) {
+          y[j] = __fmul_rn(__int2float_rn(v - __float2int_rz(b0[j])), sc[j]);
+          continue;
+        }
         float yy = __fmul_rn(__fsub_rn(__int2float_rn(v), b0[j]), sc[j]);
         if (e.bias) yy = __fadd_rn(yy, bi[j]);
         if (e.ebias && j < ncols)
@@ -553,30 +774,46 @@ __device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
   }
 }
 
-// The whole block: mainloop over this split's k range, split-K reduction,
-// epilogue. Grid: x = column tiles, y = row tiles, z = splits.
-template <typename T, bool FAST, class ALoad>
-__device__ __forceinline__ void run_block(ALoad& a, const BSrc& b,
-                                          const EpiArgs& e, int Kdim,
-                                          int split_k, int* ws,
-                                          unsigned* counters) {
+// One output tile (rows m0.., columns n0..; `tile` its split-K counter)
+// over split `split` of `splits`: mainloop over this split's k range,
+// split-K reduction, epilogue. Every thread of the block calls it.
+template <typename T, bool FAST, bool INT_BIAS0, class ALoad>
+__device__ __forceinline__ void run_tile(ALoad& a, const BSrc& b,
+                                         const EpiArgs& e, int Kdim, int m0,
+                                         int n0, int tile, int split,
+                                         int splits, int split_k, int* ws,
+                                         unsigned* counters) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int split = blockIdx.z, splits = gridDim.z;
   const int k_begin = split * split_k;
   const int k_end = min(Kdim, k_begin + split_k);
   const int mtiles = max(0, min(4, (e.M - m0 - wm + 15) / 16));
   const bool nlive = n0 + wn < e.N;
   int acc[4][4][4] = {};
-  mainloop<FAST>(a, b, n0, k_begin, k_end, smem, wm, wn, mtiles, nlive,
-                 acc);
+  if constexpr (IsQuantA<ALoad>::value)
+    mainloop_quant<FAST>(a, b, n0, k_begin, k_end, smem, wm, wn, mtiles,
+                         nlive, acc);
+  else
+    mainloop<FAST>(a, b, n0, k_begin, k_end, smem, wm, wn, mtiles, nlive,
+                   acc);
   if (splits > 1 &&
-      !reduce_splits(ws, counters, blockIdx.y * gridDim.x + blockIdx.x,
-                        split, splits, mtiles, nlive, acc))
+      !reduce_splits(ws, counters, tile, split, splits, mtiles, nlive, acc))
     return;
-  if (nlive) epilogue<T>(e, m0, n0, wm, wn, mtiles, acc);
+  if (nlive) epilogue<T, INT_BIAS0>(e, m0, n0, wm, wn, mtiles, acc);
+}
+
+// The whole block: run_tile at the block's place. Grid: x = column tiles,
+// y = row tiles, z = splits.
+template <typename T, bool FAST, bool INT_BIAS0 = false, class ALoad>
+__device__ __forceinline__ void run_block(ALoad& a, const BSrc& b,
+                                          const EpiArgs& e, int Kdim,
+                                          int split_k, int* ws,
+                                          unsigned* counters) {
+  run_tile<T, FAST, INT_BIAS0>(a, b, e, Kdim, blockIdx.y * BM,
+                               blockIdx.x * BN,
+                               blockIdx.y * gridDim.x + blockIdx.x,
+                               blockIdx.z, gridDim.z, split_k, ws, counters);
 }
 
 // The plan passed from Python (ops/qmatmul.py:qmm_plan) must be this
@@ -598,12 +835,12 @@ inline int b_mode(const int8_t* w, int N) {
                                                              : B_COPY1;
 }
 
-// The ring's dynamic shared memory and the largest carveout, once per
-// kernel.
+// The ring's dynamic shared memory (SMEM, or QSMEM for the quantizing
+// ring) and the largest carveout, once per kernel.
 template <typename Kern>
-cudaError_t set_smem(Kern kernel) {
+cudaError_t set_smem(Kern kernel, int bytes = SMEM) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -3,264 +3,282 @@
 //
 // Replace mixdq_tpu/ops/pallas_qmatmul.py:qmatmul_fused (pallas_call at
 // :760, body _fused_kernel :135) and :qmatmul_fused2 (pallas_call :263,
-// body _fused2_kernel :161). Both compute, for bf16 x [M, K] (the wrapper
-// casts first, as the JAX wrappers do), s8 weights w [K, N] and f32 [N]
-// scale / bias0:
+// body _fused2_kernel :161). Both compute, for bf16 x [M, K] (rows of
+// stride ldx; the wrapper casts other dtypes first, as the JAX wrappers
+// do), s8 weights w [K, N] and f32 [N] scale / bias0:
 //
 //   codes = clip(rint(f32(x) * scale_inv) + zp_shifted, -128, 127)   s8
 //   acc   = codes @ w                                                s32
 //   out   = f32(acc - int32(bias0)) * scale          -> bf16 or f32 [M, N]
 //
 // bias0 is truncated to int32 and subtracted in int32, as the Pallas
-// kernels do (qmatmul.cu subtracts in f32). K tails take zero codes
-// against the zero weight rows load_b reads there, which add 0, where JAX
-// pads x with zeros (code zp_shifted) against zero rows of w.
+// kernels do (qmatmul.cu subtracts in f32). The codes of K tails meet the
+// zero weight rows the B loader reads at or past K, which add 0, where
+// JAX pads x with zeros against zero rows of w. The int32 sums are exact
+// in any split and order, so both kernels equal the plain version
+// (ops/qmatmul.py:qmatmul_fused_plain) bit for bit.
 //
-// qmatmul_fused keeps the TPU kernel's schedule: one 64x64 output tile
-// per 128-thread block (mma_s8.cuh:gemm_tile_a) whose A loader reads the
-// bf16 x tile (64 rows x 32 k, 4 KB) and quantizes it in registers on its
-// way to shared memory. So every (m, n) tile quantizes its rows again at
-// every k step, N / 64 times per element (20 times at N = 1280): the
-// reason the TPU kernel ran 3x slower in the model (DESIGN_NOTES.md:120).
+// Both run the int8 mainloop of igemm_s8.cuh (128 x 128 tiles of 8 warps,
+// a 4-stage cp.async ring of 128-byte k steps, B kept [k][n] and
+// transposed in registers, split-K planned by ops/qmatmul.py:qmm_plan and
+// reduced by each tile's last block in the same launch) with its
+// INT_BIAS0 epilogue.
 //
-// qmatmul_fused2 quantizes once per M tile. A block owns RM = 32 rows
-// (16 where K is too long for 32 rows of codes: above K = 7040), quantizes
-// x[RM, K] once into s8 codes resident in dynamic shared memory (rows of
-// K rounded up to 128, plus 16 bytes, so a warp's fragment loads hit 32
-// distinct banks), then walks N tiles of 128 columns, streaming 32 k x
-// 128 n weight tiles through shared memory into mma.sync, a warp per 32
-// columns. At K = 5120 the codes take 160 KB of the 227 KB a block may
-// have. With 32-row tiles M = 1024 gives only 32 M tiles for 132 SMs, so
-// the N tiles of an M tile are split over as many blocks as fill the card
-// once (at the blocks per SM that fit), and each of those quantizes its
-// rows again (x is read again, from L2): more blocks in flight for more
-// quantize work. Tuning that split is later work.
+// qmatmul_fused keeps the TPU kernel's schedule, quantizing in every
+// output tile: its A loader (igemm::QuantA) copies each step's 128 x 128
+// bf16 x tile with cp.async into a ring stage beside the B tile (4 x 48
+// KB), and the block quantizes the next step's landed x tile shared ->
+// shared into one of two code stages while it multiplies the current
+// one (igemm::mainloop_quant; 224 KB of shared memory). Each x element is
+// quantized N / 128 times (10 at N = 1280) and x read as often from L2.
+//
+// qmatmul_fused2 quantizes each element once per call (the TPU v2
+// kernel's point), in one cooperative launch of two phases: the grid
+// quantizes x in a grid stride into an int8 codes workspace [M, ldc]
+// (ldc = K rounded up to 16; 5.2 MB at 1024 x 5120, resident in the 50 MB
+// L2), then, after a grid sync, the blocks walk the plan's (tile, split)
+// items in a grid stride through the mainloop's dense A loader. The grid
+// (ops/qmatmul.py:fused2_grid) holds no more blocks than the card holds
+// at once, and no block waits on another but at the grid sync, so no K
+// and no shape can deadlock it; K is not limited.
 //
 // Bound at M=1024 K=5120 N=1280 (ff.net.2 at SDXL 1024's 32x32 level):
 // 13.4 G int8 operations, ~6.8 us at 1,979 TOP/s; 19.7 MB in and out,
 // ~5.9 us at 3.35 TB/s.
 
-#include "mma_s8.cuh"
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "igemm_s8.cuh"
 
 using namespace mixdq;
+using igemm::BSrc;
+using igemm::EpiArgs;
+namespace cg = cooperative_groups;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BN2 = 128;          // columns per N tile of qmatmul_fused2
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(igemm::NT, 1)
+    qmatmul_fused_kernel(igemm::QuantA<FAST> a, BSrc b, EpiArgs e, int K,
+                         int split_k, int* ws, unsigned* counters) {
+  a.init(blockIdx.y * igemm::BM);
+  igemm::run_block<T, FAST, true>(a, b, e, K, split_k, ws, counters);
+}
 
-union Codes8 {
-  uint2 v;
-  int8_t s[8];
-};
-
-// The codes of the 8 bf16 values at src, of which the first n are in
-// range (zero codes past them), with one 16-byte load when vec and n >= 8.
-__device__ __forceinline__ uint2 quant8(const bf16* src, int n, bool vec,
-                                        float sinv, float zp) {
-  Codes8 c;
-  c.v = make_uint2(0u, 0u);
-  if (vec && n >= 8) {
-    const int4 raw = *reinterpret_cast<const int4*>(src);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+// Phase 1 of qmatmul_fused2: x [M, K] (rows of stride ldx) -> codes
+// [M, ldc], 8 codes an item, items row-major in a grid stride, four
+// items' loads in flight a thread. Codes at or past K are those of 0.
+__device__ __forceinline__ void quantize_rows(const bf16* __restrict__ x,
+                                              int ldx, int M, int K,
+                                              int8_t* __restrict__ codes,
+                                              int ldc, float sinv, float zp,
+                                              bool zint, bool xvec) {
+  const int per_row = ldc / 8;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  // a row-major cursor (r, c) advanced by the stride without division
+  int r = static_cast<int>(first / per_row);
+  int c = static_cast<int>(first % per_row);
+  const int dr = static_cast<int>(stride / per_row);
+  const int dc = static_cast<int>(stride % per_row);
+  while (r < M) {
+    uint4 v[4];
+    int rr[4], cc[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      c.s[j] = quant_code(__bfloat162float(e[j]), sinv, zp, -128.f, 127.f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (j < n)
-        c.s[j] = quant_code(__bfloat162float(src[j]), sinv, zp, -128.f,
-                            127.f);
-  }
-  return c.v;
-}
-
-// load_a's share of a 64-row A tile (row m0 + tid / 2, 16 k from
-// k0 + (tid % 2) * 16), quantized from bf16 x [M, K]; rows >= M and
-// k >= K give zero codes. vec: K % 8 == 0 and x 16-byte aligned.
-__device__ __forceinline__ Chunk16 quant_share(const bf16* __restrict__ x,
-                                               int M, int K, int m0, int k0,
-                                               int tid, bool vec, float sinv,
-                                               float zp) {
-  const int m = m0 + tid / 2, k = k0 + (tid % 2) * 16;
-  Chunk16 u = fill16(0);
-  if (m >= M) return u;
-  const bf16* src = x + static_cast<size_t>(m) * K + k;
-  const uint2 lo = quant8(src, K - k, vec, sinv, zp);
-  const uint2 hi = quant8(src + 8, K - k - 8, vec, sinv, zp);
-  u.v = make_int4(static_cast<int>(lo.x), static_cast<int>(lo.y),
-                  static_cast<int>(hi.x), static_cast<int>(hi.y));
-  return u;
-}
-
-// out[m, n] = f32(acc - int32(bias0[n])) * scale[n], in range only.
-template <typename T>
-__device__ __forceinline__ void store_out(T* out, const float* scale,
-                                          const float* bias0, int M, int N,
-                                          int m, int n, int acc) {
-  if (m >= M || n >= N) return;
-  const int a = acc - __float2int_rz(bias0[n]);
-  store_f32(out + static_cast<size_t>(m) * N + n,
-            __fmul_rn(__int2float_rn(a), scale[n]));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    qmatmul_fused_kernel(const bf16* __restrict__ x,
-                         const int8_t* __restrict__ w,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias0, T* __restrict__ out,
-                         int M, int K, int N, float sinv, float zp, bool xvec,
-                         bool bvec) {
-  __shared__ __align__(16) int8_t As[BM][LDS];
-  __shared__ __align__(16) int8_t Bs[BN][LDS];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  gemm_tile_a(
-      [=](int k0) {
-        return quant_share(x, M, K, m0, k0, threadIdx.x, xvec, sinv, zp);
-      },
-      K, m0, w, N, n0, bvec, As, Bs, [&](int m, int n, int acc) {
-        store_out(out, scale, bias0, M, N, m, n, acc);
-      });
-}
-
-// MI m16 fragments per warp: RM = 16 MI rows per block. Dynamic shared
-// memory: the weight tile Bs [BN2][LDS], then the codes [RM][ldc].
-template <typename T, int MI>
-__global__ void __launch_bounds__(THREADS)
-    qmatmul_fused2_kernel(const bf16* __restrict__ x,
-                          const int8_t* __restrict__ w,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ bias0,
-                          T* __restrict__ out, int M, int K, int N, int ldc,
-                          float sinv, float zp, bool xvec, bool bvec) {
-  constexpr int RM = 16 * MI;
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t(*Bs)[LDS] = reinterpret_cast<int8_t(*)[LDS]>(smem);
-  int8_t* codes = smem + BN2 * LDS;
-  const int tid = threadIdx.x, lane = tid & 31, wn = (tid >> 5) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * RM, per_row = ldc / 8;
-  // the block's rows, quantized once, 8 codes per step
-  for (int i = tid; i < RM * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    uint2 v = make_uint2(0u, 0u);
-    if (m0 + r < M)
-      v = quant8(x + static_cast<size_t>(m0 + r) * K + c, K - c, xvec, sinv,
-                 zp);
-    *reinterpret_cast<uint2*>(codes + r * ldc + c) = v;
-  }
-  __syncthreads();
-  for (int n0 = blockIdx.y * BN2; n0 < N; n0 += gridDim.y * BN2) {
-    int acc[MI][4][4] = {};
-    Chunk16 rb0 = load_b(w, N, 0, N, K, 0, n0, tid, bvec);
-    Chunk16 rb1 = load_b(w, N, 0, N, K, 0, n0 + 64, tid, bvec);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      store_b(Bs, rb0, tid);
-      store_b(Bs + 64, rb1, tid);
-      __syncthreads();
-      if (k0 + BK < K) {
-        rb0 = load_b(w, N, 0, N, K, k0 + BK, n0, tid, bvec);
-        rb1 = load_b(w, N, 0, N, K, k0 + BK, n0 + 64, tid, bvec);
+    for (int u = 0; u < 4; ++u) {
+      rr[u] = r;
+      cc[u] = c;
+      if (r < M)
+        v[u] = igemm::load8_bf16(x + static_cast<size_t>(r) * ldx + 8 * c,
+                                 K - 8 * c, xvec);
+      r += dr;
+      c += dc;
+      if (c >= per_row) {
+        c -= per_row;
+        ++r;
       }
-      int a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int8_t* r0 = codes + (mi * 16 + g) * ldc + k0 + t * 4;
-        const int8_t* r1 = r0 + 8 * ldc;
-        a[mi][0] = *reinterpret_cast<const int*>(r0);
-        a[mi][1] = *reinterpret_cast<const int*>(r1);
-        a[mi][2] = *reinterpret_cast<const int*>(r0 + 16);
-        a[mi][3] = *reinterpret_cast<const int*>(r1 + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* c0 = Bs[wn + ni * 8 + g];
-        const int b[2] = {*reinterpret_cast<const int*>(c0 + t * 4),
-                          *reinterpret_cast<const int*>(c0 + 16 + t * 4)};
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) mma_s8(acc[mi][ni], a[mi], b);
-      }
-      __syncthreads();
     }
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          store_out(out, scale, bias0, M, N, m0 + mi * 16 + g + (r >> 1) * 8,
-                    n0 + wn + ni * 8 + t * 2 + (r & 1), acc[mi][ni][r]);
+    for (int u = 0; u < 4; ++u)
+      if (rr[u] < M)
+        *reinterpret_cast<uint2*>(codes + static_cast<size_t>(rr[u]) * ldc +
+                                  8 * cc[u]) =
+            igemm::quant8_bf16(v[u], sinv, zp, zint);
   }
 }
 
-template <typename T, int MI>
-static int launch_fused2(const bf16* x, const int8_t* w, const float* scale,
-                         const float* bias0, T* out, int M, int K, int N,
-                         int ldc, float sinv, float zp, bool xvec, bool bvec,
-                         cudaStream_t stream) {
-  const int smem = BN2 * LDS + 16 * MI * ldc;
-  cudaError_t e = cudaFuncSetAttribute(
-      qmatmul_fused2_kernel<T, MI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, qmatmul_fused2_kernel<T, MI>, THREADS, smem);
-  const int mt = (M + 16 * MI - 1) / (16 * MI), nt = (N + BN2 - 1) / BN2;
-  const int split = max(1, min(nt, sms * per_sm / max(mt, 1)));
-  qmatmul_fused2_kernel<T, MI><<<dim3(mt, split), THREADS, smem, stream>>>(
-      x, w, scale, bias0, out, M, K, N, ldc, sinv, zp, xvec, bvec);
+struct Fused2Args {
+  const bf16* x;
+  int ldx;
+  int8_t* codes;  // [M, ldc]
+  int ldc, K;
+  float sinv, zp;
+  bool zint, xvec;
+  int split_k, splits;
+  int* ws;
+  unsigned* counters;
+};
+
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(igemm::NT, 1)
+    qmatmul_fused2_kernel(const Fused2Args f, const BSrc b, const EpiArgs e) {
+  quantize_rows(f.x, f.ldx, e.M, f.K, f.codes, f.ldc, f.sinv, f.zp, f.zint,
+                f.xvec);
+  cg::this_grid().sync();
+  const int nt = (e.N + igemm::BN - 1) / igemm::BN;
+  const int tiles = (e.M + igemm::BM - 1) / igemm::BM * nt;
+  igemm::DenseA<FAST> a{f.codes, e.M, f.ldc, true, {nullptr, nullptr}};
+  for (int item = blockIdx.x; item < tiles * f.splits; item += gridDim.x) {
+    const int tile = item % tiles, split = item / tiles;
+    const int m0 = tile / nt * igemm::BM, n0 = tile % nt * igemm::BN;
+    __syncthreads();  // every warp is done with the last item's ring
+    a.init(m0);
+    igemm::run_tile<T, FAST, true>(a, b, e, f.K, m0, n0, tile, split,
+                                   f.splits, f.split_k, f.ws, f.counters);
+  }
+}
+
+// The ring's shared memory, set once per kernel.
+template <typename T, bool FAST>
+static cudaError_t fused_attrs() {
+  static const cudaError_t err =
+      igemm::set_smem(qmatmul_fused_kernel<T, FAST>, igemm::QSMEM);
+  return err;
+}
+template <typename T, bool FAST>
+static cudaError_t fused2_attrs() {
+  static const cudaError_t err =
+      igemm::set_smem(qmatmul_fused2_kernel<T, FAST>);
+  return err;
+}
+
+template <typename T, bool FAST>
+static int fused_launch(const igemm::QuantA<FAST>& a, const BSrc& b,
+                        const EpiArgs& e, int K, int splits, int split_k,
+                        int* ws, unsigned* counters, cudaStream_t stream) {
+  const cudaError_t attrs = fused_attrs<T, FAST>();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  const dim3 grid((e.N + igemm::BN - 1) / igemm::BN,
+                  (e.M + igemm::BM - 1) / igemm::BM, splits);
+  qmatmul_fused_kernel<T, FAST><<<grid, igemm::NT, igemm::QSMEM, stream>>>(
+      a, b, e, K, split_k, ws, counters);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x bf16 [M, K] rows of stride ldx; the 16-byte loads and copies known at
+// compile time (FAST), or chosen at run time.
+template <typename T>
+static int fused(const bf16* x, int ldx, const BSrc& b, const EpiArgs& e,
+                 int K, float sinv, float zp, int splits, int split_k,
+                 int* ws, unsigned* counters, cudaStream_t stream) {
+  const bool xvec = ldx % 8 == 0 && K % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool zint = igemm::zp_integral(zp);
+  if (xvec && b.mode == igemm::B_COPY16) {
+    const igemm::QuantA<true> a{x, e.M, ldx, sinv, zp, zint, true, 0};
+    return fused_launch<T, true>(a, b, e, K, splits, split_k, ws, counters,
+                                 stream);
+  }
+  const igemm::QuantA<false> a{x, e.M, ldx, sinv, zp, zint, xvec, 0};
+  return fused_launch<T, false>(a, b, e, K, splits, split_k, ws, counters,
+                                stream);
+}
+
+template <typename T, bool FAST>
+static int fused2_launch(const Fused2Args& f, const BSrc& b,
+                         const EpiArgs& e, int grid, cudaStream_t stream) {
+  const cudaError_t attrs = fused2_attrs<T, FAST>();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  void* args[] = {const_cast<Fused2Args*>(&f), const_cast<BSrc*>(&b),
+                  const_cast<EpiArgs*>(&e)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(qmatmul_fused2_kernel<T, FAST>), dim3(grid),
+      dim3(igemm::NT), args, igemm::SMEM, stream));
 }
 
 template <typename T>
-static int fused2(const bf16* x, const int8_t* w, const float* scale,
-                  const float* bias0, T* out, int M, int K, int N, float sinv,
-                  float zp, bool xvec, bool bvec, cudaStream_t stream) {
-  const int ldc = (K + 127) / 128 * 128 + 16;
-  if (BN2 * LDS + 32 * ldc <= MAX_SMEM)
-    return launch_fused2<T, 2>(x, w, scale, bias0, out, M, K, N, ldc, sinv,
-                               zp, xvec, bvec, stream);
-  if (BN2 * LDS + 16 * ldc <= MAX_SMEM)
-    return launch_fused2<T, 1>(x, w, scale, bias0, out, M, K, N, ldc, sinv,
-                               zp, xvec, bvec, stream);
-  return static_cast<int>(cudaErrorInvalidValue);  // K above 14,080
+static int fused2(const Fused2Args& f, const BSrc& b, const EpiArgs& e,
+                  int grid, cudaStream_t stream) {
+  return b.mode == igemm::B_COPY16
+             ? fused2_launch<T, true>(f, b, e, grid, stream)
+             : fused2_launch<T, false>(f, b, e, grid, stream);
 }
 
-extern "C" int mixdq_qmatmul_fused(const void* x, const int8_t* w,
+// Blocks of one qmatmul_fused2 instantiation an SM holds at once.
+template <typename T, bool FAST>
+static int fused2_per_sm() {
+  int n = 0;
+  if (fused2_attrs<T, FAST>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, qmatmul_fused2_kernel<T, FAST>, igemm::NT, igemm::SMEM) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+static EpiArgs fused_epi(const float* scale, const float* bias0, void* out,
+                         int M, int N) {
+  return EpiArgs{scale, bias0, nullptr, nullptr, nullptr, out, M, N, 1,
+                 false, false, false};
+}
+
+// x bf16 [M, K] (rows of stride ldx), w [K, N] int8, scale / bias0 [N]
+// f32, out [M, N] bf16 or f32. bm, stages, splits, split_k: the plan of
+// ops/qmatmul.py:qmm_plan; ws: int32 [tiles, splits, 128, 128] and
+// counters: tiles zeroed uint32 when splits > 1.
+extern "C" int mixdq_qmatmul_fused(const void* x, int ldx, const int8_t* w,
                                    const float* scale, const float* bias0,
-                                   void* out, int M, int K, int N, float sinv,
-                                   float zp, int out_bf16,
+                                   void* out, int* ws, unsigned* counters,
+                                   int M, int K, int N, float sinv, float zp,
+                                   int out_bf16, int bm, int stages,
+                                   int splits, int split_k,
                                    cudaStream_t stream) {
+  if (!igemm::plan_ok(bm, stages, splits, split_k, K, ws, counters))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const bool xvec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool bvec = vec16(w, N);
-  if (out_bf16)
-    qmatmul_fused_kernel<bf16><<<grid, THREADS, 0, stream>>>(
-        xb, w, scale, bias0, static_cast<bf16*>(out), M, K, N, sinv, zp, xvec,
-        bvec);
-  else
-    qmatmul_fused_kernel<float><<<grid, THREADS, 0, stream>>>(
-        xb, w, scale, bias0, static_cast<float*>(out), M, K, N, sinv, zp,
-        xvec, bvec);
-  return static_cast<int>(cudaGetLastError());
+  const BSrc b{w, N, igemm::b_mode(w, N)};
+  const EpiArgs e = fused_epi(scale, bias0, out, M, N);
+  return out_bf16 ? fused<bf16>(xb, ldx, b, e, K, sinv, zp, splits, split_k,
+                                ws, counters, stream)
+                  : fused<float>(xb, ldx, b, e, K, sinv, zp, splits, split_k,
+                                 ws, counters, stream);
 }
 
-extern "C" int mixdq_qmatmul_fused2(const void* x, const int8_t* w,
+// As mixdq_qmatmul_fused, with codes: the int8 workspace [M, ldc]
+// (ops/qmatmul.py:fused2_codes_shape; 16-byte rows, ldc >= K) and grid:
+// the cooperative grid (ops/qmatmul.py:fused2_grid), at most the blocks
+// the card holds at once (mixdq_qmatmul_fused2_per_sm per SM).
+extern "C" int mixdq_qmatmul_fused2(const void* x, int ldx, const int8_t* w,
                                     const float* scale, const float* bias0,
-                                    void* out, int M, int K, int N,
-                                    float sinv, float zp, int out_bf16,
+                                    void* out, int8_t* codes, int ldc,
+                                    int* ws, unsigned* counters, int M,
+                                    int K, int N, float sinv, float zp,
+                                    int out_bf16, int bm, int stages,
+                                    int splits, int split_k, int grid,
                                     cudaStream_t stream) {
+  if (!igemm::plan_ok(bm, stages, splits, split_k, K, ws, counters) ||
+      grid < 1 || ldc < K || !vec16(codes, ldc))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
-  const bool xvec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool bvec = vec16(w, N);
-  return out_bf16 ? fused2(xb, w, scale, bias0, static_cast<bf16*>(out), M,
-                           K, N, sinv, zp, xvec, bvec, stream)
-                  : fused2(xb, w, scale, bias0, static_cast<float*>(out), M,
-                           K, N, sinv, zp, xvec, bvec, stream);
+  const Fused2Args f{xb, ldx, codes, ldc, K, sinv, zp,
+                     igemm::zp_integral(zp),
+                     ldx % 8 == 0 && K % 8 == 0 &&
+                         reinterpret_cast<uintptr_t>(x) % 16 == 0,
+                     split_k, splits, ws, counters};
+  const BSrc b{w, N, igemm::b_mode(w, N)};
+  const EpiArgs e = fused_epi(scale, bias0, out, M, N);
+  return out_bf16 ? fused2<bf16>(f, b, e, grid, stream)
+                  : fused2<float>(f, b, e, grid, stream);
+}
+
+// Blocks of qmatmul_fused2 one SM holds at once (the least over its four
+// instantiations), with its ring's shared memory; 0 on an error.
+extern "C" int mixdq_qmatmul_fused2_per_sm(void) {
+  const int n[4] = {fused2_per_sm<bf16, true>(), fused2_per_sm<bf16, false>(),
+                    fused2_per_sm<float, true>(),
+                    fused2_per_sm<float, false>()};
+  return std::min(std::min(n[0], n[1]), std::min(n[2], n[3]));
 }

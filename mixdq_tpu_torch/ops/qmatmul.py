@@ -22,10 +22,12 @@
 * ``qmatmul_fused`` and ``qmatmul_fused2`` (ports of ``qmatmul_fused``
   and ``qmatmul_fused2``): raw activations ``[M, K]``, cast to bf16 and
   act-quantized inside the kernel, times int8 ``[K, N]`` weights, with the
-  epilogue ``f32(acc - int32(bias0)) * scale`` (no layer bias). The
-  first quantizes in every output tile at every K step, the second once
-  per block of rows. No model path calls them; the kernel benchmark
-  (``mixdq_tpu_torch/scripts/kernel_bench.py``) does. Kernels:
+  epilogue ``f32(acc - int32(bias0)) * scale`` (no layer bias). Both run
+  ``qmatmul``'s mainloop under ``qmm_plan``: the first quantizes in every
+  output tile at every K step (its A loader reads bf16 x), the second
+  each element once per call, into a codes workspace, in one cooperative
+  launch (``fused2_grid``). No model path calls them; the kernel
+  benchmark (``mixdq_tpu_torch/scripts/kernel_bench.py``) does. Kernels:
   ``csrc/qmatmul_fused.cu``; plain version (both): ``qmatmul_fused_plain``.
 """
 
@@ -46,9 +48,6 @@ QMATMUL_COUNT = register("qmatmul")
 GEGLU_OUT_COUNT = register("geglu_out_qmatmul")
 FUSED_COUNT = register("qmatmul_fused")
 FUSED2_COUNT = register("qmatmul_fused2")
-#: the longest K whose codes (16 rows) and a weight tile fit in one
-#: block's 227 KB of shared memory (``csrc/qmatmul_fused.cu``)
-FUSED2_MAX_K = 14080
 
 _SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi),
                                      dtype=torch.float32))
@@ -384,9 +383,35 @@ def qmatmul_fused_plain(x, w_int8, scale_inv: float, zp_shifted: float,
     return (acc.float() * scale).to(out_dtype)
 
 
-def _fused(count, entry, x, w_int8, scale_inv, zp_shifted, scale, bias0,
+def fused2_codes_shape(M: int, K: int) -> Tuple[int, int]:
+    """``qmatmul_fused2``'s int8 codes workspace ``[M, ldc]``, ``ldc`` K
+    rounded up to 16 bytes for the mainloop's 16-byte copies (codes past
+    K meet zero weight rows)."""
+    return M, -(-K // 16) * 16
+
+
+def fused2_grid(plan: QmmPlan, per_sm: int, sms: int) -> int:
+    """Blocks of ``qmatmul_fused2``'s cooperative launch: one per (tile,
+    split) item of ``plan`` where the card holds them all at once, else
+    as many as it holds (``per_sm`` blocks on each of ``sms`` SMs); the
+    blocks walk the items in a grid stride. Every block must be resident:
+    the launch syncs the grid once."""
+    if per_sm < 1 or sms < 1:
+        raise ValueError(f"qmatmul_fused2: {per_sm} blocks per SM on {sms} "
+                         "SMs")
+    return min(plan.blocks, per_sm * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused2_per_sm(index: int) -> int:
+    """Blocks of ``qmatmul_fused2`` one SM of device ``index`` holds."""
+    with torch.cuda.device(index):
+        return _fused_lib().mixdq_qmatmul_fused2_per_sm()
+
+
+def _fused(count, x, w_int8, scale_inv, zp_shifted, scale, bias0,
            out_dtype):
-    """One wrapper of the two fused kernels (``entry``: the C function)."""
+    """One wrapper of the two fused kernels."""
     name = count.name
     count.calls += 1
     if not use_kernel(x, w_int8, scale, bias0):
@@ -402,16 +427,33 @@ def _fused(count, entry, x, w_int8, scale_inv, zp_shifted, scale, bias0,
         raise ValueError(f"{name}: scale/bias0 must be f32 [N]")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: out_dtype {out_dtype}")
-    if count is FUSED2_COUNT and K > FUSED2_MAX_K:
-        raise ValueError(f"{name}: K={K} > {FUSED2_MAX_K}")
-    xb = x.to(torch.bfloat16).contiguous()
+    # the kernels read rows of any stride: a bf16 row slice is not copied
+    xb = x.to(torch.bfloat16)
+    if xb.stride(1) != 1 or (M > 1 and xb.stride(0) < K):
+        xb = xb.contiguous()
+    ldx = xb.stride(0) if M > 1 else K
     check_cuda_args(name, w=w_int8, scale=scale, bias0=bias0)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    dev = x.device
+    sms = sm_count(dev.index or 0)
+    plan = qmm_plan(M, K, N, sms)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    ws, counters = igemm_scratch(plan, dev)
     lib = _fused_lib()
     p = _build.ptr
-    err = getattr(lib, entry)(
-        p(xb), p(w_int8), p(scale), p(bias0), p(out), M, K, N, scale_inv,
-        zp_shifted, int(out_dtype == torch.bfloat16), _build.stream(x.device))
+    common = (M, K, N, scale_inv, zp_shifted, int(out_dtype == torch.bfloat16),
+              plan.bm, plan.stages, plan.splits, plan.split_k)
+    if count is FUSED_COUNT:
+        err = lib.mixdq_qmatmul_fused(
+            p(xb), ldx, p(w_int8), p(scale), p(bias0), p(out), p(ws),
+            p(counters), *common, _build.stream(dev))
+    else:
+        codes = torch.empty(fused2_codes_shape(M, K), dtype=torch.int8,
+                            device=dev)
+        grid = fused2_grid(plan, _fused2_per_sm(dev.index or 0), sms)
+        err = lib.mixdq_qmatmul_fused2(
+            p(xb), ldx, p(w_int8), p(scale), p(bias0), p(out), p(codes),
+            codes.shape[1], p(ws), p(counters), *common, grid,
+            _build.stream(dev))
     _build.check(lib, err, name)
     count.launches += 1
     return out
@@ -421,9 +463,14 @@ def _fused_lib():
     lib = _build.load("qmatmul_fused.cu")
     if lib.mixdq_qmatmul_fused.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
-        for f in (lib.mixdq_qmatmul_fused, lib.mixdq_qmatmul_fused2):
-            f.argtypes = [P] * 5 + [I] * 3 + [F] * 2 + [I, P]
-            f.restype = I
+        tail = [I] * 3 + [F] * 2 + [I] * 5
+        lib.mixdq_qmatmul_fused.argtypes = [P, I] + [P] * 6 + tail + [P]
+        lib.mixdq_qmatmul_fused.restype = I
+        lib.mixdq_qmatmul_fused2.argtypes = ([P, I] + [P] * 5 + [I]
+                                             + [P] * 2 + tail + [I, P])
+        lib.mixdq_qmatmul_fused2.restype = I
+        lib.mixdq_qmatmul_fused2_per_sm.argtypes = []
+        lib.mixdq_qmatmul_fused2_per_sm.restype = I
     return lib
 
 
@@ -434,15 +481,16 @@ def qmatmul_fused(x: torch.Tensor, w_int8: torch.Tensor, scale_inv: float,
     ``[K, N]`` -> ``f32(acc - int32(bias0)) * scale`` ``[M, N]`` in
     ``out_dtype`` (bf16 or f32), the codes ``clip(round(x * scale_inv) +
     zp_shifted, -128, 127)`` formed in every output tile."""
-    return _fused(FUSED_COUNT, "mixdq_qmatmul_fused", x, w_int8, scale_inv,
-                  zp_shifted, scale, bias0, out_dtype)
+    return _fused(FUSED_COUNT, x, w_int8, scale_inv, zp_shifted, scale,
+                  bias0, out_dtype)
 
 
 def qmatmul_fused2(x: torch.Tensor, w_int8: torch.Tensor, scale_inv: float,
                    zp_shifted: float, scale: torch.Tensor,
                    bias0: torch.Tensor,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``qmatmul_fused``'s function, the codes formed once per block of
-    rows and kept in shared memory (K up to ``FUSED2_MAX_K``)."""
-    return _fused(FUSED2_COUNT, "mixdq_qmatmul_fused2", x, w_int8, scale_inv,
-                  zp_shifted, scale, bias0, out_dtype)
+    """``qmatmul_fused``'s function, each element quantized once per call
+    into a codes workspace (``fused2_codes_shape``) that the same launch
+    then multiplies; any K."""
+    return _fused(FUSED2_COUNT, x, w_int8, scale_inv, zp_shifted, scale,
+                  bias0, out_dtype)

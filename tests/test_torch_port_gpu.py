@@ -8,8 +8,8 @@ imports torch only, so it also runs where JAX is not installed:
 Tolerances: int8 codes max |diff| <= 1 on under 1% of elements; float
 outputs rtol 1e-3 / atol 1e-2 (the same integer sums, f32 epilogues that
 round at the same steps; bf16 outputs may differ by one bf16 ulp); the
-fused act-quantize GEMMs the same but for < 1% of entries, each within
-one code's worth of its column (``chip_smoke.fused_err``).
+int8 GEMMs on the shared mainloop (``qmatmul``, ``qconv2d``, and the
+fused act-quantize GEMMs) equal bit for bit (``chip_smoke.exact_err``).
 """
 
 import pytest
@@ -541,18 +541,25 @@ def test_int8_flash_kernels(dev, name, B, Tq, Tk, heads, d, dtype,
 
 
 @pytest.mark.parametrize("kernel", ["qmatmul_fused", "qmatmul_fused2"])
-@pytest.mark.parametrize("M,K,N", [
-    (4096, 640, 640), (1024, 1280, 1280), (1024, 1280, 5120),
-    (1024, 5120, 1280),           # the kernel benchmark's shapes
-    (48, 300, 130),               # ragged: scalar loads, masked tails
+@pytest.mark.parametrize("M,K,N,xcol", [
+    (4096, 640, 640, 0), (1024, 1280, 1280, 0), (1024, 1280, 5120, 0),
+    (1024, 5120, 1280, 0),        # the kernel benchmark's shapes
+    (48, 300, 130, 0),            # ragged: scalar loads, masked tails
+    (200, 1000, 384, 0),          # K % 128 != 0, 16-byte loads
+    (1, 1280, 1280, 0),           # M = 1: one live m16 tile, split K
+    (256, 1280, 640, 3),          # bf16 x a column slice: unaligned rows
+    (256, 1280, 640, 8),          # a column slice of 16-byte rows
+    (64, 16384, 128, 0),          # K = 16384: split K, no K limit
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_qmatmul_fused_kernels(dev, kernel, M, K, N, dtype):
+def test_qmatmul_fused_kernels(dev, kernel, M, K, N, xcol, dtype):
     from mixdq_tpu_torch import ops
     from mixdq_tpu_torch.ops import qmatmul as qm
 
     g = torch.Generator().manual_seed(15)
-    x = torch.randn(M, K, generator=g).to(dev)  # f32: the wrapper casts
+    x = torch.randn(M, K + xcol, generator=g).to(dev)
+    # f32 x: the wrapper casts; a bf16 slice is read in place
+    x = x.to(torch.bfloat16)[:, xcol:] if xcol else x
     w = _codes(g, dev, K, N)
     scale = ((torch.rand(N, generator=g) + 0.5) * 1e-5).to(dev)
     bias0 = (-3.0 * w.int().sum(0)).float()
@@ -562,5 +569,29 @@ def test_qmatmul_fused_kernels(dev, kernel, M, K, N, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts()[kernel] == ops.call_counts()[kernel] == 1
     assert got.dtype == dtype and got.shape == (M, N)
-    smoke().fused_err(torch, got, want,
-                      scale * w.abs().amax(0).float())
+    smoke().exact_err(torch, got, want)
+
+
+@pytest.mark.parametrize("kernel", ["qmatmul_fused", "qmatmul_fused2"])
+@pytest.mark.parametrize("zp", [-3.0, -3.5, 2.0 ** 22])
+def test_qmatmul_fused_quantizer_range(dev, kernel, zp):
+    """The kernels' act quantizer against the plain version's at every
+    kind of zero point (integer-valued ones take the f32 rounding path,
+    any other ``quant_code``) on values that round to ties, saturate, and
+    lie past 2^22 once scaled."""
+    from mixdq_tpu_torch.ops import qmatmul as qm
+
+    g = torch.Generator().manual_seed(16)
+    M, K, N = 256, 640, 256
+    x = torch.randn(M, K, generator=g) * 20
+    x[:, :64] = (torch.arange(64) - 32).float() * 0.25  # ties at * 10
+    x[0, 64:72] = torch.tensor([3e6, -3e6, 1e30, -1e30, 4.2e5, -4.2e5,
+                                1e-30, 0.0])
+    x = x.to(dev, torch.bfloat16)
+    w = _codes(g, dev, K, N)
+    scale = ((torch.rand(N, generator=g) + 0.5) * 1e-5).to(dev)
+    bias0 = (-3.0 * w.int().sum(0)).float()
+    got = getattr(qm, kernel)(x, w, 10.0, zp, scale, bias0)
+    want = qm.qmatmul_fused_plain(x, w, 10.0, zp, scale, bias0)
+    torch.cuda.synchronize()
+    smoke().exact_err(torch, got, want)
