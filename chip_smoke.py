@@ -29,7 +29,10 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``torch.matmul`` on the weight dequantized beforehand for
    ``wq4_matmul`` / ``wq_matmul``, whose check is flash attention's).
    Then each fused GEMM at M=1024 K=5120 N=1280 under torch.profiler:
-   one device kernel per call.
+   one device kernel per call. The cooperative ``sec_attention*``
+   kernels also print their stage split (LN, projection GEMM, attention,
+   to_out GEMM: ``sec_attention.probe``'s stamps after each grid sync,
+   means of ``SPLIT_ITERS`` flushed calls).
 2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
    take the whole-attention kernels), W8A8 steps in float32
    under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
@@ -53,7 +56,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``'einsum'`` on the same deploy (>= ``SITE_SQNR_DB``); the injected
    faults must fail these checks.
 5. A per-kernel device-time breakdown of one step of each int8 path and
-   of bf16 from torch.profiler (written to ``chiprun_out/``).
+   of bf16 from torch.profiler (written to ``chiprun_out/``); every
+   profiled step logs the device ms of the five ``sec_attention*``
+   kernels.
 6. The mixed-precision deploys of the same UNet from the repo's elected
    maps (``configs/mp/sdxl_turbo``: W5.04, A7.43, act-protect list), on
    the phase 3 requests: ``int8_sec`` under ``'auto'`` and the weight-only
@@ -158,6 +163,17 @@ INT8_FLASH_SITE_SQNR_DB = {"qk": 30.0, "qkv": 30.0}
 FLASH_DROPPED_KEYS = 64
 # profiled calls of each fused act-quantize GEMM in phase 1
 FUSED_PROFILE_CALLS = 5
+# probed calls of each cooperative sec_attention* case in phase 1
+SPLIT_ITERS = 10
+# card cycles spun before each timed call in phase 1 (~0.5 ms at the
+# H100's clocks), more than any wrapper's host time
+HOST_COVER_CYCLES = 1_000_000
+# the sec_attention* kernels by their device kernels' names
+SEC_KERNELS = {"sec_attention": "sec_attn_kernel<",
+               "sec_attention_q": "sec_q_kernel<",
+               "sec_attention_qkv": "sec_qkv_kernel<",
+               "sec_attention_q_out": "sec_q_out_kernel<",
+               "sec_attention_qkv_out": "sec_qkv_out_kernel<"}
 # timed calls of each kernel benchmark row in phase 8
 KB_ITERS = 5
 _NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
@@ -276,13 +292,13 @@ PORTED = {
                       "mixdq_tpu/ops/pallas_qmatmul.py:438"),
     "qmatmul": ("mixdq_tpu_torch/csrc/qmatmul.cu",
                 "mixdq_tpu/ops/pallas_qmatmul.py:109"),
-    "sec_attention_qkv": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+    "sec_attention_qkv": ("mixdq_tpu_torch/csrc/sec_attention.cuh",
                           "mixdq_tpu/ops/pallas_sec_attention.py:460"),
-    "sec_attention_q_out": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+    "sec_attention_q_out": ("mixdq_tpu_torch/csrc/sec_attention.cuh",
                             "mixdq_tpu/ops/pallas_sec_attention.py:927"),
     "sec_attention": ("mixdq_tpu_torch/csrc/sec_attention.cu",
                       "mixdq_tpu/ops/pallas_sec_attention.py:151"),
-    "sec_attention_q": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+    "sec_attention_q": ("mixdq_tpu_torch/csrc/sec_attention.cuh",
                         "mixdq_tpu/ops/pallas_sec_attention.py:271"),
     "flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
                         "mixdq_tpu/ops/pallas_attention.py:106"),
@@ -290,7 +306,7 @@ PORTED = {
                    "mixdq_tpu/ops/pallas_wq_matmul.py:133"),
     "wq_matmul": ("mixdq_tpu_torch/csrc/wq_matmul.cu",
                   "mixdq_tpu/ops/pallas_wq_matmul.py:208"),
-    "sec_attention_qkv_out": ("mixdq_tpu_torch/csrc/sec_attention.cu",
+    "sec_attention_qkv_out": ("mixdq_tpu_torch/csrc/sec_attention.cuh",
                               "mixdq_tpu/ops/pallas_sec_attention.py:757"),
     "geglu_out_qmatmul": ("mixdq_tpu_torch/csrc/geglu_qmatmul.cu",
                           "mixdq_tpu/ops/pallas_qmatmul.py:702"),
@@ -349,13 +365,17 @@ def bound(nbytes, ops):
 def time_ms(torch, fn, iters, flush):
     """Mean device time of ``fn`` per call, each call timed alone by CUDA
     events after overwriting a 256 MB buffer (the L2 holds 50 MB), so
-    weights come from device memory as in a UNet step."""
+    weights come from device memory as in a UNet step. A spin of
+    ``HOST_COVER_CYCLES`` on the card after the flush keeps it busy while
+    the host enqueues the call, so that the events time the call's device
+    work and not its wrapper's host time."""
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for a, b in ev:
         flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         a.record()
         fn()
         b.record()
@@ -374,7 +394,8 @@ def codes_err(torch, got, want, what="codes"):
 
 def exact_err(torch, got, want):
     """The int8 GEMMs on the shared mainloop (``qmatmul``, ``qconv2d``,
-    ``qmatmul_fused``, ``qmatmul_fused2``) against their plain versions:
+    ``qmatmul_fused``, ``qmatmul_fused2``, the GEMM stages of the
+    cooperative ``sec_attention*`` kernels) against their plain versions:
     equal bit for bit (exact int32 sums in any split and order, then the
     same f32 steps)."""
     if got.dtype != want.dtype or not torch.equal(got, want):
@@ -409,8 +430,9 @@ def fused_err(torch, got, want, code):
 
 def kernel_cases(torch, dev):
     """(kernel, shape label, kernel call, plain call, compare, bytes,
-    [(ops, peak) per type], library call or None) at the main-path shapes;
-    the first case of each kernel is its reported shape."""
+    [(ops, peak) per type], library call or None[, K-major library call,
+    act-quantize + qmatmul chain, GEMM-stage check]) at the main-path
+    shapes; the first case of each kernel is its reported shape."""
     from mixdq_tpu_torch.ops import (attention, gn_quant, ln_quant, qconv,
                                      qmatmul, qops, sec_attention, wq_matmul)
 
@@ -569,7 +591,8 @@ def kernel_cases(torch, dev):
                           sec_attention.sec_attention_qkv_plain(*a, **kw),
                       codes_err, 2 * T * C + 3 * C * C + 24 * C,
                       [(6 * T * C * C, INT8_OPS_PER_S),
-                       (4 * T * T * C, BF16_OPS_PER_S)], None))
+                       (4 * T * T * C, BF16_OPS_PER_S)], None, None, None,
+                      sec_gemms_exact(torch, "sec_attention_qkv", args, kw)))
     for T, heads, ln in [(1024, 10, True), (256, 20, True), (256, 20, False)]:
         C = heads * 64
         args, kw = q_out_case(torch, g, dev, 1, T, 77, heads, 64, C, bf16, ln)
@@ -585,7 +608,9 @@ def kernel_cases(torch, dev):
                       float_err, nbytes,
                       [(4 * T * C * C, INT8_OPS_PER_S),
                        (4 * T * 77 * C, BF16_OPS_PER_S),
-                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
+                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None, None,
+                      None, sec_gemms_exact(torch, "sec_attention_q_out",
+                                            args, kw)))
     # attn1 whole-block at the same levels: LN-folded (the main path) and
     # pre-coded + residual (ln_fold off)
     for T, heads, ln in [(1024, 10, True), (256, 20, True), (1024, 10, False),
@@ -604,7 +629,9 @@ def kernel_cases(torch, dev):
                       + 30 * C,
                       [(8 * T * C * C, INT8_OPS_PER_S),
                        (4 * T * T * C, BF16_OPS_PER_S),
-                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None))
+                       (8 * T * C if ln else 0, F32_OPS_PER_S)], None, None,
+                      None, sec_gemms_exact(torch, "sec_attention_qkv_out",
+                                            args, kw)))
     # the whole feed-forward at both levels, LN-folded and pre-coded
     for M, C, ln in [(1024, 640, True), (256, 1280, True), (1024, 640, False),
                      (256, 1280, False)]:
@@ -695,7 +722,9 @@ def kernel_cases(torch, dev):
                       codes_err,
                       2 * B * Tq * C + C * C + 8 * C + 4 * B * 77 * C,
                       [(2 * B * Tq * C * C, INT8_OPS_PER_S),
-                       (4 * B * Tq * 77 * C, BF16_OPS_PER_S)], None))
+                       (4 * B * Tq * 77 * C, BF16_OPS_PER_S)], None, None,
+                      None, sec_gemms_exact(torch, "sec_attention_q", args,
+                                            kw)))
     # the weight-only step: ff.net.0.proj at 32x32, ff.net.2 at 16x16,
     # attn2 to_k/to_v at 16x16, time_emb_proj, a ragged N, and a K that is
     # no multiple of the split-K plan's ranges; library: torch.matmul on
@@ -916,8 +945,9 @@ def phase_kernels(torch, dev, flush):
     for name, label, fn, plain, cmp, nbytes, ops, lib, *more in \
             kernel_cases(torch, dev):
         # qmatmul and the fused GEMMs: w K-major; the fused GEMMs: the
-        # act-quantize then qmatmul
-        lib_kmajor, chain = (list(more) + [None, None])[:2]
+        # act-quantize then qmatmul; the cooperative sec_attention*
+        # kernels: their GEMM stages bit for bit
+        lib_kmajor, chain, gemms = (list(more) + [None] * 3)[:3]
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -928,19 +958,65 @@ def phase_kernels(torch, dev, flush):
                                                             flush)
                              for f in (lib, lib_kmajor, chain))
         b_ms, b_by = bound(nbytes, ops)
+        split = None if gemms is None else stage_split(torch, fn, flush,
+                                                       gemms)
         log(f"kernel {name} [{label}]: max_abs_err={err} kernel_ms={k_ms:.4f}"
             f" plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
             f" library_ms={'null' if l_ms is None else f'{l_ms:.4f}'}"
             + ("" if lk_ms is None else f" library_kmajor_ms={lk_ms:.4f}")
             + ("" if c_ms is None else f" quantize_qmatmul_ms={c_ms:.4f}")
-            + f" launches/step {({p: c[name] for p, c in per_step.items()})}")
+            + f" launches/step {({p: c[name] for p, c in per_step.items()})}"
+            + ("" if split is None else " stages_ms " + " ".join(
+                f"{k}={v:.4f}" for k, v in split.items())))
         r = report.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append(dict(shape=label, ms=k_ms, plain_ms=p_ms,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=l_ms, library_kmajor_ms=lk_ms,
-                                quantize_qmatmul_ms=c_ms))
+                                quantize_qmatmul_ms=c_ms, stages_ms=split))
     return report
+
+
+def sec_gemms_exact(torch, name, args, kw):
+    """A check of a cooperative ``sec_attention*`` call's GEMM stages on
+    its probed record (``sec_attention.probe``): the projection workspace
+    and the whole-block output against their plain products on the
+    kernel's own codes (the LN codes it wrote, its to_out codes), equal
+    bit for bit (exact int32 sums, the same f32 steps)."""
+    from mixdq_tpu_torch.ops import sec_attention as sa
+
+    fused = name in ("sec_attention_qkv", "sec_attention_qkv_out")
+    q_dtype = torch.bfloat16 if fused else args[4].dtype
+
+    def check(rec):
+        exact_err(torch, rec["proj"],
+                  sa._proj_plain(rec["codes"], *args[1:4], q_dtype))
+        if rec["out"] is not None:
+            wout, so, b0o, bo, residual = args[-5:]
+            res = args[0] if kw.get("ln") is not None else residual
+            exact_err(torch, rec["out"], sa._out_proj_plain(
+                rec["o"], wout, so, b0o, bo, res, kw["out_dtype"]))
+    return check
+
+
+def stage_split(torch, fn, flush, check):
+    """Device ms of each stage of a cooperative ``sec_attention*`` call
+    (``sec_attention.probe``: block 0's global timer after each grid
+    sync, one more sync closing the last stage), the mean of
+    ``SPLIT_ITERS`` calls each after a flush; ``check`` (a
+    ``sec_gemms_exact`` check) runs on each call's record."""
+    from mixdq_tpu_torch.ops import sec_attention
+
+    total = dict.fromkeys(sec_attention.STAGES, 0.0)
+    for _ in range(SPLIT_ITERS):
+        flush.zero_()
+        with sec_attention.probe() as recs:
+            fn()
+        torch.cuda.synchronize()
+        check(recs[0])
+        for k, v in sec_attention.stage_ms(recs[0]).items():
+            total[k] += v / SPLIT_ITERS
+    return total
 
 
 def fused_one_kernel(torch, dev):
@@ -1964,6 +2040,10 @@ def phase_profile(torch, unet, req, paths):
             f"(idle share {max(0.0, 1 - busy / wall):.3f})")
         for ms, n, key in rows[:8]:
             log(f"  {ms:9.4f} ms x{n:5d} {key[:90]}")
+        sec = {name: [round(sum(r[0] for r in rows if pat in r[2]), 4),
+                      sum(r[1] for r in rows if pat in r[2])]
+               for name, pat in SEC_KERNELS.items()}
+        log(f"profile {tag}: sec_attention* device ms, launches {sec}")
 
 
 def paired_step_ms(torch, unet, requests, paths, card, label):
@@ -2235,7 +2315,7 @@ def main():
         first, extra = r["shapes"][0], {}
         if first["library_ms"] is not None:
             extra["library"] = LIBRARY[name]
-        for key in ("library_kmajor_ms", "quantize_qmatmul_ms"):
+        for key in ("library_kmajor_ms", "quantize_qmatmul_ms", "stages_ms"):
             if first[key] is not None:
                 extra[key] = first[key]
         # the main path a kernel runs on: the SDXL-Turbo headline, else the

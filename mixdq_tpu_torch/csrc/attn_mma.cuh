@@ -1,9 +1,10 @@
 // bf16 mma.sync building blocks shared by the attention kernels
 // (sec_attention.cu, flash_attention.cu): a warp owns 16 query rows of one
-// head; keys stream through shared memory in chunks of KC, QK^T and PV run
-// on mma.sync m16n8k16 (bf16 x bf16 -> f32).
+// head; keys stream through a cp.async ring in shared memory, QK^T and PV
+// run on mma.sync m16n8k16 (bf16 x bf16 -> f32).
 #pragma once
 
+#include "cp_async.cuh"
 #include "mma_s8.cuh"
 
 namespace mixdq {
@@ -66,73 +67,100 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
   }
 }
 
-// Keys per shared-memory chunk: rows of k and columns of the transposed v.
+// The key ring of the bf16 attention kernels (flash_attention.cu's bf16
+// path, sec_attention.cu's attention stage): a group of 4 warps (128
+// threads) owns 64 query rows of one head, warp w rows 16 w ..+16, and
+// streams k and v through ring stages of KCH keys in shared memory, filled
+// by cp.async (cp_async.cuh). A stage holds the chunk's k rows, then its v
+// rows, each padded by 8 bf16 (16 bytes) so that the 8 row addresses of an
+// ldmatrix land in distinct banks. k fragments come from ldmatrix.x4; v
+// stays row-major and PV's B fragments come from ldmatrix.x4.trans.
+constexpr int KCH = 32;          // keys per ring stage
+constexpr int GROUP_THREADS = 128;  // threads that fill and read one ring
+
 template <int D>
-struct Chunk {
-  static constexpr int KC = D <= 64 ? 64 : 32;
-  bf16 k[KC][D + 8];   // +8: fragment loads hit 32 distinct banks
-  bf16 vt[D][KC + 8];  // v transposed: PV's B fragments are key pairs
+struct KvStage {
+  static constexpr int LD = D + 8;                 // padded row, bf16
+  static constexpr int BYTES = 2 * KCH * LD * 2;  // k rows, then v rows
 };
 
-// Block-wide: keys [c0, c0 + KC) of k (and v) into shared memory,
-// 16-byte loads; keys >= Tk read as zero.
+// Keys [c0, c0 + KCH) of k (and of v when with_v) into the ring stage at
+// shared address st, thread gtid of the group's 128 taking its share of
+// the 16-byte copies; keys >= Tk read as zero. The caller commits.
 template <int D>
-__device__ __forceinline__ void load_chunk(Chunk<D>& sm,
-                                           const HeadPanels<bf16>& h,
-                                           int ldk, int ldv, int Tk, int c0,
-                                           bool with_v) {
-  constexpr int KC = Chunk<D>::KC;
-  for (int i = threadIdx.x; i < KC * D / 8; i += blockDim.x) {
-    const int key = i / (D / 8), c = (i % (D / 8)) * 8;
-    int4 kv = make_int4(0, 0, 0, 0), vv = kv;
-    if (c0 + key < Tk) {
-      const size_t j = c0 + key;
-      kv = *reinterpret_cast<const int4*>(h.k + j * ldk + c);
-      if (with_v) vv = *reinterpret_cast<const int4*>(h.v + j * ldv + c);
-    }
-    *reinterpret_cast<int4*>(&sm.k[key][c]) = kv;
-    if (with_v) {
-      const bf16* e = reinterpret_cast<const bf16*>(&vv);
+__device__ __forceinline__ void copy_kv_chunk(uint32_t st,
+                                              const HeadPanels<bf16>& h,
+                                              int ldk, int ldv, int Tk,
+                                              int c0, bool with_v,
+                                              int gtid) {
+  constexpr int CPR = D / 8, N = KCH * CPR, LD = KvStage<D>::LD;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sm.vt[c + j][key] = e[j];
+  for (int it = 0; it < (N + GROUP_THREADS - 1) / GROUP_THREADS; ++it) {
+    const int i = gtid + it * GROUP_THREADS;
+    if (N % GROUP_THREADS == 0 || i < N) {
+      const int key = i / CPR, c = (i % CPR) * 8;
+      const bool ok = c0 + key < Tk;
+      const size_t j = ok ? c0 + key : 0;
+      cp_async16(st + (key * LD + c) * 2, h.k + j * ldk + c, ok);
+      if (with_v)
+        cp_async16(st + ((KCH + key) * LD + c) * 2, h.v + j * ldv + c, ok);
     }
   }
 }
 
-// The warp's 16 x KC logits of one chunk (unscaled): A = q fragments,
-// B = k rows.
+// The warp's 16 x KCH logits of one stage (unscaled): A = q fragments,
+// B = k rows by ldmatrix.x4 (two key tiles of 8 per load).
 template <int D>
-__device__ __forceinline__ void chunk_logits(
-    const Chunk<D>& sm, const uint32_t (&qf)[D / 16][4],
-    float (&s)[Chunk<D>::KC / 8][4], int g, int t) {
+__device__ __forceinline__ void ring_logits(uint32_t st,
+                                            const uint32_t (&qf)[D / 16][4],
+                                            float (&s)[KCH / 8][4],
+                                            int lane) {
+  constexpr int LD = KvStage<D>::LD;
+  const uint32_t kb =
+      st + (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8) * 2;
 #pragma unroll
-  for (int nt = 0; nt < Chunk<D>::KC / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int nt = 0; nt < KCH / 8; nt += 2) {
+    // the key pair's fragments at every depth first, then the products
+    uint32_t b[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(b[kk], kb + (nt * 8 * LD + kk * 16) * 2);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] = s[nt + 1][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* kr = &sm.k[nt * 8 + g][kk * 16 + 2 * t];
-      mma_bf16(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
+      mma_bf16(s[nt], qf[kk], b[kk][0], b[kk][1]);
+      mma_bf16(s[nt + 1], qf[kk], b[kk][2], b[kk][3]);
     }
   }
 }
 
-// o += bf16(p) . v over one chunk: p = the warp's 16 x KC probabilities
-// in the layout of chunk_logits, cast to bf16 as the A fragments (the
-// TPU's p.astype(v.dtype)), v from the transposed chunk.
+// o += bf16(p) . v over one stage: p in the layout of ring_logits, cast
+// to bf16 as the A fragments (the TPU's p.astype(v.dtype)); v's B
+// fragments by ldmatrix.x4.trans (two column tiles of 8 per load). The
+// keys go in ascending 16-key mma steps.
 template <int D>
-__device__ __forceinline__ void chunk_pv(const Chunk<D>& sm,
-                                         const float (&p)[Chunk<D>::KC / 8][4],
-                                         float (&o)[D / 8][4], int g, int t) {
+__device__ __forceinline__ void ring_pv(uint32_t st,
+                                        const float (&p)[KCH / 8][4],
+                                        float (&o)[D / 8][4], int lane) {
+  constexpr int LD = KvStage<D>::LD;
+  const uint32_t vb =
+      st + ((KCH + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
+               2;
 #pragma unroll
-  for (int kb = 0; kb < Chunk<D>::KC / 16; ++kb) {
+  for (int kb = 0; kb < KCH / 16; ++kb) {
     const uint32_t pa[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
                             pack_bf16(p[2 * kb][2], p[2 * kb][3]),
                             pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
                             pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
+    uint32_t b[D / 16][4];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* vr = &sm.vt[dt * 8 + g][kb * 16 + 2 * t];
-      mma_bf16(o[dt], pa, ld32(vr), ld32(vr + 8));
+    for (int dp = 0; dp < D / 16; ++dp)
+      ldsm_x4_trans(b[dp], vb + (kb * 16 * LD + dp * 16) * 2);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      mma_bf16(o[2 * dp], pa, b[dp][0], b[dp][1]);
+      mma_bf16(o[2 * dp + 1], pa, b[dp][2], b[dp][3]);
     }
   }
 }

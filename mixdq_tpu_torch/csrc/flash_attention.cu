@@ -75,7 +75,6 @@
 #include <type_traits>
 
 #include "attn_mma.cuh"
-#include "cp_async.cuh"
 
 using namespace mixdq;
 
@@ -93,25 +92,20 @@ struct FlashArgs {
 
 // The bf16 path: a block owns (batch, head, BQ = 64 query rows), warp w
 // rows 16 w ..+16, q fragments in registers for both passes. k and v
-// stream through a ring of STAGES stages of KCH keys in dynamic shared
-// memory, filled by cp.async (cp_async.cuh) in the order the passes read
-// them: per key block, its chunks of k for the max pass, then the same
-// chunks of k and v for the p pass. So the copies of the next
-// STAGES - 1 chunks are in flight while one is multiplied, across the
-// switch between passes and between key blocks. Rows are padded by 8
-// bf16 (16 bytes): the 8 row addresses of an ldmatrix land in distinct
-// banks. k fragments come from ldmatrix.x4, v stays row-major and PV's B
-// fragments come from ldmatrix.x4.trans.
+// stream through the key ring of attn_mma.cuh, STAGES stages of KCH keys
+// in dynamic shared memory, filled in the order the passes read them: per
+// key block, its chunks of k for the max pass, then the same chunks of k
+// and v for the p pass. So the copies of the next STAGES - 1 chunks are in
+// flight while one is multiplied, across the switch between passes and
+// between key blocks.
 constexpr int BQ = 64;     // query rows per block: a warp per 16
 constexpr int FT = BQ / 16 * 32;  // threads per block
-constexpr int KCH = 32;    // keys per ring stage
 constexpr int STAGES = 4;  // ring stages: 3 chunks in flight
+static_assert(FT == GROUP_THREADS, "one ring group a block");
 
 template <int D>
 struct FlashRing {
-  static constexpr int LD = D + 8;            // padded row, bf16
-  static constexpr int STAGE = 2 * KCH * LD;  // k rows, then v rows
-  static constexpr int BYTES = STAGES * STAGE * 2;
+  static constexpr int BYTES = STAGES * KvStage<D>::BYTES;
   // blocks per SM the kernel is built for, as many as its registers
   // allow without spills (<= 96 a thread at d <= 32, <= 128 at d = 64,
   // <= 255 at d = 128); shared memory would allow 6 / 6 / 3
@@ -144,78 +138,9 @@ __device__ __forceinline__ void issue_chunk(uint32_t st,
                                             const HeadPanels<bf16>& h,
                                             int ldk, int ldv, int Tk,
                                             const ChunkCursor& cur) {
-  constexpr int CPR = D / 8, N = KCH * CPR, LD = FlashRing<D>::LD;
-  if (cur.j0 < Tk) {
-#pragma unroll
-    for (int it = 0; it < (N + FT - 1) / FT; ++it) {
-      const int i = threadIdx.x + it * FT;
-      if (N % FT == 0 || i < N) {
-        const int key = i / CPR, c = (i % CPR) * 8;
-        const bool ok = cur.c0 + key < Tk;
-        const size_t j = ok ? cur.c0 + key : 0;
-        cp_async16(st + (key * LD + c) * 2, h.k + j * ldk + c, ok);
-        if (cur.pass)
-          cp_async16(st + ((KCH + key) * LD + c) * 2, h.v + j * ldv + c, ok);
-      }
-    }
-  }
+  if (cur.j0 < Tk)
+    copy_kv_chunk<D>(st, h, ldk, ldv, Tk, cur.c0, cur.pass != 0, threadIdx.x);
   cp_async_commit();
-}
-
-// The warp's 16 x KCH logits of one stage (unscaled): A = q fragments,
-// B = k rows by ldmatrix.x4 (two key tiles of 8 per load).
-template <int D>
-__device__ __forceinline__ void ring_logits(uint32_t st,
-                                            const uint32_t (&qf)[D / 16][4],
-                                            float (&s)[KCH / 8][4],
-                                            int lane) {
-  constexpr int LD = FlashRing<D>::LD;
-  const uint32_t kb =
-      st + (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8) * 2;
-#pragma unroll
-  for (int nt = 0; nt < KCH / 8; nt += 2) {
-    // the key pair's fragments at every depth first, then the products
-    uint32_t b[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldsm_x4(b[kk], kb + (nt * 8 * LD + kk * 16) * 2);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) s[nt][r] = s[nt + 1][r] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      mma_bf16(s[nt], qf[kk], b[kk][0], b[kk][1]);
-      mma_bf16(s[nt + 1], qf[kk], b[kk][2], b[kk][3]);
-    }
-  }
-}
-
-// o += bf16(p) . v over one stage: p in the layout of ring_logits, cast
-// to bf16 as the A fragments; v's B fragments by ldmatrix.x4.trans (two
-// column tiles of 8 per load).
-template <int D>
-__device__ __forceinline__ void ring_pv(uint32_t st,
-                                        const float (&p)[KCH / 8][4],
-                                        float (&o)[D / 8][4], int lane) {
-  constexpr int LD = FlashRing<D>::LD;
-  const uint32_t vb =
-      st + ((KCH + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
-               2;
-#pragma unroll
-  for (int kb = 0; kb < KCH / 16; ++kb) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
-                            pack_bf16(p[2 * kb][2], p[2 * kb][3]),
-                            pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
-                            pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
-    uint32_t b[D / 16][4];
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp)
-      ldsm_x4_trans(b[dp], vb + (kb * 16 * LD + dp * 16) * 2);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      mma_bf16(o[2 * dp], pa, b[dp][0], b[dp][1]);
-      mma_bf16(o[2 * dp + 1], pa, b[dp][2], b[dp][3]);
-    }
-  }
 }
 
 // One head over bf16 q/k/v for a BQ-row tile (nq valid rows) into out
@@ -226,7 +151,7 @@ template <int D>
 __device__ void flash_bf16(uint32_t ring, const HeadPanels<bf16>& h, bf16* out,
                            int ldq, int ldk, int ldv, int ldo, int nq, int Tk,
                            int bk, float scale) {
-  constexpr int STAGE = FlashRing<D>::STAGE * 2;  // bytes
+  constexpr int STAGE = KvStage<D>::BYTES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int ra = warp * 16 + g, rb = ra + 8;  // this thread's rows

@@ -188,7 +188,7 @@ static int geglu_out(const GegluArgs& g, const void* x, const float* gamma,
                     vec16(g.x, g.K), g.H % 16 == 0 && vec16(g.w, 2 * g.H),
                     vec16(g.out, g.H), vec16(w2, C)};
   const int tiles = std::max(tiles64(g.M, g.H), tiles64(g.M, C));
-  const int grid = cooperative_grid(geglu_out_kernel<T>, tiles);
+  const int grid = cooperative_grid<geglu_out_kernel<T>>(THREADS, 0, tiles);
   void* args[] = {&a};
   cudaLaunchCooperativeKernel(reinterpret_cast<void*>(geglu_out_kernel<T>),
                               dim3(grid), dim3(THREADS), args, 0, stream);

@@ -628,14 +628,11 @@ __device__ __forceinline__ bool reduce_splits(int* __restrict__ ws,
   if (!s_last) return false;
   __threadfence();
   if (nlive) {
-    // every split's partial, own included, a few splits' loads in flight
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][i][0] = acc[mi][i][1] =
-          acc[mi][i][2] = acc[mi][i][3] = 0;
+    // the other splits' partials added to this block's own, a few
+    // splits' loads in flight
 #pragma unroll 4
     for (int s = 0; s < splits; ++s) {
+      if (s == split) continue;
       const int4* p = part(s);
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
@@ -671,20 +668,21 @@ struct EpiArgs {
   bool bias_bf16, ebias_bf16, res_vec;
 };
 
+// 8 consecutive values of T as stored (16 or 32 bytes).
 template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&v)[8]);
-template <>
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+struct alignas(16) Raw8 {
+  uint4 w[sizeof(T) / 2];
+};
+
+__device__ __forceinline__ void unpack8(const Raw8<float>& u, float (&v)[8]) {
+  const uint32_t w[8] = {u.w[0].x, u.w[0].y, u.w[0].z, u.w[0].w,
+                         u.w[1].x, u.w[1].y, u.w[1].z, u.w[1].w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __uint_as_float(w[j]);
 }
-template <>
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& u,
+                                        float (&v)[8]) {
+  const uint32_t w[4] = {u.w[0].x, u.w[0].y, u.w[0].z, u.w[0].w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
@@ -705,6 +703,60 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
     w[j] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The rows of the common case of `epilogue` (8 columns a thread in 16-
+// or 32-byte vectors, no ebias, a 16-byte aligned residual or none): each
+// element's steps as there, with bias (BIAS) and residual (RES) known at
+// compile time, so that the per-element work has no branch; every
+// residual row loaded before the first store (which may alias it for all
+// the compiler knows), so that their round trips overlap.
+template <typename T, bool INT_BIAS0, bool BIAS, bool RES>
+__device__ __forceinline__ void epilogue_vec(const EpiArgs& e, int m0, int nb,
+                                             int wm, int mtiles,
+                                             const int (&acc)[4][4][4],
+                                             const float (&sc)[8],
+                                             const float (&b0)[8],
+                                             const float (&bi)[8]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  T* out = static_cast<T*>(e.out);
+  Raw8<T> rraw[4][2];
+  if constexpr (RES) {
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + mi * 16 + g + 8 * h;
+        if (mi < mtiles && m < e.M)
+          rraw[mi][h] = *reinterpret_cast<const Raw8<T>*>(
+              static_cast<const T*>(e.res) + static_cast<size_t>(m) * e.N +
+              nb);
+      }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if (mi >= mtiles) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + mi * 16 + g + 8 * h;
+      if (m >= e.M) continue;
+      float y[8], r[8];
+      if constexpr (RES) unpack8(rraw[mi][h], r);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int v = j < 4 ? acc[mi][j][2 * h] : acc[mi][j - 4][2 * h + 1];
+        if constexpr (INT_BIAS0) {
+          y[j] = __fmul_rn(__int2float_rn(v - __float2int_rz(b0[j])), sc[j]);
+        } else {
+          float yy = __fmul_rn(__fsub_rn(__int2float_rn(v), b0[j]), sc[j]);
+          if constexpr (BIAS) yy = __fadd_rn(yy, bi[j]);
+          if constexpr (RES) yy = __fadd_rn(yy, r[j]);
+          y[j] = yy;
+        }
+      }
+      store8(out + static_cast<size_t>(m) * e.N + nb, y);
+    }
+  }
 }
 
 // out = T(((f32(acc) - bias0) * scale + bias + ebias[b]) + res), each
@@ -734,6 +786,27 @@ __device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
   }
   T* out = static_cast<T*>(e.out);
   const T* res = static_cast<const T*>(e.res);
+  if (vec && !e.ebias && (!res || e.res_vec)) {
+    if constexpr (INT_BIAS0) {
+      epilogue_vec<T, true, false, false>(e, m0, nb, wm, mtiles, acc, sc, b0,
+                                          bi);
+    } else if (e.bias) {
+      if (res)
+        epilogue_vec<T, false, true, true>(e, m0, nb, wm, mtiles, acc, sc,
+                                           b0, bi);
+      else
+        epilogue_vec<T, false, true, false>(e, m0, nb, wm, mtiles, acc, sc,
+                                            b0, bi);
+    } else {
+      if (res)
+        epilogue_vec<T, false, false, true>(e, m0, nb, wm, mtiles, acc, sc,
+                                            b0, bi);
+      else
+        epilogue_vec<T, false, false, false>(e, m0, nb, wm, mtiles, acc, sc,
+                                             b0, bi);
+    }
+    return;
+  }
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
     if (mi >= mtiles) continue;
@@ -743,13 +816,9 @@ __device__ __forceinline__ void epilogue(const EpiArgs& e, int m0, int n0,
       if (m >= e.M) continue;
       const size_t o = static_cast<size_t>(m) * e.N + nb;
       float y[8], r[8];
-      if (res && vec && e.res_vec) {
-        load8(res + o, r);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          r[j] = res && j < ncols ? to_f32(res[o + j]) : 0.f;
-      }
+      for (int j = 0; j < 8; ++j)
+        r[j] = res && j < ncols ? to_f32(res[o + j]) : 0.f;
       const size_t eb = e.ebias ? static_cast<size_t>(m / e.PQ) * e.N : 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {

@@ -11,6 +11,8 @@
 // issued before the current tile's mma, so their latency overlaps.
 #pragma once
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace mixdq {
@@ -217,14 +219,25 @@ static inline int tiles64(int M, int N) {
 }
 
 // The largest grid that the card holds at once (a cooperative launch
-// needs every block resident), and no more blocks than tiles.
-template <typename Kern>
-static int cooperative_grid(Kern kernel, int tiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  return tiles < per_sm * sms ? tiles : per_sm * sms;
+// needs every block resident) of `Kernel` at `threads` a block and `smem`
+// bytes of dynamic shared memory, and no more blocks than tiles. The SM
+// count and the kernel's occupancy are queried once per device (the
+// first 64 devices; 0 past them, which the launch refuses).
+template <auto Kernel>
+static int cooperative_grid(int threads, int smem, int tiles) {
+  static std::atomic<int> held[64];  // blocks the card holds; 0: not asked
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  int n = held[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads,
+                                                  smem);
+    n = sms * per_sm;
+    held[dev].store(n, std::memory_order_relaxed);
+  }
+  return tiles < n ? tiles : n;
 }
 
 }  // namespace mixdq

@@ -23,8 +23,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("qconv.cu", "geglu_qmatmul.cu", "gn_quant.cu", "ln_quant.cu",
-           "qmatmul.cu", "sec_attention.cu", "flash_attention.cu",
-           "wq_matmul.cu", "qmatmul_fused.cu")
+           "qmatmul.cu", "sec_attention.cu", "sec_coop_d16.cu",
+           "sec_coop_d32.cu", "sec_coop_d64.cu", "sec_coop_d128.cu",
+           "flash_attention.cu", "wq_matmul.cu", "qmatmul_fused.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

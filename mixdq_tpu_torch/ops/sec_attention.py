@@ -21,21 +21,29 @@
   (LN-folded mode) or given codes, ``sec_attention_qkv``'s work, the
   ``to_out`` GEMM, its bias and the residual add.
 
-Kernels: ``csrc/sec_attention.cu``. Plain versions: the ``*_plain``
-functions, which share ``_attend_codes_plain``, a step-by-step copy of
-the JAX ``_attend_codes``. The kernels take every shape with
-``head_dim`` in ``HEAD_DIMS``; which of them runs at a site is the
-router's choice (``models/routing.py``).
+Kernels: ``csrc/sec_attention.cu``: all but ``sec_attention`` are one
+cooperative launch of grid-stride stages (LN, the projection GEMM,
+attention, the to_out GEMM) whose GEMMs run ``qmatmul``'s mainloop under
+``sec_plan``. Plain versions: the ``*_plain`` functions, which share
+``_attend_codes_plain``, a step-by-step copy of the JAX
+``_attend_codes``. The kernels take every shape with ``head_dim`` in
+``HEAD_DIMS``; which of them runs at a site is the router's choice
+(``models/routing.py``). ``probe`` records a launch's workspaces and its
+stage times.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from . import _build, check_cuda_args, qops, register, use_kernel
+from . import _build, check_cuda_args, qops, register, sm_count, use_kernel
 from .ln_quant import check_block_input, ln_or_codes_plain
+from .qmatmul import QmmPlan, igemm_scratch, qmm_plan
 
 SEC_COUNT = register("sec_attention")
 Q_COUNT = register("sec_attention_q")
@@ -164,24 +172,125 @@ def sec_attention_qkv_out_plain(x, w_int8, w_scale, bias0,
 
 def _lib():
     lib = _build.load("sec_attention.cu")
-    if lib.mixdq_sec_attention_qkv.argtypes is None:
+    f = lib.mixdq_sec_attention
+    if f.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
-        f = lib.mixdq_sec_attention_qkv
-        f.argtypes = [P] * 6 + [I] * 5 + [F] * 5 + [P]
-        f.restype = I
-        f = lib.mixdq_sec_attention_q_out
-        f.argtypes = [P] * 8 + [I] * 2 + [P] * 9 + [I] * 8 + [F] * 10 + [P]
-        f.restype = I
-        f = lib.mixdq_sec_attention
         f.argtypes = [P] * 3 + [I] * 3 + [P] + [I] * 6 + [F] * 5 + [P]
         f.restype = I
-        f = lib.mixdq_sec_attention_q
-        f.argtypes = [P] * 6 + [I] * 2 + [P] * 2 + [I] * 7 + [F] * 5 + [P]
-        f.restype = I
-        f = lib.mixdq_sec_attention_qkv_out
-        f.argtypes = [P] * 15 + [I] * 6 + [F] * 10 + [P]
-        f.restype = I
     return lib
+
+
+#: the C entry's kind of each cooperative kernel
+_KINDS = {"sec_attention_q": 0, "sec_attention_qkv": 1,
+          "sec_attention_q_out": 2, "sec_attention_qkv_out": 3}
+
+
+def _coop_lib(head_dim: int):
+    """The cooperative kernels at ``head_dim`` (one source a head dim)."""
+    lib = _build.load(f"sec_coop_d{head_dim}.cu")
+    f = lib.mixdq_sec_attention_coop
+    if f.argtypes is None:
+        P, I, F = _build.P, _build.I, _build.F
+        f.argtypes = ([I] + [P] * 9 + [I, P, I, P, I] + [P] * 10 + [I] * 11
+                      + [F] * 10 + [I] * 7 + [P])
+        f.restype = I
+        lib.mixdq_sec_attention_per_sm.argtypes = []
+        lib.mixdq_sec_attention_per_sm.restype = I
+    return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class SecPlan:
+    """One cooperative launch of the ``sec_attention*`` kernels: ``proj``
+    the to_q (``[C_in, C]``) or fused QKV (``[C, 3C]``) GEMM's plan,
+    ``out`` the to_out GEMM's (``[C, C_in]``) or None, ``attn_items`` the
+    (batch, head, 64-row) attention items, ``grid`` blocks (every one
+    resident: the launch syncs its grid), and the int32 split workspace
+    and counters that the GEMM stages share, one stage at a time."""
+    proj: QmmPlan
+    out: Optional[QmmPlan]
+    attn_items: int
+    grid: int
+    ws_elems: int
+    counters: int
+
+    @property
+    def gemms(self):
+        return (self.proj,) if self.out is None else (self.proj, self.out)
+
+    @property
+    def splits(self) -> int:
+        """The most splits of a GEMM stage (``igemm_scratch``)."""
+        return max(p.splits for p in self.gemms)
+
+
+@functools.lru_cache(maxsize=4096)
+def sec_plan(B: int, Tq: int, C_in: int, heads: int, head_dim: int,
+             sms: int, per_sm: int, *, qkv: bool, out: bool) -> SecPlan:
+    """The plan of one cooperative launch at batch ``B``, ``Tq`` query
+    rows, ``heads`` heads of ``head_dim`` (C = heads * head_dim) and input
+    width ``C_in`` (C for the fused QKV GEMM), on ``sms`` SMs holding
+    ``per_sm`` blocks each: each GEMM stage under ``qmm_plan`` over ``M =
+    B * Tq`` rows, and a grid of one block per item of the largest stage
+    (GEMM (tile, split) items or (batch, head, 64-row) attention items)
+    where the card holds that many at once, else as many as it holds.
+    Blocks walk every stage's items in a grid stride (attention items two
+    at once a block where they outnumber the blocks)."""
+    if per_sm < 1 or sms < 1:
+        raise ValueError(f"sec_attention: {per_sm} blocks per SM on {sms} "
+                         "SMs")
+    M, C = B * Tq, heads * head_dim
+    proj = qmm_plan(M, C_in, 3 * C if qkv else C, sms)
+    tail = qmm_plan(M, C, C_in, sms) if out else None
+    items = B * heads * -(-Tq // 64)
+    gemms = (proj,) if tail is None else (proj, tail)
+    grid = min(per_sm * sms, max(items, *(p.blocks for p in gemms)))
+    return SecPlan(proj, tail, items, grid, max(p.ws_elems for p in gemms),
+                   max(p.counters for p in gemms))
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sm(index: int, head_dim: int) -> int:
+    """Blocks of the cooperative kernels at ``head_dim`` one SM of device
+    ``index`` holds (at their 256 threads and 128 KB of dynamic shared
+    memory)."""
+    with torch.cuda.device(index):
+        return _coop_lib(head_dim).mixdq_sec_attention_per_sm()
+
+
+def _plan(dev, B, Tq, C_in, heads, head_dim, *, qkv, out) -> SecPlan:
+    index = dev.index or 0
+    return sec_plan(B, Tq, C_in, heads, head_dim, sm_count(index),
+                    _per_sm(index, head_dim), qkv=qkv, out=out)
+
+
+_PROBES: Optional[List[dict]] = None
+#: the stages between the stamps of a probed launch
+STAGES = ("ln", "proj", "attention", "out")
+
+
+@contextlib.contextmanager
+def probe():
+    """Within the block, every cooperative ``sec_attention*`` launch
+    appends its tensors to the yielded list, a dict a launch: ``codes``
+    (the projection's codes, written by the kernel in LN-folded mode),
+    ``proj`` (the q or q | k | v workspace), ``o`` (to_out's codes: the
+    output of the kernels without to_out), ``out`` (the whole-block
+    output or None) and ``stamps`` (int64 ``[5]``, the device's global
+    timer in ns at the start and after each of ``STAGES``: ``stage_ms``).
+    Each probed launch syncs its grid once more at its end."""
+    global _PROBES
+    prev, _PROBES = _PROBES, []
+    try:
+        yield _PROBES
+    finally:
+        _PROBES = prev
+
+
+def stage_ms(rec: dict) -> Dict[str, float]:
+    """Device ms of each stage of a probed launch (0 where it has none)."""
+    t = rec["stamps"].tolist()
+    return {name: (t[i + 1] - t[i]) / 1e6 for i, name in enumerate(STAGES)}
 
 
 def _panel_ptr(t: torch.Tensor, off: int) -> int:
@@ -245,6 +354,48 @@ def sec_attention(q_src: torch.Tensor, k_src: torch.Tensor,
     return out
 
 
+def _coop(name: str, plan: SecPlan, *, codes, w, w_scale, bias0, proj, q,
+          k, v, o, Tk: int, heads: int, head_dim: int, scale: float,
+          mid, x=None, fold=None, tail=None) -> None:
+    """One launch of the cooperative kernel: ``codes`` ``[B, Tq, Kp]``
+    (written in LN-folded mode: ``x`` the raw input, ``fold`` its
+    ``check_block_input`` tuple) x ``w`` ``[Kp, Np]`` -> ``proj`` ``[.., Np]``
+    (q's dtype); attention over the ``(tensor, column offset)`` panels
+    ``q``/``k``/``v`` with the quantizer ``mid`` = (scale_inv,
+    zp_shifted, clip) -> ``o``; ``tail`` = (wout, out_scale, out_bias0,
+    out_bias, residual, out) or None."""
+    dev = codes.device
+    B, Tq, Kp = codes.shape
+    ws, counters = igemm_scratch(plan, dev)
+    stamps = (torch.zeros(5, dtype=torch.int64, device=dev)
+              if _PROBES is not None else None)
+    gamma, beta, x_sinv, x_zp, x_clip, eps = (
+        fold or (None, None, 0.0, 0.0, (0.0, 0.0), 0.0))
+    wout, so, b0o, bo, res, out = tail or (None,) * 6
+    tail_split = (plan.out.splits, plan.out.split_k) if plan.out else (0, 0)
+    (qt, qo), (kt, ko), (vt, vo) = q, k, v
+    mid_sinv, mid_zp, clip = mid
+    out_dt = (out if out is not None else proj).dtype
+    p = _build.ptr
+    lib = _coop_lib(head_dim)
+    err = lib.mixdq_sec_attention_coop(
+        _KINDS[name], p(x if fold is not None else None), p(gamma), p(beta),
+        p(codes), p(w), p(w_scale), p(bias0), p(proj), _panel_ptr(qt, qo),
+        qt.shape[-1], _panel_ptr(kt, ko), kt.shape[-1], _panel_ptr(vt, vo),
+        vt.shape[-1], p(o), p(wout), p(so), p(b0o), p(bo), p(res), p(out),
+        p(ws), p(counters), p(stamps), B, Tq, Tk, Kp, w.shape[1],
+        0 if wout is None else wout.shape[1], heads, head_dim,
+        int(proj.dtype == torch.bfloat16), int(out_dt == torch.bfloat16),
+        int(fold is not None), scale, mid_sinv, mid_zp, clip[0], clip[1],
+        x_sinv, x_zp, x_clip[0], x_clip[1], eps, plan.proj.bm,
+        plan.proj.stages, plan.proj.splits, plan.proj.split_k, *tail_split,
+        plan.grid, _build.stream(dev))
+    _build.check(lib, err, name)
+    if _PROBES is not None:
+        _PROBES.append(dict(codes=codes, proj=proj, o=o, out=out,
+                            stamps=stamps))
+
+
 def sec_attention_q(x_codes: torch.Tensor, wq_int8: torch.Tensor,
                     wq_scale: torch.Tensor, bias0: torch.Tensor,
                     k_src: torch.Tensor, v_src: torch.Tensor,
@@ -277,15 +428,12 @@ def sec_attention_q(x_codes: torch.Tensor, wq_int8: torch.Tensor,
     dev = x_codes.device
     q_ws = torch.empty((B, Tq, C), dtype=dt, device=dev)
     out = torch.empty((B, Tq, C), dtype=torch.int8, device=dev)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_sec_attention_q(
-        p(x_codes), p(wq_int8), p(wq_scale), p(bias0),
-        _panel_ptr(k_src, k_off), _panel_ptr(v_src, v_off), k_src.shape[-1],
-        v_src.shape[-1], p(q_ws), p(out), B, Tq, Tk, C_in, heads, head_dim,
-        int(dt == torch.bfloat16), scale, out_scale_inv, out_zp_shifted,
-        clip[0], clip[1], _build.stream(dev))
-    _build.check(lib, err, "sec_attention_q")
+    _coop("sec_attention_q",
+          _plan(dev, B, Tq, C_in, heads, head_dim, qkv=False, out=False),
+          codes=x_codes, w=wq_int8, w_scale=wq_scale, bias0=bias0,
+          proj=q_ws, q=(q_ws, 0), k=(k_src, k_off), v=(v_src, v_off),
+          o=out, Tk=Tk, heads=heads, head_dim=head_dim, scale=scale,
+          mid=(out_scale_inv, out_zp_shifted, clip))
     Q_COUNT.launches += 1
     return out
 
@@ -323,15 +471,14 @@ def sec_attention_qkv(x_codes: torch.Tensor, w_int8: torch.Tensor,
     check_cuda_args("sec_attention_qkv", x=x_codes, w=w_int8, scale=w_scale,
                     bias0=bias0)
     dev = x_codes.device
-    ws = torch.empty((B * T, 3 * C), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty((B, T, 3 * C), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, T, C), dtype=torch.int8, device=dev)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_sec_attention_qkv(
-        p(x_codes), p(w_int8), p(w_scale), p(bias0), p(ws), p(out), B, T,
-        C, heads, head_dim, scale, out_scale_inv, out_zp_shifted, clip[0],
-        clip[1], _build.stream(dev))
-    _build.check(lib, err, "sec_attention_qkv")
+    _coop("sec_attention_qkv",
+          _plan(dev, B, T, C, heads, head_dim, qkv=True, out=False),
+          codes=x_codes, w=w_int8, w_scale=w_scale, bias0=bias0, proj=ws,
+          q=(ws, 0), k=(ws, C), v=(ws, 2 * C), o=out, Tk=T, heads=heads,
+          head_dim=head_dim, scale=scale,
+          mid=(out_scale_inv, out_zp_shifted, clip))
     QKV_COUNT.launches += 1
     return out
 
@@ -381,36 +528,32 @@ def sec_attention_q_out(x: torch.Tensor, wq_int8: torch.Tensor,
     if k_src.shape[0] != B or v_src.shape[:2] != (B, Tk):
         raise ValueError("sec_attention_q_out: k/v batch or key counts "
                          "differ")
-    gamma, beta, x_sinv, x_zp, x_clip, eps = check_block_input(
-        "sec_attention_q_out", x, residual, ln, C_in, dt, x.shape)
-    codes = (torch.empty((B, Tq, C_in), dtype=torch.int8, device=x.device)
-             if ln is not None else x)
+    fold = check_block_input("sec_attention_q_out", x, residual, ln, C_in, dt,
+                             x.shape)
     _check_weight("sec_attention_q_out to_q", wq_int8, C_in, C, wq_scale,
                   bias0)
     _check_weight("sec_attention_q_out to_out", wout_int8, C, C_in,
                   out_scale, out_bias0)
     if out_bias is not None:
         out_bias = out_bias.float().contiguous()
-    check_cuda_args("sec_attention_q_out", x=x, gamma=gamma, beta=beta,
+    check_cuda_args("sec_attention_q_out", x=x, gamma=fold[0], beta=fold[1],
                     wq=wq_int8, wq_scale=wq_scale, bias0=bias0,
                     wout=wout_int8, out_scale=out_scale,
                     out_bias0=out_bias0, residual=residual)
     dev = x.device
+    codes = (torch.empty((B, Tq, C_in), dtype=torch.int8, device=dev)
+             if ln is not None else x)
     q_ws = torch.empty((B, Tq, C), dtype=dt, device=dev)
     o_ws = torch.empty((B, Tq, C), dtype=torch.int8, device=dev)
     out = torch.empty((B, Tq, C_in), dtype=dt, device=dev)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_sec_attention_q_out(
-        p(x if ln is not None else None), p(gamma), p(beta), p(wq_int8),
-        p(wq_scale), p(bias0), _panel_ptr(k_src, k_off),
-        _panel_ptr(v_src, v_off), k_src.shape[-1], v_src.shape[-1],
-        p(wout_int8), p(out_scale), p(out_bias0), p(out_bias), p(residual),
-        p(codes), p(q_ws), p(o_ws), p(out), B, Tq, Tk, C_in, heads,
-        head_dim, int(dt == torch.bfloat16), int(ln is not None), scale,
-        mid_scale_inv, mid_zp_shifted, clip[0], clip[1], x_sinv, x_zp,
-        x_clip[0], x_clip[1], eps, _build.stream(dev))
-    _build.check(lib, err, "sec_attention_q_out")
+    _coop("sec_attention_q_out",
+          _plan(dev, B, Tq, C_in, heads, head_dim, qkv=False, out=True),
+          codes=codes, w=wq_int8, w_scale=wq_scale, bias0=bias0, proj=q_ws,
+          q=(q_ws, 0), k=(k_src, k_off), v=(v_src, v_off), o=o_ws, Tk=Tk,
+          heads=heads, head_dim=head_dim, scale=scale,
+          mid=(mid_scale_inv, mid_zp_shifted, clip), x=x,
+          fold=None if ln is None else fold,
+          tail=(wout_int8, out_scale, out_bias0, out_bias, residual, out))
     Q_OUT_COUNT.launches += 1
     return out
 
@@ -452,34 +595,31 @@ def sec_attention_qkv_out(x: torch.Tensor, w_int8: torch.Tensor,
                          f"{heads} heads of {head_dim}")
     if out_dtype not in _FLOAT_TYPES:
         raise TypeError(f"sec_attention_qkv_out: out_dtype {out_dtype}")
-    gamma, beta, x_sinv, x_zp, x_clip, eps = check_block_input(
-        "sec_attention_qkv_out", x, residual, ln, C, out_dtype, x.shape)
+    fold = check_block_input("sec_attention_qkv_out", x, residual, ln, C,
+                             out_dtype, x.shape)
     _check_weight("sec_attention_qkv_out to_qkv", w_int8, C, 3 * C, w_scale,
                   bias0)
     _check_weight("sec_attention_qkv_out to_out", wout_int8, C, C, out_scale,
                   out_bias0)
     if out_bias is not None:
         out_bias = out_bias.float().contiguous()
-    check_cuda_args("sec_attention_qkv_out", x=x, gamma=gamma, beta=beta,
-                    w=w_int8, scale=w_scale, bias0=bias0, wout=wout_int8,
-                    out_scale=out_scale, out_bias0=out_bias0,
+    check_cuda_args("sec_attention_qkv_out", x=x, gamma=fold[0],
+                    beta=fold[1], w=w_int8, scale=w_scale, bias0=bias0,
+                    wout=wout_int8, out_scale=out_scale, out_bias0=out_bias0,
                     residual=residual)
     dev = x.device
     codes = (torch.empty((B, T, C), dtype=torch.int8, device=dev)
              if ln is not None else x)
-    ws = torch.empty((B * T, 3 * C), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty((B, T, 3 * C), dtype=torch.bfloat16, device=dev)
     o_ws = torch.empty((B, T, C), dtype=torch.int8, device=dev)
     out = torch.empty((B, T, C), dtype=out_dtype, device=dev)
-    lib = _lib()
-    p = _build.ptr
-    err = lib.mixdq_sec_attention_qkv_out(
-        p(x if ln is not None else None), p(gamma), p(beta), p(codes),
-        p(w_int8), p(w_scale), p(bias0), p(ws), p(o_ws), p(wout_int8),
-        p(out_scale), p(out_bias0), p(out_bias), p(residual), p(out), B, T,
-        heads, head_dim, int(out_dtype == torch.bfloat16),
-        int(ln is not None), scale, mid_scale_inv, mid_zp_shifted,
-        clip[0], clip[1], x_sinv, x_zp, x_clip[0], x_clip[1], eps,
-        _build.stream(dev))
-    _build.check(lib, err, "sec_attention_qkv_out")
+    _coop("sec_attention_qkv_out",
+          _plan(dev, B, T, C, heads, head_dim, qkv=True, out=True),
+          codes=codes, w=w_int8, w_scale=w_scale, bias0=bias0, proj=ws,
+          q=(ws, 0), k=(ws, C), v=(ws, 2 * C), o=o_ws, Tk=T, heads=heads,
+          head_dim=head_dim, scale=scale,
+          mid=(mid_scale_inv, mid_zp_shifted, clip), x=x,
+          fold=None if ln is None else fold,
+          tail=(wout_int8, out_scale, out_bias0, out_bias, residual, out))
     QKV_OUT_COUNT.launches += 1
     return out

@@ -1,0 +1,156 @@
+"""A/B of the whole-attention kernels between two checkouts on one card.
+
+Runs the ``sec_attention*`` kernels (with ``geglu_out_qmatmul`` and
+``ln_quantize``, which share their LayerNorm code) of the checkout at
+``--root`` at the main-path shapes of ``chip_smoke.py`` and at small
+test shapes, on inputs made from seed 0 by that checkout's
+``chip_smoke.py`` case builders, so that two checkouts see the same
+inputs. Prints each case's median device time (each call after a 256 MB
+flush and a spin that covers the wrapper's host time) and, where the
+package has ``sec_attention.probe``, the mean stage split; saves every
+output for ``compare``. Needs a CUDA device. Run it by path, so that the
+package comes from ``--root``::
+
+    python3 mixdq_tpu_torch/scripts/sec_ab.py run --root PARENT --tag parent --out a.pt
+    python3 mixdq_tpu_torch/scripts/sec_ab.py run --root . --tag change --out b.pt
+    python3 mixdq_tpu_torch/scripts/sec_ab.py compare a.pt b.pt
+"""
+
+import argparse
+import os
+import sys
+
+ITERS = 30        # timed calls a case; the median is printed
+SPLIT_ITERS = 10  # probed calls a cooperative case
+SPIN_CYCLES = 1_000_000
+
+
+def cases(torch, cs, g, dev):
+    """(label, call, cooperative) of every case, in a fixed order."""
+    from mixdq_tpu_torch.ops import ln_quant, qmatmul
+    from mixdq_tpu_torch.ops import sec_attention as sa
+
+    bf16 = torch.bfloat16
+    out = []
+    for T, heads in [(256, 20), (1024, 10)]:
+        C = heads * 64
+        a, kw = cs.qkv_case(torch, g, dev, 1, T, heads, 64)
+        out.append((f"qkv T={T} C={C}", lambda a=a, kw=kw:
+                    sa.sec_attention_qkv(*a, **kw), True))
+        for ln in (True, False):
+            a, kw = cs.q_out_case(torch, g, dev, 1, T, 77, heads, 64, C, bf16,
+                                  ln)
+            out.append((f"q_out T={T} C={C} ln={ln}", lambda a=a, kw=kw:
+                        sa.sec_attention_q_out(*a, **kw), True))
+            a, kw = cs.qkv_out_case(torch, g, dev, 1, T, heads, 64, bf16, ln)
+            out.append((f"qkv_out T={T} C={C} ln={ln}", lambda a=a, kw=kw:
+                        sa.sec_attention_qkv_out(*a, **kw), True))
+    for B in (1, 2):
+        a, kw = cs.sec_q_case(torch, g, dev, B, 1024, 77, 20, 64, 1280, bf16)
+        out.append((f"q B={B} Tq=1024 C=1280", lambda a=a, kw=kw:
+                    sa.sec_attention_q(*a, **kw), True))
+        for Tq, Tk, heads, cross in [(1024, 1024, 20, False),
+                                     (4096, 77, 10, True)]:
+            s, kw = cs.attn_case(torch, g, dev, B, Tq, Tk, heads, 64, bf16,
+                                 cross)
+            out.append((f"attn B={B} Tq={Tq} Tk={Tk}", lambda s=s, kw=kw:
+                        sa.sec_attention(*s, 40.0, -3.0, **kw), False))
+    for d, dt in [(16, torch.float32), (32, bf16), (128, bf16)]:
+        heads = 256 // d
+        a, kw = cs.q_out_case(torch, g, dev, 2, 200, 77, heads, d, 256, dt,
+                              True)
+        out.append((f"q_out d={d} {dt}", lambda a=a, kw=kw:
+                    sa.sec_attention_q_out(*a, **kw), True))
+        a, kw = cs.qkv_out_case(torch, g, dev, 2, 200, heads, d, dt, False)
+        out.append((f"qkv_out d={d} {dt}", lambda a=a, kw=kw:
+                    sa.sec_attention_qkv_out(*a, **kw), True))
+    for M, C, ln in [(1024, 640, True), (256, 1280, True), (256, 1280, False)]:
+        a, kw = cs.geglu_out_case(torch, g, dev, M, C, 4 * C, C, bf16, ln)
+        out.append((f"geglu_out M={M} C={C} ln={ln}", lambda a=a, kw=kw:
+                    qmatmul.geglu_out_qmatmul(*a, **kw), False))
+    for shape in [(1, 1024, 640), (1, 256, 1280), (2, 77, 48)]:
+        x = (torch.randn(shape, generator=g, device=dev) * 2).to(bf16)
+        gamma = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+        beta = torch.randn(shape[-1], generator=g, device=dev) * 0.2
+        out.append((f"ln_quantize {shape}",
+                    lambda x=x, ga=gamma, be=beta:
+                        ln_quant.ln_quantize(x, ga, be, 25.0, 2.0), False))
+    return out
+
+
+def median_ms(torch, fn, flush):
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(ITERS)]
+    for a, b in ev:
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in ev)[ITERS // 2]
+
+
+def run(root, tag, out_path):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import chip_smoke as cs
+    from mixdq_tpu_torch.ops import sec_attention as sa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sec_ab: needs a CUDA device")
+    dev = torch.device("cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    probe = getattr(sa, "probe", None)
+    outs = {}
+    for label, fn, coop in cases(torch, cs, g, dev):
+        outs[label] = fn().cpu()
+        ms = median_ms(torch, fn, flush)
+        split = ""
+        if coop and probe is not None:
+            total = dict.fromkeys(sa.STAGES, 0.0)
+            for _ in range(SPLIT_ITERS):
+                flush.zero_()
+                with probe() as recs:
+                    fn()
+                torch.cuda.synchronize()
+                for k, v in sa.stage_ms(recs[0]).items():
+                    total[k] += v / SPLIT_ITERS
+            split = " " + " ".join(f"{k}={v:.4f}" for k, v in total.items())
+        print(f"{tag} {label}: median {ms:.4f} ms{split}", flush=True)
+    torch.save(outs, out_path)
+
+
+def compare(path_a, path_b):
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    for k in a:
+        d = (a[k].float() - b[k].float()).abs()
+        print(f"{k}: equal={torch.equal(a[k], b[k])} max={d.max().item()} "
+              f"frac={(d > 0).float().mean().item():.6f}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("run")
+    r.add_argument("--root", required=True)
+    r.add_argument("--tag", required=True)
+    r.add_argument("--out", required=True)
+    c = sub.add_parser("compare")
+    c.add_argument("a")
+    c.add_argument("b")
+    args = ap.parse_args()
+    if args.cmd == "run":
+        run(args.root, args.tag, args.out)
+    else:
+        compare(args.a, args.b)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,9 @@ imports torch only, so it also runs where JAX is not installed:
 Tolerances: int8 codes max |diff| <= 1 on under 1% of elements; float
 outputs rtol 1e-3 / atol 1e-2 (the same integer sums, f32 epilogues that
 round at the same steps; bf16 outputs may differ by one bf16 ulp); the
-int8 GEMMs on the shared mainloop (``qmatmul``, ``qconv2d``, and the
-fused act-quantize GEMMs) equal bit for bit (``chip_smoke.exact_err``).
+int8 GEMMs on the shared mainloop (``qmatmul``, ``qconv2d``, the fused
+act-quantize GEMMs, and the GEMM stages of the cooperative
+``sec_attention*`` kernels) equal bit for bit (``chip_smoke.exact_err``).
 """
 
 import pytest
@@ -256,20 +257,30 @@ def test_qconv_split_regimes(dev, B, H, W, C, K, stride, dtype, epilogue):
 
 @pytest.mark.parametrize("B,T,heads,d", [
     (1, 1024, 10, 64),   # SDXL-Turbo attn1 at 32x32
-    (1, 256, 20, 64),    # attn1 at 16x16
+    (1, 256, 20, 64),    # attn1 at 16x16 (split QKV GEMM, streamed keys)
     (2, 100, 2, 16),     # ragged T, small heads
     (1, 72, 3, 32),
     (2, 40, 2, 128),
+    # C = 512: two splits of the QKV GEMM; M = 400 / 200 / 300 ragged over
+    # 128-row tiles; keys in place (d = 16 / 64: T <= 256 / 224) or
+    # streamed (d = 32 / 128)
+    (2, 200, 32, 16),
+    (2, 200, 8, 64),
+    (1, 300, 16, 32),
+    (1, 200, 4, 128),
 ])
 def test_sec_attention_qkv_kernel(dev, B, T, heads, d):
-    from mixdq_tpu_torch.ops.sec_attention import (sec_attention_qkv,
-                                                   sec_attention_qkv_plain)
+    from mixdq_tpu_torch.ops import sec_attention as sa
 
     g = torch.Generator(device=dev).manual_seed(6)
     args, kw = smoke().qkv_case(torch, g, dev, B, T, heads, d)
-    got = sec_attention_qkv(*args, **kw)
-    want = sec_attention_qkv_plain(*args, **kw)
+    with sa.probe() as recs:
+        got = sa.sec_attention_qkv(*args, **kw)
+    want = sa.sec_attention_qkv_plain(*args, **kw)
+    # the fused QKV GEMM's workspace: its plain product bit for bit
+    proj = sa._proj_plain(*args[:4], torch.bfloat16)
     torch.cuda.synchronize()
+    assert len(recs) == 1 and torch.equal(recs[0]["proj"], proj)
     assert_codes_close(got, want)
 
 
@@ -282,20 +293,38 @@ def test_sec_attention_qkv_kernel(dev, B, T, heads, d):
     (1, 64, 2, 64, 320, torch.bfloat16, True),      # C_in != heads * d
     (1, 70, 2, 16, 32, torch.float32, True),        # f32 (tiny-sdxl)
     (2, 33, 5, 64, 320, torch.float32, False),
+    # C = C_in = 512: both GEMMs in two splits, M = 400 ragged over
+    # 128-row tiles; every head dim; C_in != heads * d with ragged widths
+    # (run-time copy modes), f32 at a split
+    (2, 200, 8, 64, 512, torch.bfloat16, True),
+    (1, 130, 32, 16, 512, torch.bfloat16, False),
+    (2, 100, 16, 32, 512, torch.float32, True),
+    (1, 200, 4, 128, 384, torch.bfloat16, True),
+    (1, 90, 2, 64, 200, torch.bfloat16, True),
+    (2, 70, 4, 32, 200, torch.float32, False),
 ])
 def test_sec_attention_q_out_kernel(dev, B, Tq, heads, d, C_in, dtype, ln):
-    from mixdq_tpu_torch.ops.sec_attention import (
-        sec_attention_q_out, sec_attention_q_out_plain)
+    from mixdq_tpu_torch.ops import sec_attention as sa
 
     g = torch.Generator(device=dev).manual_seed(7)
     args, kw = smoke().q_out_case(torch, g, dev, B, Tq, 77, heads, d, C_in,
                                   dtype, ln)
-    got = sec_attention_q_out(*args, **kw)
-    want = sec_attention_q_out_plain(*args, **kw)
+    with sa.probe() as recs:
+        got = sa.sec_attention_q_out(*args, **kw)
+    want = sa.sec_attention_q_out_plain(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, Tq, C_in)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
                                atol=1e-2)
+    # both GEMM stages bit for bit against their plain products on the
+    # kernel's own codes (to_q: the LN codes it wrote; to_out: its to_out
+    # codes), the residual the raw input in LN-folded mode
+    (rec,) = recs
+    x, wq, sq, b0q, _, _, _, _, wout, so, b0o, bo, residual = args
+    assert torch.equal(rec["proj"],
+                       sa._proj_plain(rec["codes"], wq, sq, b0q, dtype))
+    assert torch.equal(got, sa._out_proj_plain(
+        rec["o"], wout, so, b0o, bo, x if ln else residual, dtype))
 
 
 @pytest.mark.parametrize("B,Tq,Tk,heads,d,dtype,self_attn", [
