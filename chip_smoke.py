@@ -11,7 +11,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    per source, all at once); the compiler's register / shared memory /
    spill report goes to ``chiprun_out/nvcc_build.txt``.
 1. Each kernel against its plain PyTorch version at the main-path shapes,
-   at B=1 and B=2 for the 1024 px kernels (``qmatmul`` and ``qconv2d`` /
+   at B=1 and B=2 for the 1024 px kernels (the 512 and 1024 px shapes of
+   ``geglu_qmatmul`` and ``gn_silu_quantize``; ``geglu_qmatmul``'s label
+   carries its plan; ``qmatmul`` and ``qconv2d`` /
    ``qconv2d_s2``, whose labels carry their split-K plans: equal bit for
    bit, the int32 sums being exact in any split; int8 codes: max |diff| <= 1
    on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
@@ -58,7 +60,8 @@ Phases (none catches its own failure; any failure exits non-zero):
 5. A per-kernel device-time breakdown of one step of each int8 path and
    of bf16 from torch.profiler (written to ``chiprun_out/``); every
    profiled step logs the device ms of the five ``sec_attention*``
-   kernels.
+   kernels, ``geglu_qmatmul`` and the GroupNorm producer's three
+   (``PROFILE_KERNELS``).
 6. The mixed-precision deploys of the same UNet from the repo's elected
    maps (``configs/mp/sdxl_turbo``: W5.04, A7.43, act-protect list), on
    the phase 3 requests: ``int8_sec`` under ``'auto'`` and the weight-only
@@ -168,12 +171,17 @@ SPLIT_ITERS = 10
 # card cycles spun before each timed call in phase 1 (~0.5 ms at the
 # H100's clocks), more than any wrapper's host time
 HOST_COVER_CYCLES = 1_000_000
-# the sec_attention* kernels by their device kernels' names
-SEC_KERNELS = {"sec_attention": "sec_attn_kernel<",
-               "sec_attention_q": "sec_q_kernel<",
-               "sec_attention_qkv": "sec_qkv_kernel<",
-               "sec_attention_q_out": "sec_q_out_kernel<",
-               "sec_attention_qkv_out": "sec_qkv_out_kernel<"}
+# the redesigned kernels whose device ms every profile logs, by their
+# device kernels' names (the GroupNorm producer runs three)
+PROFILE_KERNELS = {"sec_attention": "sec_attn_kernel<",
+                   "sec_attention_q": "sec_q_kernel<",
+                   "sec_attention_qkv": "sec_qkv_kernel<",
+                   "sec_attention_q_out": "sec_q_out_kernel<",
+                   "sec_attention_qkv_out": "sec_qkv_out_kernel<",
+                   "geglu_qmatmul": "geglu_kernel<",
+                   "gn_partial": "gn_partial<",
+                   "gn_finalize": "gn_finalize(",
+                   "gn_apply": "gn_apply<"}
 # timed calls of each kernel benchmark row in phase 8
 KB_ITERS = 5
 _NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
@@ -340,7 +348,13 @@ LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
            "wq_matmul": "torch.matmul(x, w) on the weight dequantized to "
                         "bf16 before the timed region",
            "qmatmul_fused": _FUSED_LIBRARY,
-           "qmatmul_fused2": _FUSED_LIBRARY}
+           "qmatmul_fused2": _FUSED_LIBRARY,
+           "gn_silu_quantize": "none (library_ms null): no single PyTorch "
+                               "call computes GroupNorm with SiLU and the "
+                               "act-quantize",
+           "geglu_qmatmul": "none (library_ms null): no single PyTorch call "
+                            "computes the int8 GEMM with the GEGLU gate and "
+                            "the act-quantize"}
 
 
 def log(*a):
@@ -483,7 +497,9 @@ def kernel_cases(torch, dev):
             None))
     for shape, silu, eps in [((1, 64, 64, 320), True, 1e-5),
                              ((1, 32, 32, 640), False, 1e-6),
-                             ((1, 16, 16, 2560), True, 1e-5)]:
+                             ((1, 16, 16, 2560), True, 1e-5),
+                             ((1, 64, 64, 960), True, 1e-5),
+                             ((1, 128, 128, 320), True, 1e-5)]:
         C = shape[-1]
         x = randn(*shape, dtype=bf16) * 2
         gam, bet = torch.rand(C, generator=g, device=dev) + 0.5, randn(C)
@@ -504,12 +520,15 @@ def kernel_cases(torch, dev):
                       lambda a=args: ln_quant.ln_quantize(*a),
                       lambda a=args: ln_quant.ln_quantize_plain(*a),
                       codes_err, 3 * n, [(8 * n, F32_OPS_PER_S)], None))
-    for M, K, H in [(256, 1280, 5120), (1024, 640, 2560)]:
+    # 512 px (16x16, 32x32), then 1024 px (32x32, 64x64)
+    for M, K, H in [(256, 1280, 5120), (1024, 640, 2560), (1024, 1280, 5120),
+                    (4096, 640, 2560)]:
         x, w = codes(M, K), codes(K, 2 * H)
         scale = (torch.rand(2 * H, generator=g, device=dev) + 0.5) * 2e-5
         bias0 = 5.0 * w.int().sum(0).float()
         args = (x, w, scale, bias0, 25.0, 4.0, randn(2 * H, dtype=bf16))
-        cases.append(("geglu_qmatmul", f"M={M} K={K} 2H={2 * H}",
+        cases.append(("geglu_qmatmul", f"M={M} K={K} 2H={2 * H}"
+                      + plan_label(qmatmul.geglu_plan(M, K, H, sms)),
                       lambda a=args: qmatmul.geglu_qmatmul(*a),
                       lambda a=args: qmatmul.geglu_qmatmul_plain(*a),
                       codes_err, M * K + 2 * K * H + M * H,
@@ -2042,8 +2061,8 @@ def phase_profile(torch, unet, req, paths):
             log(f"  {ms:9.4f} ms x{n:5d} {key[:90]}")
         sec = {name: [round(sum(r[0] for r in rows if pat in r[2]), 4),
                       sum(r[1] for r in rows if pat in r[2])]
-               for name, pat in SEC_KERNELS.items()}
-        log(f"profile {tag}: sec_attention* device ms, launches {sec}")
+               for name, pat in PROFILE_KERNELS.items()}
+        log(f"profile {tag}: redesigned kernels' device ms, launches {sec}")
 
 
 def paired_step_ms(torch, unet, requests, paths, card, label):
@@ -2313,7 +2332,7 @@ def main():
     for name, (src, replaces) in PORTED.items():
         r = report[name]
         first, extra = r["shapes"][0], {}
-        if first["library_ms"] is not None:
+        if name in LIBRARY:
             extra["library"] = LIBRARY[name]
         for key in ("library_kmajor_ms", "quantize_qmatmul_ms", "stages_ms"):
             if first[key] is not None:

@@ -1,6 +1,8 @@
 // Pipelined int8 GEMM mainloop with split-K in one launch, shared by the
-// dense GEMM (qmatmul.cu), the implicit-GEMM convolution (qconv.cu) and
-// the fused act-quantize GEMMs (qmatmul_fused.cu).
+// dense GEMM (qmatmul.cu), the implicit-GEMM convolution (qconv.cu), the
+// fused act-quantize GEMMs (qmatmul_fused.cu), the GEMM stages of the
+// cooperative sec_attention* kernels (sec_attention.cuh) and the GEGLU
+// projection (geglu_qmatmul.cu).
 //
 // C [M, N] = A [M, Kdim] x B [Kdim, N] in int32, A int8 codes behind a
 // loader (row-major codes: DenseA; the im2col view of an NHWC image:
@@ -13,8 +15,9 @@
 // warp 64 rows x 32 columns (4 x 4 mma.sync m16n8k32 s8 tiles). Warps
 // skip the 16-row m tiles that lie wholly past M (M = 1 multiplies one
 // m16 tile per column slab, M = 77 five) and their whole 32-column slab
-// when it lies past N. One block an SM: the plans (ops/qmatmul.py:
-// qmm_plan) launch at most one wave where they split.
+// when it lies past N. One block an SM (geglu_qmatmul: two, on a 2-stage
+// ring): the plans (ops/qmatmul.py:qmm_plan) launch at most one wave
+// where they split.
 //
 // Ring. A k step is 128 bytes of Kdim. The A tile (128 x 128) and the B
 // tile (128 x 128) of a step land in one of STAGES ring stages in dynamic
@@ -130,6 +133,53 @@ __device__ __forceinline__ void issue_b(uint32_t bs, const BSrc& b, int k0,
 #pragma unroll
         for (int j = 0; j < 16; ++j)
           if (n + j < b.N) u.s[j] = src[j];
+      }
+      st_shared16(dst, u);
+    }
+  }
+}
+
+// The GEGLU projection's weight [K, 2H] as deployed (value columns [0, H),
+// gate columns [H, 2H)) as a B operand whose tile at output column n0
+// holds 64 output columns: 16-byte chunk c of a row is value columns n0 +
+// 16 (c / 2) .. +15 for even c and their gate columns for odd c, so every
+// 32-column warp slab is 16 value columns and then the same 16 gate
+// columns, and thread (g, t) of the slab holds value columns for t < 2 and
+// the same columns' gates for t >= 2 (lanes t and t ^ 2). Columns at or
+// past H read 0 in both halves. mode: b_mode(w, H), as both halves of a
+// row start at a multiple of H.
+struct GegluB {
+  const int8_t* w;
+  int H, mode;
+};
+
+template <bool FAST>
+__device__ __forceinline__ void issue_b(uint32_t bs, const GegluB& b, int k0,
+                                        int k_end, int n0) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int kl = i >> 3, c = i & 7;
+    const int k = k0 + kl, n = n0 + (c >> 1) * 16;
+    const uint32_t dst = bs + b_off(kl, c);
+    const int8_t* src =
+        b.w + static_cast<size_t>(k) * 2 * b.H + (c & 1) * b.H + n;
+    const bool krow = k < k_end;
+    if (FAST || b.mode == B_COPY16) {
+      const bool ok = krow && n < b.H;
+      cp_async16(dst, ok ? src : b.w, ok);
+    } else if (b.mode == B_COPY4) {
+#pragma unroll
+      for (int j = 0; j < 16; j += 4) {
+        const bool ok = krow && n + j < b.H;
+        cp_async4(dst + j, ok ? src + j : b.w, ok);
+      }
+    } else {
+      Chunk16 u = fill16(0);
+      if (krow) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (n + j < b.H) u.s[j] = src[j];
       }
       st_shared16(dst, u);
     }
@@ -483,9 +533,10 @@ __device__ __forceinline__ void mma_frags(const Frags& f, int mtiles,
 
 // The block's tile over Kdim range [k_begin, k_end) into acc. Every
 // thread of the block calls it (it synchronizes the block). The A loader
-// is called for the steps in order.
-template <bool FAST, class ALoad>
-__device__ __forceinline__ void mainloop(ALoad& a, const BSrc& b,
+// is called for the steps in order; B is a BSrc or a GegluB. NST: the
+// ring's stages (NST * STAGE bytes of smem).
+template <bool FAST, int NST = STAGES, class ALoad, class BLoad>
+__device__ __forceinline__ void mainloop(ALoad& a, const BLoad& b,
                                          int n0, int k_begin, int k_end,
                                          unsigned char* smem, int wm,
                                          int wn, int mtiles, bool nlive,
@@ -499,23 +550,23 @@ __device__ __forceinline__ void mainloop(ALoad& a, const BSrc& b,
   const uint32_t bcol =
       ((((wn >> 4) + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
   auto issue = [&](int step) {
-    const uint32_t st = base + (step % STAGES) * STAGE;
+    const uint32_t st = base + (step % NST) * STAGE;
     a.issue(st, k_begin + step * BK, k_end);
     issue_b<FAST>(st + A_BYTES, b, k_begin + step * BK, k_end, n0);
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < NST - 1; ++s) {
     if (s < steps) issue(s);
     cp_async_commit();
   }
   Frags f;
   for (int i = 0; i < steps; ++i) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<NST - 2>();
     // step i landed, and every warp is done with step i - 1's stage
     __syncthreads();
-    if (i + STAGES - 1 < steps) issue(i + STAGES - 1);
+    if (i + NST - 1 < steps) issue(i + NST - 1);
     cp_async_commit();
-    const int slot = i % STAGES;
+    const int slot = i % NST;
     if (!live) continue;
 #pragma unroll
     for (int s = 0; s < BK / 32; ++s) {
@@ -886,11 +937,13 @@ __device__ __forceinline__ void run_block(ALoad& a, const BSrc& b,
 }
 
 // The plan passed from Python (ops/qmatmul.py:qmm_plan) must be this
-// build's: its tile and ring depth, whole k steps per split but the last,
-// the splits covering Kdim once, a workspace and counters when split.
+// build's: its tile and ring depth (`ring`: the kernel's), whole k steps
+// per split but the last, the splits covering Kdim once, a workspace and
+// counters when split.
 inline bool plan_ok(int bm, int stages, int splits, int split_k, int Kdim,
-                    const int* ws, const unsigned* counters) {
-  if (bm != BM || stages != STAGES) return false;
+                    const int* ws, const unsigned* counters,
+                    int ring = STAGES) {
+  if (bm != BM || stages != ring) return false;
   if (splits < 1 || split_k <= 0 || split_k % BK) return false;
   if (static_cast<long long>(splits) * split_k < Kdim ||
       static_cast<long long>(splits - 1) * split_k >= (Kdim > 0 ? Kdim : 1))

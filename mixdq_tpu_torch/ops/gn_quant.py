@@ -4,9 +4,11 @@
 ``codes = quantize(silu(group_norm(x, gamma, beta)), s_a, zp)`` emits the
 next conv's (or ``proj_in``'s, with ``silu=False``) int8 codes from the
 raw input. Groups are contiguous channel ranges of width C/G. Kernel:
-``csrc/gn_quant.cu``; plain version: ``gn_silu_quantize_plain``, which
-keeps the reference's order: per-channel sums, group sums, then
-``y = x * a + b`` with ``a = gamma * rstd`` and ``b = beta - mean * a``.
+``csrc/gn_quant.cu`` (three launches: chunk partials, a finalize spread
+over one block per group, apply); plain version:
+``gn_silu_quantize_plain``, which keeps the reference's order:
+per-channel sums, group sums, then ``y = x * a + b`` with ``a = gamma *
+rstd`` and ``b = beta - mean * a``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ import torch
 from . import _build, check_cuda_args, register, use_kernel
 
 COUNT = register("gn_silu_quantize")
-#: row chunks of the stats pass (blocks per batch element)
+#: row chunks of the stats pass per batch element (at most; ``csrc``:
+#: PART_SLOTS); a channel's sums add in row order within a chunk, then in
+#: chunk order
 _STAT_CHUNKS = 64
-_MAX_C = 6144  # finalize keeps 2C floats of sums in shared memory
+_MAX_C = 6144  # finalize keeps 2C/G floats of sums in shared memory
 
 
 def gn_silu_quantize_plain(x, gamma, beta, scale_inv: float,
@@ -78,7 +82,8 @@ def gn_silu_quantize(x: torch.Tensor, gamma: torch.Tensor,
     check_cuda_args("gn_silu_quantize", x=x, gamma=gamma, beta=beta)
     S = min(_STAT_CHUNKS, N)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    part = torch.empty((B, S, 2, C), dtype=torch.float32, device=x.device)
+    part = torch.empty((B, 2, C, _STAT_CHUNKS), dtype=torch.float32,
+                       device=x.device)
     ab = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
     lib = _lib()
     err = lib.mixdq_gn_quantize(

@@ -11,8 +11,9 @@
   value and gate halves of ``[K, 2H]``, the dequant epilogues (``bias0``
   cast to int32 before the subtraction), the gate ``v * gelu(g)`` and
   the consumer's (``ff.net.2``) act-quantize, emitting that consumer's
-  int8 codes ``[M, H]``. Kernel: ``csrc/geglu_qmatmul.cu``; plain
-  version: ``geglu_qmatmul_plain``.
+  int8 codes ``[M, H]``. Kernel: ``csrc/geglu_qmatmul.cu`` (``qmatmul``'s
+  mainloop, each tile's weight columns the values and gates of 64 output
+  columns) under ``geglu_plan``; plain version: ``geglu_qmatmul_plain``.
 * ``geglu_out_qmatmul`` (port of ``geglu_out_qmatmul``): the whole
   feed-forward: the pre-LayerNorm + proj act-quantize (LN-folded mode)
   or given codes, ``geglu_qmatmul``'s work, then the ``ff.net.2`` GEMM
@@ -81,7 +82,7 @@ def _lib():
     f = lib.mixdq_geglu_qmatmul
     if f.argtypes is None:
         P, I, F = _build.P, _build.I, _build.F
-        f.argtypes = [P] * 6 + [I] * 4 + [F] * 4 + [P]
+        f.argtypes = [P] * 8 + [I] * 4 + [F] * 4 + [I] * 4 + [P]
         f.restype = I
         g = lib.mixdq_geglu_out_qmatmul
         g.argtypes = [P] * 15 + [I] * 7 + [F] * 9 + [P]
@@ -119,13 +120,17 @@ def geglu_qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor,
     if (K % 16 == 0 and x_int8.data_ptr() % 16) or \
             (H % 16 == 0 and w_int8.data_ptr() % 16):
         raise ValueError("geglu_qmatmul: x/w must be 16-byte aligned")
-    out = torch.empty((M, H), dtype=torch.int8, device=x_int8.device)
+    dev = x_int8.device
+    plan = geglu_plan(M, K, H, sm_count(dev.index or 0))
+    out = torch.empty((M, H), dtype=torch.int8, device=dev)
+    ws, counters = igemm_scratch(plan, dev)
     lib = _lib()
     p = _build.ptr
     err = lib.mixdq_geglu_qmatmul(
-        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), p(out), M, K, H,
-        int(gelu_tanh), out_scale_inv, out_zp_shifted, clip[0], clip[1],
-        _build.stream(x_int8.device))
+        p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), p(out), p(ws),
+        p(counters), M, K, H, int(gelu_tanh), out_scale_inv, out_zp_shifted,
+        clip[0], clip[1], plan.bm, plan.stages, plan.splits, plan.split_k,
+        _build.stream(dev))
     _build.check(lib, err, "geglu_qmatmul")
     COUNT.launches += 1
     return out
@@ -194,6 +199,25 @@ def qmm_plan(M: int, kdim: int, N: int, sms: int) -> QmmPlan:
     return QmmPlan(bm, bn, QMM_BK, QMM_STAGES, kdim, splits, per * QMM_BK,
                    tiles, tiles * splits * bm * bn if split else 0,
                    tiles if split else 0)
+
+
+#: ``geglu_qmatmul``'s ring stages and the blocks an SM holds at once
+#: (``csrc/geglu_qmatmul.cu``: GEGLU_STAGES, ``__launch_bounds__``)
+GEGLU_STAGES = 2
+GEGLU_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=4096)
+def geglu_plan(M: int, K: int, H: int, sms: int) -> QmmPlan:
+    """``geglu_qmatmul``'s plan: ``qmm_plan`` over the ``2H`` weight
+    columns and the ``GEGLU_BLOCKS_PER_SM * sms`` blocks the card holds,
+    on a ring of ``GEGLU_STAGES``. A 128-column tile is the values and
+    gates of 64 output columns (the kernel's B loader interleaves them),
+    so the tiles, the splits (only where the tiles fill fewer than the
+    resident blocks) and the workspace are the GEMM's."""
+    return dataclasses.replace(
+        qmm_plan(M, K, 2 * H, GEGLU_BLOCKS_PER_SM * sms),
+        stages=GEGLU_STAGES)
 
 
 _COUNTERS: Dict[Tuple[str, int], torch.Tensor] = {}

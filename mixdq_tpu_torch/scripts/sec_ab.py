@@ -1,15 +1,18 @@
-"""A/B of the whole-attention kernels between two checkouts on one card.
+"""A/B of the redesigned kernels between two checkouts on one card.
 
 Runs the ``sec_attention*`` kernels (with ``geglu_out_qmatmul`` and
-``ln_quantize``, which share their LayerNorm code) of the checkout at
-``--root`` at the main-path shapes of ``chip_smoke.py`` and at small
-test shapes, on inputs made from seed 0 by that checkout's
-``chip_smoke.py`` case builders, so that two checkouts see the same
-inputs. Prints each case's median device time (each call after a 256 MB
-flush and a spin that covers the wrapper's host time) and, where the
-package has ``sec_attention.probe``, the mean stage split; saves every
-output for ``compare``. Needs a CUDA device. Run it by path, so that the
-package comes from ``--root``::
+``ln_quantize``, which share their LayerNorm code), ``geglu_qmatmul``
+and ``gn_silu_quantize`` of the checkout at ``--root`` at the main-path
+shapes of ``chip_smoke.py`` and at small test shapes, on inputs made
+from seed 0 (the attention cases by that checkout's ``chip_smoke.py``
+case builders), so that two checkouts see the same inputs. Prints each
+case's median device time (each call after a 256 MB flush and a spin
+that covers the wrapper's host time) and, where the package has
+``sec_attention.probe``, the mean stage split; saves every output for
+``compare``. Needs a CUDA device. Build both checkouts' kernels first
+(``_build.build_all()``; otherwise each source builds at its first
+call, one after another). Run it by path, so that the package comes
+from ``--root``::
 
     python3 mixdq_tpu_torch/scripts/sec_ab.py run --root PARENT --tag parent --out a.pt
     python3 mixdq_tpu_torch/scripts/sec_ab.py run --root . --tag change --out b.pt
@@ -27,7 +30,7 @@ SPIN_CYCLES = 1_000_000
 
 def cases(torch, cs, g, dev):
     """(label, call, cooperative) of every case, in a fixed order."""
-    from mixdq_tpu_torch.ops import ln_quant, qmatmul
+    from mixdq_tpu_torch.ops import gn_quant, ln_quant, qmatmul
     from mixdq_tpu_torch.ops import sec_attention as sa
 
     bf16 = torch.bfloat16
@@ -75,6 +78,43 @@ def cases(torch, cs, g, dev):
         out.append((f"ln_quantize {shape}",
                     lambda x=x, ga=gamma, be=beta:
                         ln_quant.ln_quantize(x, ga, be, 25.0, 2.0), False))
+    # geglu_qmatmul: the 512 and 1024 px shapes, M = 1, ragged widths, no
+    # bias, the exact gelu
+    for M, K, H, bias, tanh in [(256, 1280, 5120, True, True),
+                                (1024, 640, 2560, True, True),
+                                (1024, 1280, 5120, True, True),
+                                (4096, 640, 2560, True, True),
+                                (1, 1280, 5120, True, True),
+                                (37, 40, 24, True, True),
+                                (256, 1280, 5120, False, True),
+                                (1024, 640, 2560, True, False)]:
+        x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, 2 * H), generator=g, device=dev,
+                          dtype=torch.int8)
+        scale = (torch.rand(2 * H, generator=g, device=dev) + 0.5) * 2e-5
+        bias0 = 5.0 * w.int().sum(0).float()
+        b = (torch.randn(2 * H, generator=g, device=dev).to(bf16) if bias
+             else None)
+        out.append((f"geglu M={M} K={K} H={H} bias={bias} tanh={tanh}",
+                    lambda a=(x, w, scale, bias0, 25.0, 4.0, b), t=tanh:
+                        qmatmul.geglu_qmatmul(*a, gelu_tanh=t), False))
+    # gn_silu_quantize: chip_smoke's phase-1 shapes, f32 x, B = 2
+    for shape, silu, eps, dt in [((1, 64, 64, 320), True, 1e-5, bf16),
+                                 ((1, 32, 32, 640), False, 1e-6, bf16),
+                                 ((1, 16, 16, 2560), True, 1e-5, bf16),
+                                 ((1, 64, 64, 960), True, 1e-5, bf16),
+                                 ((1, 128, 128, 320), True, 1e-5, bf16),
+                                 ((1, 32, 32, 640), True, 1e-5,
+                                  torch.float32),
+                                 ((2, 32, 32, 1280), True, 1e-5, bf16)]:
+        C = shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2).to(dt)
+        gamma = torch.rand(C, generator=g, device=dev) + 0.5
+        beta = torch.randn(C, generator=g, device=dev)
+        out.append((f"gn {shape} {dt} silu={silu}",
+                    lambda a=(x, gamma, beta, 30.0, -5.0, 32, eps, silu):
+                        gn_quant.gn_silu_quantize(*a), False))
     return out
 
 

@@ -83,18 +83,26 @@ def test_qconv_kernel(dev, B, H, W, C, K, pad, stride, dtype, epilogue):
                                atol=1e-2)
 
 
-@pytest.mark.parametrize("shape,groups,silu,eps", [
-    ((1, 64, 64, 320), 32, True, 1e-5),
-    ((1, 32, 32, 640), 32, False, 1e-6),
-    ((2, 5, 7, 96), 32, True, 1e-5),
+@pytest.mark.parametrize("shape,groups,silu,eps,dtype", [
+    ((1, 64, 64, 320), 32, True, 1e-5, torch.bfloat16),
+    ((1, 32, 32, 640), 32, False, 1e-6, torch.bfloat16),
+    ((2, 5, 7, 96), 32, True, 1e-5, torch.bfloat16),
+    ((1, 64, 64, 960), 32, True, 1e-5, torch.bfloat16),
+    ((1, 16, 16, 2560), 32, True, 1e-5, torch.bfloat16),
+    ((1, 32, 32, 640), 32, True, 1e-5, torch.float32),   # f32 x
+    ((2, 32, 32, 1280), 32, True, 1e-5, torch.bfloat16),  # B = 2
+    ((1, 3, 5, 96), 32, True, 1e-5, torch.bfloat16),      # N < 64 rows
+    ((2, 7, 9, 96), 32, False, 1e-5, torch.float32),      # N < 64, f32
+    ((1, 6, 5, 36), 4, True, 1e-5, torch.bfloat16),       # C % 8 != 0
+    ((2, 4, 4, 33), 3, True, 1e-5, torch.bfloat16),       # C odd
 ])
-def test_gn_quant_kernel(dev, shape, groups, silu, eps):
+def test_gn_quant_kernel(dev, shape, groups, silu, eps, dtype):
     from mixdq_tpu_torch.ops.gn_quant import (gn_silu_quantize,
                                               gn_silu_quantize_plain)
 
     g = torch.Generator().manual_seed(1)
     C = shape[-1]
-    x = (torch.randn(shape, generator=g) * 2 + 0.3).to(dev, torch.bfloat16)
+    x = (torch.randn(shape, generator=g) * 2 + 0.3).to(dev, dtype)
     gamma = (torch.rand(C, generator=g) + 0.5).to(dev)
     beta = (torch.randn(C, generator=g) * 0.2).to(dev)
     got = gn_silu_quantize(x, gamma, beta, 30.0, -5.0, groups, eps, silu)
@@ -124,6 +132,14 @@ def test_ln_quant_kernel(dev, shape):
     (1024, 640, 2560, True, True),
     (256, 1280, 5120, False, True),
     (37, 40, 24, True, False),  # widths not multiples of 16
+    (1024, 1280, 5120, True, True),  # 1024 px
+    (4096, 640, 2560, True, True),   # 1024 px
+    (1, 1280, 5120, True, True),     # M = 1
+    (300, 1000, 640, True, True),    # K % 128 != 0, ragged M
+    (200, 640, 2576, False, True),   # H % 64 != 0, H % 16 == 0
+    (129, 1280, 100, True, False),   # H % 16 != 0: 4-byte copies
+    (50, 96, 37, True, True),        # H odd: byte copies
+    (64, 640, 2560, True, True),     # the plan splits K (40 tiles)
 ])
 def test_geglu_kernel(dev, M, K, H, gelu_tanh, with_bias):
     from mixdq_tpu_torch.ops.qmatmul import (geglu_qmatmul,
