@@ -12,8 +12,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    spill report goes to ``chiprun_out/nvcc_build.txt``.
 1. Each kernel against its plain PyTorch version at the main-path shapes,
    at B=1 and B=2 for the 1024 px kernels (the 512 and 1024 px shapes of
-   ``geglu_qmatmul`` and ``gn_silu_quantize``; ``geglu_qmatmul``'s label
-   carries its plan; ``qmatmul`` and ``qconv2d`` /
+   ``geglu_qmatmul`` and ``gn_silu_quantize``; ``geglu_qmatmul``'s and
+   ``geglu_out_qmatmul``'s labels carry their plans; ``qmatmul`` and
+   ``qconv2d`` /
    ``qconv2d_s2``, whose labels carry their split-K plans: equal bit for
    bit, the int32 sums being exact in any split; int8 codes: max |diff| <= 1
    on < 1% of codes; floats rtol 1e-3 / atol 1e-2; flash attention, at
@@ -31,10 +32,12 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``torch.matmul`` on the weight dequantized beforehand for
    ``wq4_matmul`` / ``wq_matmul``, whose check is flash attention's).
    Then each fused GEMM at M=1024 K=5120 N=1280 under torch.profiler:
-   one device kernel per call. The cooperative ``sec_attention*``
-   kernels also print their stage split (LN, projection GEMM, attention,
-   to_out GEMM: ``sec_attention.probe``'s stamps after each grid sync,
-   means of ``SPLIT_ITERS`` flushed calls).
+   one device kernel per call; and one launch of an empty kernel, timed
+   as the kernels are (the launch floor that ``ln_quantize`` nears).
+   The cooperative ``sec_attention*`` kernels also print their stage
+   split (LN, projection GEMM, attention, to_out GEMM:
+   ``sec_attention.probe``'s stamps after each grid sync, means of
+   ``SPLIT_ITERS`` flushed calls).
 2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
    take the whole-attention kernels), W8A8 steps in float32
    under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
@@ -179,6 +182,8 @@ PROFILE_KERNELS = {"sec_attention": "sec_attn_kernel<",
                    "sec_attention_q_out": "sec_q_out_kernel<",
                    "sec_attention_qkv_out": "sec_qkv_out_kernel<",
                    "geglu_qmatmul": "geglu_kernel<",
+                   "ln_quantize": "ln_quant_",
+                   "geglu_out_qmatmul": "geglu_out_kernel<",
                    "gn_partial": "gn_partial<",
                    "gn_finalize": "gn_finalize(",
                    "gn_apply": "gn_apply<"}
@@ -354,7 +359,32 @@ LIBRARY = {"qmatmul": "torch._int_mm on the same operands: the int32 "
                                "act-quantize",
            "geglu_qmatmul": "none (library_ms null): no single PyTorch call "
                             "computes the int8 GEMM with the GEGLU gate and "
-                            "the act-quantize"}
+                            "the act-quantize",
+           "qconv2d": "none (library_ms null): no single PyTorch call "
+                      "computes an int8 convolution with the dequant "
+                      "epilogue",
+           "qconv2d_s2": "none (library_ms null): no single PyTorch call "
+                         "computes an int8 convolution with the dequant "
+                         "epilogue",
+           "ln_quantize": "none (library_ms null): no single PyTorch call "
+                          "computes LayerNorm with the act-quantize",
+           "geglu_out_qmatmul": "none (library_ms null): no single PyTorch "
+                                "call computes the int8 feed-forward (GEGLU, "
+                                "act-quantize, int8 GEMM, residual)",
+           "int8_flash_attention": "none (library_ms null): no single "
+                                   "PyTorch call computes attention on int8 "
+                                   "codes; flash_attention's "
+                                   "scaled_dot_product_attention time is a "
+                                   "bf16 comparison only",
+           "int8qkv_flash_attention": "none (library_ms null): no single "
+                                      "PyTorch call computes attention on "
+                                      "int8 codes; flash_attention's "
+                                      "scaled_dot_product_attention time is "
+                                      "a bf16 comparison only"}
+for _k in ("sec_attention", "sec_attention_q", "sec_attention_qkv",
+           "sec_attention_qkv_out", "sec_attention_q_out"):
+    LIBRARY[_k] = ("none (library_ms null): no single PyTorch call computes "
+                   "the int8 projections with attention on their codes")
 
 
 def log(*a):
@@ -510,7 +540,7 @@ def kernel_cases(torch, dev):
                       lambda a=args: gn_quant.gn_silu_quantize(*a),
                       lambda a=args: gn_quant.gn_silu_quantize_plain(*a),
                       codes_err, 3 * n, [(12 * n, F32_OPS_PER_S)], None))
-    for shape in [(1, 1024, 640), (1, 256, 1280)]:
+    for shape in [(1, 1024, 640), (1, 256, 1280), (1, 4096, 640)]:
         C = shape[-1]
         x = randn(*shape, dtype=bf16) * 3
         args = (x, torch.rand(C, generator=g, device=dev) + 0.5, randn(C),
@@ -656,9 +686,12 @@ def kernel_cases(torch, dev):
                      (256, 1280, False)]:
         H = 4 * C
         args, kw = geglu_out_case(torch, g, dev, M, C, H, C, bf16, ln)
+        plan = qmatmul.device_geglu_out_plan(dev, M, C, H, C)
         cases.append(("geglu_out_qmatmul",
                       f"M={M} K=C={C} H={H} "
-                      + ("LN-folded" if ln else "pre-coded + residual"),
+                      + ("LN-folded" if ln else "pre-coded + residual")
+                      + f" plan GEGLU{plan_label(plan.geglu)}; ff.net.2"
+                      + plan_label(plan.net2) + f"; grid {plan.grid}",
                       lambda a=args, kw=kw: qmatmul.geglu_out_qmatmul(*a,
                                                                      **kw),
                       lambda a=args, kw=kw:
@@ -994,6 +1027,20 @@ def phase_kernels(torch, dev, flush):
                                 library_ms=l_ms, library_kmajor_ms=lk_ms,
                                 quantize_qmatmul_ms=c_ms, stages_ms=split))
     return report
+
+
+def launch_floor_ms(torch, dev, flush):
+    """Device ms of one launch of an empty kernel of one warp
+    (``csrc/ln_quant.cu:empty_kernel``, built with the others), timed as
+    phase 1 times a kernel: what a launch costs whatever its work."""
+    from mixdq_tpu_torch.ops import _build
+
+    lib = _build.load("ln_quant.cu")
+    f = lib.mixdq_empty_launch
+    f.argtypes, f.restype = [_build.P], _build.I
+    stream = _build.stream(dev)
+    return time_ms(torch, lambda: _build.check(lib, f(stream), "empty_kernel"),
+                   20, flush)
 
 
 def sec_gemms_exact(torch, name, args, kw):
@@ -2280,6 +2327,8 @@ def main():
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     report = phase_kernels(torch, dev, flush)
+    log(f"launch floor: empty kernel {launch_floor_ms(torch, dev, flush):.4f}"
+        " ms (one warp, timed as phase 1 times each kernel)")
     del flush
     fused_one_kernel(torch, dev)
     log("phase 1: every kernel matches its plain version")

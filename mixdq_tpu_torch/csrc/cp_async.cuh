@@ -26,6 +26,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 16 bytes that other blocks of the SM read too (cp.async.ca: cached in
+// L1 on the way, so that their copies hit it).
+__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
 // 4 bytes, the same way (cp.async.ca: the .cg form takes 16 only).
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {

@@ -79,6 +79,8 @@
 using namespace mixdq;
 
 constexpr float MASKED = -1e30f;
+// threads of the f32 and int8 paths' blocks: a warp per 16 of 64 rows
+constexpr int THREADS = 128;
 
 template <typename T>
 struct FlashArgs {

@@ -38,19 +38,33 @@
 
 // geglu_out_qmatmul, the whole feed-forward (replaces
 // :geglu_out_qmatmul, pallas_call at :702, bodies _geglu_out_kernel :459
-// and _geglu_lnout_kernel :489): one cooperative launch in grid-stride
-// stages separated by grid-wide syncs: (LN-folded mode) LayerNorm + proj
-// act-quantize of every row into a codes workspace; 64x64 GEGLU tiles
-// (geglu_tile, on mma_s8.cuh's block) into an [M, H] workspace of
-// ff.net.2's codes; the ff.net.2 GEMM with qmatmul's epilogue (bias0
-// subtracted in f32 there), its bias and the residual (the raw input in
-// LN-folded mode), in the model dtype. The TPU
-// kernel sums net.2 over its H panels in an int32 scratch and pads H with
-// zero w2 rows; here one net.2 tile sums the whole H, columns past H read
-// as zero. Two launches would be simpler, but the JAX package runs one
-// call per ff site. Bounds: at M = 1024 K = C = 640 H = 2560 the int8
-// operations (10.1 GOP, ~5.1 us); at M = 256 K = C = 1280 H = 5120 the
-// weight bytes (19.7 MB, ~5.9 us).
+// and _geglu_lnout_kernel :489): one cooperative launch (the JAX package
+// runs one call per ff site) in three grid-stride stages separated by
+// grid-wide syncs, all in the same dynamic shared memory:
+//   1. LN-folded mode: LayerNorm + proj act-quantize of every row into a
+//      codes workspace, a warp a row on common.cuh:ln_rows (ln_quantize's
+//      rows), gamma, beta and each warp's row in the ring's memory;
+//   2. the GEGLU items (tile, split) of geglu_qmatmul's plan on the same
+//      mainloop, B loader and epilogue as geglu_kernel (geglu_item), into
+//      an [M, H] workspace of ff.net.2's codes;
+//   3. ff.net.2: igemm::run_tile over the (tile, split) items of
+//      qmm_plan(M, H, C) on the same ring, A the [M, H] codes, with
+//      qmatmul's epilogue (bias0 subtracted in f32), ff.net.2's bias and
+//      the residual (the raw input in LN-folded mode), in the model dtype.
+// The two GEMM stages share one split workspace and its arrival counters,
+// one stage at a time (each tile's last block resets its counter). One
+// block an SM on the 4-stage ring (246-254 registers, no spills); two
+// blocks an SM on geglu_kernel's 2-stage ring spilled ~200 bytes a
+// thread at its 128 registers (PERF.md has its times). The TPU kernel
+// sums net.2 over its H panels in an int32 scratch and pads H with zero
+// w2 rows; here a ragged H reads as zero (the A loader stops at H). Plan: ops/qmatmul.py:geglu_out_plan (both stages' plans, the grid:
+// at most the blocks the card holds at once). Waves on an H100's 132 SMs,
+// one block an SM (GEGLU tiles; ff.net.2 tiles x splits):
+//   M=256  C=1280 H=5120   160, 2 waves (the second 21% full); 20 x 6
+//   M=1024 C=640  H=2560   320, 3 waves (the third 42% full); 40 x 3
+// Bounds: at M = 1024 K = C = 640 H = 2560 the int8 operations (10.1 GOP,
+// ~5.1 us); at M = 256 K = C = 1280 H = 5120 the weight bytes (19.7 MB,
+// ~5.9 us).
 
 #include <cooperative_groups.h>
 
@@ -60,6 +74,8 @@
 
 namespace cg = cooperative_groups;
 using namespace mixdq;
+using igemm::BSrc;
+using igemm::EpiArgs;
 
 struct GegluArgs {
   const int8_t* x;  // [M, K]
@@ -84,54 +100,6 @@ __device__ __forceinline__ float gelu(float x, int tanh_form) {
   }
   return __fmul_rn(__fmul_rn(0.5f, x),
                    erfcf(__fmul_rn(-x, 0.7071067811865476f)));
-}
-
-// One 64x64 tile of ff.net.2's codes on mma_s8.cuh's block (only
-// geglu_out_qmatmul's): rows [m0, m0 + 64), value columns [n0, n0 + 64)
-// and their gate columns. Every thread of the block calls it; As, Bv and
-// Bg are free again when it returns.
-__device__ void geglu_tile(const GegluArgs& a, int m0, int n0, bool avec,
-                           bool bvec, int8_t (*As)[LDS], int8_t (*Bv)[LDS],
-                           int8_t (*Bg)[LDS]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int ldw = 2 * a.H;
-
-  int accv[2][4][4] = {}, accg[2][4][4] = {};
-  Chunk16 ra = load_a(a.x, a.M, a.K, m0, 0, tid, avec);
-  Chunk16 rv = load_b(a.w, ldw, 0, a.H, a.K, 0, n0, tid, bvec);
-  Chunk16 rg = load_b(a.w, ldw, a.H, a.H, a.K, 0, n0, tid, bvec);
-  for (int k0 = 0; k0 < a.K; k0 += BK) {
-    store_a(As, ra, tid);
-    store_b(Bv, rv, tid);
-    store_b(Bg, rg, tid);
-    __syncthreads();
-    if (k0 + BK < a.K) {
-      ra = load_a(a.x, a.M, a.K, m0, k0 + BK, tid, avec);
-      rv = load_b(a.w, ldw, 0, a.H, a.K, k0 + BK, n0, tid, bvec);
-      rg = load_b(a.w, ldw, a.H, a.H, a.K, k0 + BK, n0, tid, bvec);
-    }
-    warp_mma(As, Bv, wm, wn, lane, accv);
-    warp_mma(As, Bg, wm, wn, lane, accg);
-    __syncthreads();
-  }
-
-  for_each_acc(wm, wn, lane, accv, accg, [&](int r, int c, int av, int ag) {
-    const int m = m0 + r, n = n0 + c;
-    if (m >= a.M || n >= a.H) return;
-    const int ng = a.H + n;
-    float v = __fmul_rn(__int2float_rn(av - __float2int_rz(a.bias0[n])),
-                        a.scale[n]);
-    float g = __fmul_rn(__int2float_rn(ag - __float2int_rz(a.bias0[ng])),
-                        a.scale[ng]);
-    if (a.bias) {
-      v = __fadd_rn(v, a.bias[n]);
-      g = __fadd_rn(g, a.bias[ng]);
-    }
-    const float y = __fmul_rn(v, gelu(g, a.gelu_tanh));
-    a.out[static_cast<size_t>(m) * a.H + n] =
-        quant_code(y, a.sinv, a.zp, a.lo, a.hi);
-  });
 }
 
 // The GEGLU epilogue of the tile at (m0, n0) (n0: its first output
@@ -199,29 +167,43 @@ constexpr int GEGLU_BN = igemm::BN / 2;
 // other's products.
 constexpr int GEGLU_STAGES = 2;
 
-// The tile at (blockIdx.y, blockIdx.x) over split blockIdx.z: mainloop,
-// split-K reduction, GEGLU epilogue (igemm::run_tile's steps).
-template <bool FAST>
-__global__ void __launch_bounds__(igemm::NT, 2)
-    geglu_kernel(igemm::DenseA<FAST> x, igemm::GegluB b, GegluArgs a,
-                 int split_k, int* ws, unsigned* counters) {
+// The GEGLU tile at rows m0.., output columns n0.. (`tile` its split-K
+// counter) over split `split` of `splits`: mainloop on an NST-stage ring,
+// split-K reduction, GEGLU epilogue (igemm::run_tile's steps). Every
+// thread of the block calls it.
+template <bool FAST, int NST>
+__device__ __forceinline__ void geglu_item(igemm::DenseA<FAST>& x,
+                                           const igemm::GegluB& b,
+                                           const GegluArgs& a, int m0,
+                                           int n0, int tile, int split,
+                                           int splits, int split_k, int* ws,
+                                           unsigned* counters) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * igemm::BM, n0 = blockIdx.x * GEGLU_BN;
-  const int k_begin = blockIdx.z * split_k;
+  const int k_begin = split * split_k;
   const int k_end = min(a.K, k_begin + split_k);
   const int mtiles = max(0, min(4, (a.M - m0 - wm + 15) / 16));
   const bool nlive = n0 + (wn >> 1) < a.H;
   int acc[4][4][4] = {};
   x.init(m0);
-  igemm::mainloop<FAST, GEGLU_STAGES>(x, b, n0, k_begin, k_end, smem, wm,
-                                      wn, mtiles, nlive, acc);
-  if (gridDim.z > 1 &&
-      !igemm::reduce_splits(ws, counters, blockIdx.y * gridDim.x + blockIdx.x,
-                            blockIdx.z, gridDim.z, mtiles, nlive, acc))
+  igemm::mainloop<FAST, NST>(x, b, n0, k_begin, k_end, smem, wm, wn, mtiles,
+                             nlive, acc);
+  if (splits > 1 && !igemm::reduce_splits(ws, counters, tile, split, splits,
+                                          mtiles, nlive, acc))
     return;
   if (nlive) geglu_epilogue(a, m0, n0, wm, wn, mtiles, acc);
+}
+
+// The tile at (blockIdx.y, blockIdx.x) over split blockIdx.z.
+template <bool FAST>
+__global__ void __launch_bounds__(igemm::NT, 2)
+    geglu_kernel(igemm::DenseA<FAST> x, igemm::GegluB b, GegluArgs a,
+                 int split_k, int* ws, unsigned* counters) {
+  geglu_item<FAST, GEGLU_STAGES>(
+      x, b, a, blockIdx.y * igemm::BM, blockIdx.x * GEGLU_BN,
+      blockIdx.y * gridDim.x + blockIdx.x, blockIdx.z, gridDim.z, split_k,
+      ws, counters);
 }
 
 template <bool FAST>
@@ -269,42 +251,82 @@ extern "C" int mixdq_geglu_qmatmul(const int8_t* x, const int8_t* w,
 
 template <typename T>
 struct GegluOutArgs {
-  GegluArgs g;  // x: the codes workspace or input; out: the [M, H] codes
-  const T* x;   // raw input (LN-folded mode; also the residual) or null
+  GegluArgs g;  // x: the proj codes [M, K] (written by stage 1 in LN-folded
+                // mode); out: ff.net.2's codes [M, H]
+  const T* x;   // raw input [M, K] (LN-folded mode; also the residual)
   const float* gamma;
   const float* beta;
   float x_sinv, x_zp, x_lo, x_hi, eps;
-  int ln, C;
-  const int8_t* w2;  // [H, C]
-  const float* s2;
-  const float* b02;
-  const float* b2;  // [C] or null
-  const T* res;     // [M, C] or null (pre-coded mode)
-  T* out;           // [M, C]
-  bool avec, bvec, avec2, bvec2;
+  int ln;
+  bool ln_vec;  // stage 1 on shared-memory rows (ln_row_vec, they fit)
+  bool xvec;    // the proj codes' 16-byte copies (vec16)
+  bool hvec;    // ff.net.2's codes' 16-byte copies
+  igemm::GegluB b;  // w [K, 2H]
+  BSrc w2;          // [H, C]
+  EpiArgs e2;       // ff.net.2's epilogue: out [M, C]
+  int g_splits, g_split_k, o_splits, o_split_k;
+  int* ws;
+  unsigned* counters;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(igemm::NT, 1)
     geglu_out_kernel(const GegluOutArgs<T> a) {
-  __shared__ __align__(16) int8_t As[BM][LDS];
-  __shared__ __align__(16) int8_t Bv[BN][LDS];
-  __shared__ __align__(16) int8_t Bg[BN][LDS];
-  const int M = a.g.M, H = a.g.H;
+  extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  if (a.ln) {  // pre-LayerNorm + proj act-quantize, a warp per row
-    ln_stage(a.x, a.gamma, a.beta, const_cast<int8_t*>(a.g.x), M, a.g.K,
-             a.x_sinv, a.x_zp, a.x_lo, a.x_hi, a.eps);
+  const int M = a.g.M, warps = igemm::NT / 32;
+  if (a.ln) {  // 1. LayerNorm + proj act-quantize, a warp a row
+    ln_rows(a.x, a.gamma, a.beta, const_cast<int8_t*>(a.g.x), M, a.g.K,
+            a.x_sinv, a.x_zp, a.x_lo, a.x_hi, a.eps, a.ln_vec, smem,
+            blockIdx.x * warps + threadIdx.x / 32, gridDim.x * warps);
     grid.sync();
   }
-  const int nh = (H + BN - 1) / BN, tiles = (M + BM - 1) / BM * nh;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-    geglu_tile(a.g, tile / nh * BM, tile % nh * BN, a.avec, a.bvec, As, Bv,
-               Bg);
+  // 2. GEGLU into ff.net.2's codes
+  const int gn = (a.g.H + GEGLU_BN - 1) / GEGLU_BN;
+  const int gtiles = (M + igemm::BM - 1) / igemm::BM * gn;
+  igemm::DenseA<FAST> x{a.g.x, M, a.g.K, a.xvec, {nullptr, nullptr}};
+  for (int item = blockIdx.x; item < gtiles * a.g_splits;
+       item += gridDim.x) {
+    const int tile = item % gtiles, split = item / gtiles;
+    __syncthreads();  // every warp is done with the shared memory
+    geglu_item<FAST, igemm::STAGES>(x, a.b, a.g, tile / gn * igemm::BM,
+                                    tile % gn * GEGLU_BN, tile, split,
+                                    a.g_splits, a.g_split_k, a.ws,
+                                    a.counters);
+  }
   grid.sync();
-  // ff.net.2 + bias + residual
-  out_stage<T>(As, Bv, a.g.out, M, H, a.avec2, a.w2, a.C, a.bvec2, a.s2,
-               a.b02, a.b2, a.ln ? a.x : a.res, a.out);
+  // 3. ff.net.2 + bias + residual
+  const int nt = (a.e2.N + igemm::BN - 1) / igemm::BN;
+  const int tiles = (M + igemm::BM - 1) / igemm::BM * nt;
+  igemm::DenseA<FAST> h{a.g.out, M, a.g.H, a.hvec, {nullptr, nullptr}};
+  for (int item = blockIdx.x; item < tiles * a.o_splits; item += gridDim.x) {
+    const int tile = item % tiles, split = item / tiles;
+    const int m0 = tile / nt * igemm::BM, n0 = tile % nt * igemm::BN;
+    __syncthreads();
+    h.init(m0);
+    igemm::run_tile<T, FAST, false>(h, a.w2, a.e2, a.g.H, m0, n0, tile,
+                                    split, a.o_splits, a.o_split_k, a.ws,
+                                    a.counters);
+  }
+}
+
+// Each instantiation's ring, set once.
+template <typename T, bool FAST>
+static cudaError_t geglu_out_attrs() {
+  static const cudaError_t err =
+      igemm::set_smem(geglu_out_kernel<T, FAST>, igemm::SMEM);
+  return err;
+}
+
+template <typename T, bool FAST>
+static int geglu_out_launch(const GegluOutArgs<T>& a, int grid,
+                            cudaStream_t stream) {
+  const cudaError_t attrs = geglu_out_attrs<T, FAST>();
+  if (attrs != cudaSuccess) return static_cast<int>(attrs);
+  void* args[] = {const_cast<GegluOutArgs<T>*>(&a)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(geglu_out_kernel<T, FAST>), dim3(grid),
+      dim3(igemm::NT), args, igemm::SMEM, stream));
 }
 
 template <typename T>
@@ -312,31 +334,78 @@ static int geglu_out(const GegluArgs& g, const void* x, const float* gamma,
                      const float* beta, float x_sinv, float x_zp, float x_lo,
                      float x_hi, float eps, int ln, int C, const int8_t* w2,
                      const float* s2, const float* b02, const float* b2,
-                     const void* res, void* out, cudaStream_t stream) {
-  GegluOutArgs<T> a{g, static_cast<const T*>(x), gamma, beta, x_sinv, x_zp,
-                    x_lo, x_hi, eps, ln, C, w2, s2, b02, b2,
-                    static_cast<const T*>(res), static_cast<T*>(out),
-                    vec16(g.x, g.K), g.H % 16 == 0 && vec16(g.w, 2 * g.H),
-                    vec16(g.out, g.H), vec16(w2, C)};
-  const int tiles = std::max(tiles64(g.M, g.H), tiles64(g.M, C));
-  const int grid = cooperative_grid<geglu_out_kernel<T>>(THREADS, 0, tiles);
-  void* args[] = {&a};
-  cudaLaunchCooperativeKernel(reinterpret_cast<void*>(geglu_out_kernel<T>),
-                              dim3(grid), dim3(THREADS), args, 0, stream);
-  return static_cast<int>(cudaGetLastError());
+                     const void* res, void* out, int g_splits, int g_split_k, int o_splits, int o_split_k, int* ws,
+                     unsigned* counters, int grid, cudaStream_t stream) {
+  const void* r = ln ? x : res;
+  const GegluOutArgs<T> a{
+      g, static_cast<const T*>(x), gamma, beta, x_sinv, x_zp, x_lo, x_hi,
+      eps, ln,
+      ln && ln_row_vec(x, gamma, beta, g.x, g.K) &&
+          ln_smem_bytes(g.K, igemm::NT / 32, sizeof(T)) <= igemm::SMEM,
+      vec16(g.x, g.K), vec16(g.out, g.H),
+      igemm::GegluB{g.w, g.H, igemm::b_mode(g.w, g.H)},
+      BSrc{w2, C, igemm::b_mode(w2, C)},
+      EpiArgs{s2, b02, b2, nullptr, r, out, g.M, C, 1, false, false,
+              r != nullptr && reinterpret_cast<uintptr_t>(r) % 16 == 0},
+      g_splits, g_split_k, o_splits, o_split_k, ws, counters};
+  // the 16-byte copies known at compile time (FAST) where both GEMM
+  // stages take them; else the run-time copy modes
+  if (a.xvec && a.b.mode == igemm::B_COPY16 && a.hvec &&
+      a.w2.mode == igemm::B_COPY16)
+    return geglu_out_launch<T, true>(a, grid, stream);
+  return geglu_out_launch<T, false>(a, grid, stream);
 }
 
+// x [M, K]: the raw input in the model dtype (LN-folded mode: ln, gamma /
+// beta f32 [K], the proj act quantizer x_*; also the residual) or null;
+// codes [M, K]: the proj codes (written in LN-folded mode); w [K, 2H],
+// scale / bias0 / bias [2H] (bias f32 or null), the ff.net.2 act
+// quantizer sinv / zp / lo / hi; h [M, H]: ff.net.2's codes; w2 [H, C],
+// s2 / b02 [C], b2 [C] f32 or null, res [M, C] or null (pre-coded mode),
+// out [M, C] bf16 (is_bf16) or f32. bm, stages, g_* and o_*: the GEGLU and
+// ff.net.2 plans of ops/qmatmul.py:geglu_out_plan (both on the 4-stage
+// ring); ws / counters: their shared int32 workspace and zeroed
+// counters (split plans); grid: the plan's, at most the blocks the card
+// holds at once (mixdq_geglu_out_per_sm).
 extern "C" int mixdq_geglu_out_qmatmul(
     const void* x, const float* gamma, const float* beta, int8_t* codes,
     const int8_t* w, const float* scale, const float* bias0,
     const float* bias, int8_t* h, const int8_t* w2, const float* s2,
-    const float* b02, const float* b2, const void* res, void* out, int M,
-    int K, int H, int C, int gelu_tanh, int is_bf16, int ln, float sinv,
-    float zp, float lo, float hi, float x_sinv, float x_zp, float x_lo,
-    float x_hi, float eps, cudaStream_t stream) {
+    const float* b02, const float* b2, const void* res, void* out, int* ws,
+    unsigned* counters, int M, int K, int H, int C, int gelu_tanh,
+    int is_bf16, int ln, float sinv, float zp, float lo, float hi,
+    float x_sinv, float x_zp, float x_lo, float x_hi, float eps, int bm,
+    int stages, int g_splits, int g_split_k, int o_splits, int o_split_k,
+    int grid, cudaStream_t stream) {
+  if (!igemm::plan_ok(bm, stages, g_splits, g_split_k, K, ws, counters) ||
+      !igemm::plan_ok(bm, stages, o_splits, o_split_k, H, ws, counters) ||
+      grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const GegluArgs g{codes, w, scale, bias0, bias, h, M, K, H, gelu_tanh,
                     sinv, zp, lo, hi};
   auto fn = is_bf16 ? geglu_out<__nv_bfloat16> : geglu_out<float>;
   return fn(g, x, gamma, beta, x_sinv, x_zp, x_lo, x_hi, eps, ln, C, w2, s2,
-            b02, b2, res, out, stream);
+            b02, b2, res, out, g_splits, g_split_k, o_splits,
+            o_split_k, ws, counters, grid, stream);
+}
+
+// Blocks of one geglu_out_kernel instantiation an SM holds at once.
+template <typename T, bool FAST>
+static int geglu_out_fit() {
+  int n = 0;
+  if (geglu_out_attrs<T, FAST>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, geglu_out_kernel<T, FAST>, igemm::NT, igemm::SMEM) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// Blocks of geglu_out_qmatmul's kernels one SM holds at once (the least
+// over their instantiations); 0 on an error.
+extern "C" int mixdq_geglu_out_per_sm() {
+  return std::min(
+      std::min(geglu_out_fit<__nv_bfloat16, true>(),
+               geglu_out_fit<__nv_bfloat16, false>()),
+      std::min(geglu_out_fit<float, true>(), geglu_out_fit<float, false>()));
 }

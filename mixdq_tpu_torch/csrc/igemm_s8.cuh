@@ -1,8 +1,9 @@
 // Pipelined int8 GEMM mainloop with split-K in one launch, shared by the
 // dense GEMM (qmatmul.cu), the implicit-GEMM convolution (qconv.cu), the
 // fused act-quantize GEMMs (qmatmul_fused.cu), the GEMM stages of the
-// cooperative sec_attention* kernels (sec_attention.cuh) and the GEGLU
-// projection (geglu_qmatmul.cu).
+// cooperative sec_attention* kernels (sec_attention.cuh), the GEGLU
+// projection and both GEMM stages of the whole feed-forward
+// (geglu_qmatmul.cu).
 //
 // C [M, N] = A [M, Kdim] x B [Kdim, N] in int32, A int8 codes behind a
 // loader (row-major codes: DenseA; the im2col view of an NHWC image:

@@ -20,6 +20,7 @@
 //
 //   LN     (LN-folded whole-block kernels) LayerNorm + the projection's
 //          act-quantize of every row into a codes workspace, a warp a row
+//          (common.cuh:ln_rows, ln_quantize's rows, in the ring's memory)
 //   proj   the to_q GEMM [C_in, C], or the fused QKV GEMM [C, 3C], into a
 //          q (k's dtype) or q | k | v (bf16) workspace:
 //          T((f32(acc) - bias0) * scale)

@@ -306,6 +306,7 @@ struct CoopArgs {
   float eps;
   Quant xq;
   int ln;
+  bool ln_vec;     // the LN stage on shared-memory rows (ln_rows)
   GemmStage proj;  // codes -> the q or q | k | v workspace (TQ)
   AttnArgs<TQ> attn;
   GemmStage out;  // to_out's codes -> out (TO)
@@ -313,10 +314,6 @@ struct CoopArgs {
   unsigned* counters;
   unsigned long long* stamps;  // [5] or null
 };
-
-// Channels of a lane whose loads the LN stage issues at once (640 or 1280
-// channels: 1 or 2 round trips a pass).
-constexpr int LN_BATCH = 20;
 
 // [LN], proj, attn, [out] (OUT: the whole-block kernels), the stamps
 // after each (a grid sync closing every stage while they are on).
@@ -327,9 +324,10 @@ __device__ __forceinline__ void coop_body(const CoopArgs<TQ, TO>& a) {
   stage_stamp(a.stamps, 0);
   if constexpr (OUT) {
     if (a.ln) {
-      ln_stage<LN_BATCH>(a.x, a.gamma, a.beta, a.codes, a.proj.e.M,
-                         a.proj.K, a.xq.sinv, a.xq.zp, a.xq.lo, a.xq.hi,
-                         a.eps);
+      constexpr int warps = igemm::NT / 32;
+      ln_rows(a.x, a.gamma, a.beta, a.codes, a.proj.e.M, a.proj.K,
+              a.xq.sinv, a.xq.zp, a.xq.lo, a.xq.hi, a.eps, a.ln_vec, smem,
+              blockIdx.x * warps + threadIdx.x / 32, gridDim.x * warps);
       grid.sync();
     }
   }
@@ -439,8 +437,12 @@ static int coop(int kind, const void* x, const float* gamma,
                 int Tk, int heads, float sm_scale, Quant mq,
                 const GemmStage& out, int* ws, unsigned* counters,
                 unsigned long long* stamps, int grid, cudaStream_t stream) {
+  const bool ln_vec =
+      ln && ln_row_vec(x, gamma, beta, codes, proj.K) &&
+      ln_smem_bytes(proj.K, igemm::NT / 32, sizeof(TO)) <= igemm::SMEM;
   const CoopArgs<TQ, TO> a{
-      static_cast<const TO*>(x), gamma, beta, codes, eps, xq, ln, proj,
+      static_cast<const TO*>(x), gamma, beta, codes, eps, xq, ln, ln_vec,
+      proj,
       AttnArgs<TQ>{static_cast<const TQ*>(q), static_cast<const TQ*>(k),
                    static_cast<const TQ*>(v), o, ldq, ldk, ldv, B, Tq, Tk,
                    heads, sm_scale, mq},

@@ -3,8 +3,10 @@
 
 ``codes = quantize(layer_norm(x, gamma, beta), s_a, zp)`` emits the
 downstream dense layer's int8 codes from the raw block input in one pass.
-Kernel: ``csrc/ln_quant.cu`` (one warp per row; memory-bound, ~3 bytes
-per element). Plain version: ``ln_quantize_plain``.
+Kernel: ``csrc/ln_quant.cu`` (one warp per row, the row, gamma and beta
+copied into shared memory with every copy in flight at once; memory-bound,
+~3 bytes per element, below one launch's cost at the UNet's shapes).
+Plain version: ``ln_quantize_plain``.
 """
 
 from __future__ import annotations

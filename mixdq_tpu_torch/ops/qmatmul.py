@@ -18,8 +18,10 @@
   feed-forward: the pre-LayerNorm + proj act-quantize (LN-folded mode)
   or given codes, ``geglu_qmatmul``'s work, then the ``ff.net.2`` GEMM
   with ``qmatmul``'s epilogue, its bias and the residual add, in the
-  model dtype. Kernel: ``csrc/geglu_qmatmul.cu``; plain version:
-  ``geglu_out_qmatmul_plain``.
+  model dtype. Kernel: ``csrc/geglu_qmatmul.cu`` (one cooperative launch:
+  ``ln_quantize``'s LayerNorm row, ``geglu_qmatmul``'s tiles, then
+  ``qmatmul``'s, all on ``qmatmul``'s mainloop) under
+  ``geglu_out_plan``; plain version: ``geglu_out_qmatmul_plain``.
 * ``qmatmul_fused`` and ``qmatmul_fused2`` (ports of ``qmatmul_fused``
   and ``qmatmul_fused2``): raw activations ``[M, K]``, cast to bf16 and
   act-quantized inside the kernel, times int8 ``[K, N]`` weights, with the
@@ -85,8 +87,10 @@ def _lib():
         f.argtypes = [P] * 8 + [I] * 4 + [F] * 4 + [I] * 4 + [P]
         f.restype = I
         g = lib.mixdq_geglu_out_qmatmul
-        g.argtypes = [P] * 15 + [I] * 7 + [F] * 9 + [P]
+        g.argtypes = [P] * 17 + [I] * 7 + [F] * 9 + [I] * 7 + [P]
         g.restype = I
+        lib.mixdq_geglu_out_per_sm.argtypes = []
+        lib.mixdq_geglu_out_per_sm.restype = I
     return lib
 
 
@@ -218,6 +222,62 @@ def geglu_plan(M: int, K: int, H: int, sms: int) -> QmmPlan:
     return dataclasses.replace(
         qmm_plan(M, K, 2 * H, GEGLU_BLOCKS_PER_SM * sms),
         stages=GEGLU_STAGES)
+
+
+@dataclasses.dataclass(frozen=True)
+class GegluOutPlan:
+    """One cooperative launch of ``geglu_out_qmatmul``: ``geglu`` the proj
+    GEMM's plan over the ``2H`` weight columns (``[K, 2H]``), ``net2``
+    ff.net.2's (``[H, C]``), both on ``qmatmul``'s ring;
+    ``grid`` blocks (every one resident: the launch syncs its grid), and
+    the int32 split workspace and counters that the two GEMM stages share,
+    one stage at a time."""
+    geglu: QmmPlan
+    net2: QmmPlan
+    grid: int
+    ws_elems: int
+    counters: int
+
+    @property
+    def splits(self) -> int:
+        """The most splits of a GEMM stage (``igemm_scratch``)."""
+        return max(self.geglu.splits, self.net2.splits)
+
+
+@functools.lru_cache(maxsize=4096)
+def geglu_out_plan(M: int, K: int, H: int, C: int, sms: int,
+                   per_sm: int) -> GegluOutPlan:
+    """The plan of one ``geglu_out_qmatmul`` launch on ``sms`` SMs holding
+    ``per_sm`` blocks each: the GEGLU stage under ``geglu_plan``'s rule
+    (``qmm_plan`` over 2H columns and the ``per_sm * sms`` resident
+    blocks), ff.net.2 under ``qmm_plan(M, H, C, sms)``, both on
+    ``qmatmul``'s ring, and a grid of one block per item of the larger stage
+    ((tile, split) items) where the card holds that many at once, else as
+    many as it holds. Blocks walk each stage's items in a grid stride."""
+    if per_sm < 1 or sms < 1:
+        raise ValueError(f"geglu_out_qmatmul: {per_sm} blocks per SM on "
+                         f"{sms} SMs")
+    geglu = qmm_plan(M, K, 2 * H, per_sm * sms)
+    net2 = qmm_plan(M, H, C, sms)
+    grid = min(per_sm * sms, max(geglu.blocks, net2.blocks))
+    return GegluOutPlan(geglu, net2, grid, max(geglu.ws_elems, net2.ws_elems),
+                        max(geglu.counters, net2.counters))
+
+
+@functools.lru_cache(maxsize=None)
+def _geglu_out_per_sm(index: int) -> int:
+    """Blocks of ``geglu_out_qmatmul``'s kernels one SM of device
+    ``index`` holds (at 256 threads and the ring's shared memory)."""
+    with torch.cuda.device(index):
+        return _lib().mixdq_geglu_out_per_sm()
+
+
+def device_geglu_out_plan(dev: torch.device, M: int, K: int, H: int,
+                          C: int) -> GegluOutPlan:
+    """``geglu_out_plan`` on CUDA device ``dev``."""
+    index = dev.index or 0
+    return geglu_out_plan(M, K, H, C, sm_count(index),
+                          _geglu_out_per_sm(index))
 
 
 _COUNTERS: Dict[Tuple[str, int], torch.Tensor] = {}
@@ -381,19 +441,24 @@ def geglu_out_qmatmul(x: torch.Tensor, w_int8: torch.Tensor,
                     out_scale=out_scale, out_bias0=out_bias0,
                     residual=residual)
     dev = x.device
+    plan = device_geglu_out_plan(dev, M, K, H, C)
     codes = (torch.empty((M, K), dtype=torch.int8, device=dev)
              if ln is not None else x)
     h_ws = torch.empty((M, H), dtype=torch.int8, device=dev)
     out = torch.empty((M, C), dtype=out_dtype, device=dev)
+    ws, counters = igemm_scratch(plan, dev)
     lib = _lib()
     p = _build.ptr
+    g, n2 = plan.geglu, plan.net2
     err = lib.mixdq_geglu_out_qmatmul(
         p(x if ln is not None else None), p(gamma), p(beta), p(codes),
         p(w_int8), p(scale), p(bias0), p(bias), p(h_ws), p(w2_int8),
-        p(out_scale), p(out_bias0), p(out_bias), p(residual), p(out), M, K,
-        H, C, int(gelu_tanh), int(out_dtype == torch.bfloat16),
-        int(ln is not None), mid_scale_inv, mid_zp_shifted, clip[0], clip[1],
-        x_sinv, x_zp, x_clip[0], x_clip[1], eps, _build.stream(dev))
+        p(out_scale), p(out_bias0), p(out_bias), p(residual), p(out), p(ws),
+        p(counters), M, K, H, C, int(gelu_tanh),
+        int(out_dtype == torch.bfloat16), int(ln is not None), mid_scale_inv,
+        mid_zp_shifted, clip[0], clip[1], x_sinv, x_zp, x_clip[0], x_clip[1],
+        eps, g.bm, g.stages, g.splits, g.split_k, n2.splits, n2.split_k,
+        plan.grid, _build.stream(dev))
     _build.check(lib, err, "geglu_out_qmatmul")
     GEGLU_OUT_COUNT.launches += 1
     return out

@@ -17,6 +17,9 @@ from ``--root``::
     python3 mixdq_tpu_torch/scripts/sec_ab.py run --root PARENT --tag parent --out a.pt
     python3 mixdq_tpu_torch/scripts/sec_ab.py run --root . --tag change --out b.pt
     python3 mixdq_tpu_torch/scripts/sec_ab.py compare a.pt b.pt
+
+``run --only ln_quantize ln=True`` keeps the cases whose label holds one
+of the words (then build only the sources those cases reach).
 """
 
 import argparse
@@ -115,6 +118,30 @@ def cases(torch, cs, g, dev):
         out.append((f"gn {shape} {dt} silu={silu}",
                     lambda a=(x, gamma, beta, 30.0, -5.0, 32, eps, silu):
                         gn_quant.gn_silu_quantize(*a), False))
+    # ln_quantize: the 1024 px shapes, f32 rows, ragged C (the scalar
+    # loads), a view off 16 bytes
+    for shape, dt, off in [((1, 4096, 640), bf16, 0),
+                           ((1, 1024, 1280), bf16, 0),
+                           ((1, 256, 1280), torch.float32, 0),
+                           ((2, 50, 2560), torch.float32, 0),
+                           ((4, 9, 77), bf16, 0),
+                           ((4, 9, 77), torch.float32, 0),
+                           ((1, 256, 1280), bf16, 1)]:
+        n = torch.Size(shape).numel()
+        buf = (torch.randn(n + off, generator=g, device=dev) * 2).to(dt)
+        x = buf[off:].view(shape)
+        gamma = torch.rand(shape[-1], generator=g, device=dev) + 0.5
+        beta = torch.randn(shape[-1], generator=g, device=dev) * 0.2
+        out.append((f"ln_quantize {shape} {dt} offset={off}",
+                    lambda x=x, ga=gamma, be=beta:
+                        ln_quant.ln_quantize(x, ga, be, 25.0, 2.0), False))
+    # geglu_out_qmatmul: M = 1024 pre-coded, M = 77, f32
+    for M, C, ln, dt in [(1024, 640, False, bf16), (77, 640, True, bf16),
+                         (77, 1280, False, bf16),
+                         (256, 640, False, torch.float32)]:
+        a, kw = cs.geglu_out_case(torch, g, dev, M, C, 4 * C, C, dt, ln)
+        out.append((f"geglu_out M={M} C={C} ln={ln} {dt}", lambda a=a, kw=kw:
+                    qmatmul.geglu_out_qmatmul(*a, **kw), False))
     return out
 
 
@@ -133,7 +160,7 @@ def median_ms(torch, fn, flush):
     return sorted(a.elapsed_time(b) for a, b in ev)[ITERS // 2]
 
 
-def run(root, tag, out_path):
+def run(root, tag, out_path, only=None):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -148,6 +175,8 @@ def run(root, tag, out_path):
     probe = getattr(sa, "probe", None)
     outs = {}
     for label, fn, coop in cases(torch, cs, g, dev):
+        if only and not any(w in label for w in only):
+            continue
         outs[label] = fn().cpu()
         ms = median_ms(torch, fn, flush)
         split = ""
@@ -169,10 +198,14 @@ def compare(path_a, path_b):
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
+    equal = 0
     for k in a:
         d = (a[k].float() - b[k].float()).abs()
-        print(f"{k}: equal={torch.equal(a[k], b[k])} max={d.max().item()} "
+        same = torch.equal(a[k], b[k])
+        equal += same
+        print(f"{k}: equal={same} max={d.max().item()} "
               f"frac={(d > 0).float().mean().item():.6f}")
+    print(f"compare: {equal} of {len(a)} cases equal bit for bit")
 
 
 def main():
@@ -182,12 +215,14 @@ def main():
     r.add_argument("--root", required=True)
     r.add_argument("--tag", required=True)
     r.add_argument("--out", required=True)
+    r.add_argument("--only", nargs="+", metavar="WORD",
+                   help="keep the cases whose label holds one of these")
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")
     args = ap.parse_args()
     if args.cmd == "run":
-        run(args.root, args.tag, args.out)
+        run(args.root, args.tag, args.out, args.only)
     else:
         compare(args.a, args.b)
 

@@ -112,20 +112,42 @@ def test_gn_quant_kernel(dev, shape, groups, silu, eps, dtype):
     assert_codes_close(got, want)
 
 
-@pytest.mark.parametrize("shape", [(1, 1024, 640), (1, 256, 1280),
-                                   (3, 7, 40)])
-def test_ln_quant_kernel(dev, shape):
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((1, 1024, 640), torch.bfloat16, 0),
+    ((1, 256, 1280), torch.bfloat16, 0),
+    ((3, 7, 40), torch.bfloat16, 0),
+    ((1, 4096, 640), torch.bfloat16, 0),   # 1024 px, 64x64
+    ((1, 1024, 1280), torch.bfloat16, 0),  # 1024 px, 32x32
+    ((1, 256, 1280), torch.float32, 0),    # f32 rows
+    ((2, 50, 2560), torch.float32, 0),     # 10 KB f32 rows
+    ((5, 33, 40), torch.float32, 0),
+    ((4, 9, 77), torch.bfloat16, 0),       # C % 8 != 0: scalar loads
+    ((4, 9, 77), torch.float32, 0),
+    ((1, 256, 1280), torch.bfloat16, 1),   # a view off 16 bytes
+    ((2, 64, 640), torch.float32, 3),
+])
+def test_ln_quant_kernel(dev, shape, dtype, offset):
+    """Against the plain version; a view at an odd element offset takes
+    the scalar loads and must give the aligned copy's codes bit for bit
+    (both paths sum in the same order)."""
     from mixdq_tpu_torch.ops.ln_quant import ln_quantize, ln_quantize_plain
 
     g = torch.Generator().manual_seed(2)
     C = shape[-1]
-    x = (torch.randn(shape, generator=g) * 3 + 1).to(dev, torch.bfloat16)
+    x = (torch.randn(shape, generator=g) * 3 + 1).to(dev, dtype)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:].copy_(x.reshape(-1))
+        x_view = buf[offset:].view(shape)
+        assert x_view.data_ptr() % 16
     gamma = (torch.rand(C, generator=g) + 0.5).to(dev)
     beta = (torch.randn(C, generator=g) * 0.2).to(dev)
     got = ln_quantize(x, gamma, beta, 20.0, 3.0)
     want = ln_quantize_plain(x, gamma, beta, 20.0, 3.0)
     torch.cuda.synchronize()
     assert_codes_close(got, want)
+    if offset:
+        assert torch.equal(ln_quantize(x_view, gamma, beta, 20.0, 3.0), got)
 
 
 @pytest.mark.parametrize("M,K,H,gelu_tanh,with_bias", [
@@ -537,6 +559,11 @@ def test_sec_attention_qkv_out_kernel(dev, B, T, heads, d, dtype, ln):
     (50, 128, 100, 128, torch.bfloat16, True),        # ragged H, M < 64
     (37, 40, 24, 40, torch.float32, False),           # widths not x16
     (64, 128, 512, 128, torch.float32, True),         # f32 (small-sdxl)
+    (1, 640, 2560, 640, torch.bfloat16, True),        # M = 1: split plans
+    (77, 1280, 5120, 1280, torch.bfloat16, False),    # M = 77
+    (77, 640, 2560, 640, torch.bfloat16, True),
+    (256, 640, 2560, 640, torch.float32, False),      # f32 out, pre-coded
+    (40, 77, 200, 77, torch.bfloat16, True),          # C % 8: scalar LN
 ])
 def test_geglu_out_kernel(dev, M, K, H, C, dtype, ln):
     from mixdq_tpu_torch import ops
