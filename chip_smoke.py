@@ -63,8 +63,8 @@ Phases (none catches its own failure; any failure exits non-zero):
 5. A per-kernel device-time breakdown of one step of each int8 path and
    of bf16 from torch.profiler (written to ``chiprun_out/``); every
    profiled step logs the device ms of the five ``sec_attention*``
-   kernels, ``geglu_qmatmul`` and the GroupNorm producer's three
-   (``PROFILE_KERNELS``).
+   kernels, ``geglu_qmatmul``, the GroupNorm producer's three and the
+   bf16 and int8 flash kernels (``PROFILE_KERNELS``).
 6. The mixed-precision deploys of the same UNet from the repo's elected
    maps (``configs/mp/sdxl_turbo``: W5.04, A7.43, act-protect list), on
    the phase 3 requests: ``int8_sec`` under ``'auto'`` and the weight-only
@@ -186,7 +186,10 @@ PROFILE_KERNELS = {"sec_attention": "sec_attn_kernel<",
                    "geglu_out_qmatmul": "geglu_out_kernel<",
                    "gn_partial": "gn_partial<",
                    "gn_finalize": "gn_finalize(",
-                   "gn_apply": "gn_apply<"}
+                   "gn_apply": "gn_apply<",
+                   "flash_attention": "flash_bf16_kernel<",
+                   "int8_flash_attention": "int8_flash_kernel<",
+                   "int8qkv_flash_attention": "int8qkv_flash_kernel<"}
 # timed calls of each kernel benchmark row in phase 8
 KB_ITERS = 5
 _NONE = dict(qconv2d=0, qconv2d_s2=0, gn_silu_quantize=0, ln_quantize=0,
@@ -323,9 +326,9 @@ PORTED = {
                               "mixdq_tpu/ops/pallas_sec_attention.py:757"),
     "geglu_out_qmatmul": ("mixdq_tpu_torch/csrc/geglu_qmatmul.cu",
                           "mixdq_tpu/ops/pallas_qmatmul.py:702"),
-    "int8_flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
+    "int8_flash_attention": ("mixdq_tpu_torch/csrc/int8_flash.cu",
                              "mixdq_tpu/ops/pallas_attention.py:228"),
-    "int8qkv_flash_attention": ("mixdq_tpu_torch/csrc/flash_attention.cu",
+    "int8qkv_flash_attention": ("mixdq_tpu_torch/csrc/int8_flash.cu",
                                 "mixdq_tpu/ops/pallas_attention.py:330"),
     "qmatmul_fused": ("mixdq_tpu_torch/csrc/qmatmul_fused.cu",
                       "mixdq_tpu/ops/pallas_qmatmul.py:760"),
@@ -737,7 +740,13 @@ def kernel_cases(torch, dev):
             matmuls = ([(4 * B * T * T * C, INT8_OPS_PER_S)] if qkv else
                        [(2 * B * T * T * C, INT8_OPS_PER_S),
                         (2 * B * T * T * C, BF16_OPS_PER_S)])
-            cases.append((name, f"B={B} T={T} heads={heads} d={d} on codes",
+            plan = attention.int8_flash_plan(d, qkv)
+            tiles = B * heads * -(-T // plan.rows)
+            cases.append((name, f"B={B} T={T} heads={heads} d={d} on codes"
+                          f" plan {plan.rows}-row blocks, {plan.stages}x"
+                          f"{plan.stage_keys}-key ring, {plan.blocks_per_sm}"
+                          f"/SM, {tiles / (plan.blocks_per_sm * sms):.2f} "
+                          "waves",
                           lambda a=args, kw=ckw:
                               attention.int8_flash_codes(*a, **kw),
                           lambda a=args, kw=ckw:

@@ -1,7 +1,8 @@
-// bf16 mma.sync building blocks shared by the attention kernels
-// (sec_attention.cu, flash_attention.cu): a warp owns 16 query rows of one
-// head; keys stream through a cp.async ring in shared memory, QK^T and PV
-// run on mma.sync m16n8k16 (bf16 x bf16 -> f32).
+// mma.sync building blocks shared by the attention kernels
+// (sec_attention.cu, flash_attention.cu, int8_flash.cu): a warp owns 16
+// query rows of one head; keys stream through a cp.async ring in shared
+// memory, QK^T and PV run on mma.sync m16n8k16 (bf16 x bf16 -> f32), or
+// QK^T on m16n8k32 (s8 x s8 -> s32) over int8 codes.
 #pragma once
 
 #include "cp_async.cuh"
@@ -81,7 +82,8 @@ constexpr int GROUP_THREADS = 128;  // threads that fill and read one ring
 template <int D>
 struct KvStage {
   static constexpr int LD = D + 8;                 // padded row, bf16
-  static constexpr int BYTES = 2 * KCH * LD * 2;  // k rows, then v rows
+  static constexpr int V = KCH * LD * 2;           // bytes before v rows
+  static constexpr int BYTES = 2 * V;             // k rows, then v rows
 };
 
 // Keys [c0, c0 + KCH) of k (and of v when with_v) into the ring stage at
@@ -137,16 +139,16 @@ __device__ __forceinline__ void ring_logits(uint32_t st,
 
 // o += bf16(p) . v over one stage: p in the layout of ring_logits, cast
 // to bf16 as the A fragments (the TPU's p.astype(v.dtype)); v's B
-// fragments by ldmatrix.x4.trans (two column tiles of 8 per load). The
-// keys go in ascending 16-key mma steps.
+// fragments by ldmatrix.x4.trans (two column tiles of 8 per load) from
+// the stage's KCH row-major v rows at shared address vr, rows of
+// KvStage<D>::LD bf16. The keys go in ascending 16-key mma steps.
 template <int D>
-__device__ __forceinline__ void ring_pv(uint32_t st,
+__device__ __forceinline__ void ring_pv(uint32_t vr,
                                         const float (&p)[KCH / 8][4],
                                         float (&o)[D / 8][4], int lane) {
   constexpr int LD = KvStage<D>::LD;
   const uint32_t vb =
-      st + ((KCH + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
-               2;
+      vr + (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) * 2;
 #pragma unroll
   for (int kb = 0; kb < KCH / 16; ++kb) {
     const uint32_t pa[4] = {pack_bf16(p[2 * kb][0], p[2 * kb][1]),
@@ -165,6 +167,59 @@ __device__ __forceinline__ void ring_pv(uint32_t st,
   }
 }
 
+// The warp's 16 x KCH integer logits of one stage of k codes (KCH rows of
+// LDK bytes at shared address kr, DP codes deep, DP a multiple of 32):
+// A = q code fragments, B = k rows by ldmatrix.x4. A 16-byte row read as
+// 8 b16 gives each lane the 4 consecutive codes an m16n8k32 B fragment
+// wants; one load is two key tiles of 8 at one 32-deep step.
+template <int DP, int LDK>
+__device__ __forceinline__ void ring_logits_s8(uint32_t kr,
+                                               const int (&qf)[DP / 32][4],
+                                               int (&s)[KCH / 8][4],
+                                               int lane) {
+  const uint32_t kb =
+      kr + ((lane & 7) + (lane >> 4) * 8) * LDK + ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int nt = 0; nt < KCH / 8; nt += 2) {
+    uint32_t b[DP / 32][4];
+#pragma unroll
+    for (int kk = 0; kk < DP / 32; ++kk)
+      ldsm_x4(b[kk], kb + nt * 8 * LDK + kk * 32);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] = s[nt + 1][r] = 0;
+#pragma unroll
+    for (int kk = 0; kk < DP / 32; ++kk) {
+      const int b0[2] = {static_cast<int>(b[kk][0]),
+                         static_cast<int>(b[kk][1])};
+      const int b1[2] = {static_cast<int>(b[kk][2]),
+                         static_cast<int>(b[kk][3])};
+      mma_s8(s[nt], qf[kk], b0);
+      mma_s8(s[nt + 1], qf[kk], b1);
+    }
+  }
+}
+
+// Where a key ring's next fill comes from (flash_attention.cu's bf16 path,
+// int8_flash.cu): chunk c0 of the key block at j0, pass 0 (k) or 1 (k and
+// v); j0 >= Tk once every chunk is issued. Per key block the ring takes
+// its chunks of k for the max pass, then the same chunks of k and v for
+// the p pass.
+struct ChunkCursor {
+  int c0, j0, pass;
+  __device__ __forceinline__ void next(int Tk, int bk) {
+    c0 += KCH;
+    if (c0 < min(j0 + bk, Tk)) return;
+    if (pass == 0) {
+      pass = 1;
+      c0 = j0;
+    } else {
+      j0 += bk;
+      c0 = j0;
+      pass = 0;
+    }
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -177,6 +232,53 @@ __device__ __forceinline__ float dot_f32(const float* a, const float* b,
   float s = 0.f;
   for (int i = 0; i < n; ++i) s += a[i] * b[i];
   return s;
+}
+
+// The running max before the first key block and a masked key's logit
+// (the TPU kernels' -1e30).
+constexpr float MASKED = -1e30f;
+
+// The f32 scalar path of the flash kernels: rows [0, nq) of out by one
+// warp, a row at a time, over key blocks of bk keys: a pass over the
+// block's logits for its row max, then p, l and p.v (a lane per key for
+// the logits, a lane per column for p.v). logit(r, j) is row r's scaled
+// logit of key j.
+template <int D, typename Logit>
+__device__ void flash_rows_f32(Logit logit, const float* v, float* out,
+                               int ldv, int ldo, int nq, int Tk, int bk) {
+  constexpr int NC = (D + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < nq; ++r) {
+    float m = MASKED, l = 0.f, o[NC] = {};
+    for (int j0 = 0; j0 < Tk; j0 += bk) {
+      const int jend = min(j0 + bk, Tk);
+      float cm = MASKED;
+      for (int j = j0 + lane; j < jend; j += 32) cm = fmaxf(cm, logit(r, j));
+      const float nm = fmaxf(m, warp_max(cm));
+      const float alpha = expf(__fsub_rn(m, nm));
+      m = nm;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[c] = __fmul_rn(o[c], alpha);
+      float ps = 0.f;
+      for (int j1 = j0; j1 < jend; j1 += 32) {
+        const int j = j1 + lane;
+        const float pj = j < jend ? expf(__fsub_rn(logit(r, j), nm)) : 0.f;
+        ps += pj;
+        for (int jj = 0; jj < 32 && j1 + jj < jend; ++jj) {
+          const float pb = __shfl_sync(0xffffffffu, pj, jj);
+          const float* vr = v + static_cast<size_t>(j1 + jj) * ldv;
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            if (lane + 32 * c < D) o[c] += pb * vr[lane + 32 * c];
+        }
+      }
+      l = __fadd_rn(__fmul_rn(l, alpha), warp_sum(ps));
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < D)
+        out[static_cast<size_t>(r) * ldo + lane + 32 * c] = __fdiv_rn(o[c], l);
+  }
 }
 
 }  // namespace mixdq

@@ -1,5 +1,5 @@
 // Asynchronous global -> shared copies and ldmatrix fragment loads, shared
-// by the pipelined kernels (flash_attention.cu's bf16 path, wq_matmul.cu).
+// by the pipelined kernels (the attention kernels' key ring, wq_matmul.cu).
 //
 // A ring of S stages in shared memory is filled by cp.async.cg 16-byte
 // copies, one commit group per stage: before consuming stage i a thread

@@ -1,6 +1,6 @@
 // Small int8 building blocks shared by the int8 GEMM mainloop
 // (igemm_s8.cuh) and the attention kernels (attn_mma.cuh,
-// flash_attention.cu): a 16-byte chunk of codes, the int8 mma.sync
+// int8_flash.cu): a 16-byte chunk of codes, the int8 mma.sync
 // m16n8k32 (s8 x s8 -> s32), and the alignment test of the 16-byte
 // copies.
 #pragma once

@@ -132,7 +132,7 @@ __device__ void attend_bf16(uint32_t ring, int ring_bytes, int group,
         if (r < 2) la += p;
         else lb += p;
       }
-    ring_pv<D>(st, s, o, lane);
+    ring_pv<D>(st + KvStage<D>::V, s, o, lane);
   }
   cp_async_wait<0>();  // streaming: the empty groups past the last fill
   la = quad_sum(la);

@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("qconv.cu", "geglu_qmatmul.cu", "gn_quant.cu", "ln_quant.cu",
            "qmatmul.cu", "sec_attention.cu", "sec_coop_d16.cu",
            "sec_coop_d32.cu", "sec_coop_d64.cu", "sec_coop_d128.cu",
-           "flash_attention.cu", "wq_matmul.cu", "qmatmul_fused.cu")
+           "flash_attention.cu", "int8_flash.cu", "wq_matmul.cu",
+           "qmatmul_fused.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

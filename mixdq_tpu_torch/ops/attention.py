@@ -24,13 +24,14 @@ runs the online softmax with int8 QK^T (and int8 PV on ``p``
 re-quantized to ``round(127 p)``). Its key blocks are the JAX wrappers'
 ``bk = 512`` (``int8_block_keys``) in kernel and plain version alike:
 the codes of ``p`` depend on the running max. Kernels:
-``csrc/flash_attention.cu``. Plain versions: ``int8_flash_codes_plain``
-and, with the quantize, ``int8_flash_attention_plain`` /
-``int8qkv_flash_attention_plain``.
+``csrc/int8_flash.cu``, under ``int8_flash_plan``. Plain versions:
+``int8_flash_codes_plain`` and, with the quantize,
+``int8_flash_attention_plain`` / ``int8qkv_flash_attention_plain``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -95,8 +96,15 @@ def _lib():
         P, I, F = _build.P, _build.I, _build.F
         lib.mixdq_flash_attention.argtypes = [P] * 4 + [I] * 10 + [F, P]
         lib.mixdq_flash_attention.restype = I
-        lib.mixdq_int8_flash_attention.argtypes = [P] * 4 + [I] * 10 + [
-            P] * 3
+    return lib
+
+
+def _int8_lib():
+    lib = _build.load("int8_flash.cu")
+    if lib.mixdq_int8_flash_attention.argtypes is None:
+        P, I = _build.P, _build.I
+        lib.mixdq_int8_flash_attention.argtypes = (
+            [P] * 4 + [I] * 10 + [P] * 2 + [I] * 7 + [P])
         lib.mixdq_int8_flash_attention.restype = I
     return lib
 
@@ -148,6 +156,58 @@ def int8_block_keys(Tk: int) -> int:
     """Keys per block of the int8 flash kernels: the JAX wrappers' 512,
     clipped to ``Tk`` rounded up to 128 (``pallas_attention.py:217``)."""
     return min(512, -(-Tk // 128) * 128)
+
+
+#: the int8 flash kernels' block (query rows, a warp per 16), ring depth
+#: and keys a ring stage, one m16n8k32 step (``csrc/int8_flash.cu``:
+#: I8_ROWS, I8_STAGES; ``csrc/attn_mma.cuh``: KCH)
+INT8_FLASH_ROWS = 64
+INT8_FLASH_STAGES = 4
+INT8_FLASH_STAGE_KEYS = 32
+#: blocks an SM each build is made for, by head dim: (bf16 v, int8 v)
+#: (``I8Stage::MIN_BLOCKS``)
+INT8_FLASH_BLOCKS = {16: (5, 5), 32: (5, 5), 64: (5, 4), 128: (2, 2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8FlashPlan:
+    """One int8 flash launch's block and key ring: ``rows`` query rows a
+    block of ``threads``; ``stages`` ring stages of ``stage_keys`` keys,
+    each ``stage_bytes`` (k code rows of ``max(d, 32) + 16`` bytes, then
+    v rows: codes at the same stride, or bf16 of ``d + 8`` elements);
+    ``ring_bytes`` of dynamic shared memory; ``blocks_per_sm`` the build's
+    launch bound. f32 v keeps the scalar path (64-row blocks of 128
+    threads, no ring) under the bf16-v plan of its ``d``."""
+    rows: int
+    threads: int
+    stages: int
+    stage_keys: int
+    stage_bytes: int
+    ring_bytes: int
+    blocks_per_sm: int
+
+
+def int8_flash_plan(d: int, int8_v: bool) -> Int8FlashPlan:
+    """The plan of the int8 flash kernel at head dim ``d`` with int8 v
+    codes (``int8qkv_flash_attention``) or bf16 v; the C launcher refuses
+    any other."""
+    check_head_dim(d)
+    keys = INT8_FLASH_STAGE_KEYS
+    ldk = max(d, 32) + 16
+    stage = keys * (ldk + (ldk if int8_v else (d + 8) * 2))
+    return Int8FlashPlan(INT8_FLASH_ROWS, INT8_FLASH_ROWS // 16 * 32,
+                         INT8_FLASH_STAGES, keys, stage,
+                         INT8_FLASH_STAGES * stage,
+                         INT8_FLASH_BLOCKS[d][int(int8_v)])
+
+
+def s8_slot(q: int) -> int:
+    """The k slot of local key ``q`` (0..31) of a 32-key step in the s8 A
+    fragment of ``p`` built from the logits' accumulator layout (tile
+    ``q // 8`` holds keys 2t, 2t+1 of a lane): mirror of
+    ``csrc/int8_flash.cu:s8_slot``."""
+    nt, w = q >> 3, q & 7
+    return (nt >> 1) * 16 + (w >> 1) * 4 + (nt & 1) * 2 + (w & 1)
 
 
 def _int8_operands(q_src, k_src, v_src, heads, head_dim, q_off, k_off, v_off,
@@ -258,12 +318,13 @@ def int8_flash_codes(qi: torch.Tensor, ki: torch.Tensor,
     ls = _f32(logit_scale).to(dev).reshape(1)
     vs = (_f32(v_scale).to(dev) / 127.0).reshape(1) if int8_v else None
     out = torch.empty((B, Tq, C), dtype=out_dtype, device=dev)
-    lib = _lib()
+    plan = int8_flash_plan(head_dim, int8_v)
+    lib = _int8_lib()
     err = lib.mixdq_int8_flash_attention(
         _build.ptr(qi), _build.ptr(ki), v_ptr, _build.ptr(out), ldv, B, Tq,
         Tk, heads, head_dim, int8_block_keys(Tk), int(int8_v), v_bf16,
         int(out_dtype == torch.bfloat16), _build.ptr(ls), _build.ptr(vs),
-        _build.stream(dev))
+        *dataclasses.astuple(plan), _build.stream(dev))
     _build.check(lib, err, name)
     count.launches += 1
     return out

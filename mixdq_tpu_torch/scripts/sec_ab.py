@@ -1,8 +1,8 @@
 """A/B of the redesigned kernels between two checkouts on one card.
 
 Runs the ``sec_attention*`` kernels (with ``geglu_out_qmatmul`` and
-``ln_quantize``, which share their LayerNorm code), ``geglu_qmatmul``
-and ``gn_silu_quantize`` of the checkout at ``--root`` at the main-path
+``ln_quantize``, which share their LayerNorm code), ``geglu_qmatmul``,
+``gn_silu_quantize`` and the int8 flash kernels of the checkout at ``--root`` at the main-path
 shapes of ``chip_smoke.py`` and at small test shapes, on inputs made
 from seed 0 (the attention cases by that checkout's ``chip_smoke.py``
 case builders), so that two checkouts see the same inputs. Prints each
@@ -19,7 +19,8 @@ from ``--root``::
     python3 mixdq_tpu_torch/scripts/sec_ab.py compare a.pt b.pt
 
 ``run --only ln_quantize ln=True`` keeps the cases whose label holds one
-of the words (then build only the sources those cases reach).
+of the words (then build only the sources those cases reach); ``run
+--only int8`` the int8 flash kernels' cases.
 """
 
 import argparse
@@ -142,6 +143,32 @@ def cases(torch, cs, g, dev):
         a, kw = cs.geglu_out_case(torch, g, dev, M, C, 4 * C, C, dt, ln)
         out.append((f"geglu_out M={M} C={C} ln={ln} {dt}", lambda a=a, kw=kw:
                     qmatmul.geglu_out_qmatmul(*a, **kw), False))
+    # int8 flash attention on codes (as phase 1 of chip_smoke.py): the
+    # SDXL 1024 attn1 site at B=1 and B=2, two key blocks with a ragged
+    # tail, d = 16 and 128, and int8 v with f32 output
+    from mixdq_tpu_torch.ops import attention
+    for qkv in (False, True):
+        name = "int8qkv_flash" if qkv else "int8_flash"
+        for B, Tq, Tk, heads, d, cross, odt in [
+                (1, 4096, 4096, 10, 64, False, bf16),
+                (2, 4096, 4096, 10, 64, False, bf16),
+                (2, 300, 700, 3, 64, True, bf16),
+                (2, 130, 130, 4, 16, False, bf16),
+                (1, 200, 600, 2, 128, True, bf16)] + (
+                    [(1, 4096, 4096, 10, 64, False, torch.float32),
+                     (2, 300, 700, 3, 16, True, torch.float32)] if qkv
+                    else []):
+            srcs, kw = cs.attn_case(torch, g, dev, B, Tq, Tk, heads, d, bf16,
+                                    cross)
+            qi, ki, vi, s_qk, sv = attention._int8_operands(
+                *srcs, heads, d, kw["q_off"], kw["k_off"], kw["v_off"], qkv)
+            a = (qi, ki, vi if qkv else srcs[2], s_qk * d ** -0.5, sv)
+            ckw = dict(heads=heads, head_dim=d,
+                       v_off=0 if qkv else kw["v_off"], out_dtype=odt)
+            out.append((f"{name} B={B} Tq={Tq} Tk={Tk} {heads}x{d} {odt}",
+                        lambda a=a, kw=ckw: attention.int8_flash_codes(*a,
+                                                                       **kw),
+                        False))
     return out
 
 

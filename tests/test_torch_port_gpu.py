@@ -591,6 +591,11 @@ def test_geglu_out_kernel(dev, M, K, H, C, dtype, ln):
     (2, 130, 130, 4, 16, torch.bfloat16, True),
     (1, 100, 90, 2, 32, torch.float32, False),      # f32
     (2, 70, 600, 2, 128, torch.float32, False),
+    # the key ring's cursor at its edges
+    (1, 64, 513, 2, 64, torch.bfloat16, False),     # a key block of one key
+    (2, 1, 600, 3, 64, torch.bfloat16, False),      # Tq = 1
+    (2, 70, 33, 2, 32, torch.bfloat16, False),      # one stage and one key
+    (1, 100, 300, 4, 16, torch.float32, False),     # d=16, int8 v f32 out
 ])
 def test_int8_flash_kernels(dev, name, B, Tq, Tk, heads, d, dtype,
                             self_attn):
