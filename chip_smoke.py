@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: W8A8 and mixed-precision
 SDXL-Turbo (512 px) and W8A8 SDXL (1024 px) UNet steps through the
-hand-written kernels, and the kernel benchmark.
+hand-written kernels, eager and captured in CUDA graphs, the kernel
+benchmark, and the serving path (prompts to images) at full SDXL-Turbo
+width, one CUDA graph a batch.
 
     python3 chip_smoke.py
 
@@ -38,6 +40,9 @@ Phases (none catches its own failure; any failure exits non-zero):
    split (LN, projection GEMM, attention, to_out GEMM:
    ``sec_attention.probe``'s stamps after each grid sync, means of
    ``SPLIT_ITERS`` flushed calls).
+   ``capture_report``: how the special launches capture into a CUDA
+   graph (``gn_silu_quantize``'s edge types, programmatic or stream
+   order, and its time in a graph; the cooperative kernels' node flags).
 2. ``tiny-sdxl`` and ``small-sdxl`` (a small UNet whose attention sites
    take the whole-attention kernels), W8A8 steps in float32
    under ``attn_impl='einsum'`` and ``'auto'``: kernels on the GPU
@@ -53,7 +58,13 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``qmatmul`` / ``qconv2d`` calls by shape), finite outputs, and the
    SQNR of int8 against the bf16 FP UNet (>= 16 dB); prints the SQNR of
    auto against einsum and paired median step times. One-layer faults
-   injected into the deploy show what the SQNR gate sees.
+   injected into the deploy show what the SQNR gate sees. Then the
+   graphed cells (``graphed_step_ms``, here and in phases 6 and 7): bf16
+   and each quantized path captured as a CUDA graph of one step, whose
+   launches counted at capture must be the path's ``ctx_kernel_calls``
+   and whose replay must equal the eager step bit for bit; paired median
+   replay times, and one profiled replay beside one profiled eager step
+   (busy ms, idle share).
 4. Every deploy entry at full width, teacher-forced on the input its
    layer sees in an FP step, against fake quantization computed from the
    quantizers' definition (>= 30 dB each), and every attention module,
@@ -97,6 +108,14 @@ Phases (none catches its own failure; any failure exits non-zero):
    int8 row's output against the PyTorch int8 row's (the phase 1 rule of
    the fused GEMMs); the only path of ``qmatmul_fused`` and
    ``qmatmul_fused2``.
+9. The serving path at full SDXL-Turbo width
+   (``phase_serving``): ``ServingEngine`` at B = 1 and 4, one Euler step,
+   g = 0, for bf16, the W8A8 UNet with the bf16 VAE and with the int8 VAE
+   decoder, each captured once as one CUDA graph a batch: launches at
+   capture, graphed images against the eager run (bit for bit), finite
+   and in [0, 1], SQNR gates (what the W8A8 UNet adds to the latents,
+   the int8 VAE's images) failed by planted faults, ms per batch and
+   images/s.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
@@ -118,6 +137,36 @@ BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 N_REQUESTS = 4
 TIMING_ROUNDS = 3
+# replays of a CUDA graph timed back to back in each round of the graphed
+# paired medians (phases 3, 6, 7, 9)
+GRAPH_ITERS = 5
+# calls of gn_silu_quantize in one graph (phase 1, capture_report)
+CAPTURE_CALLS = 50
+# phase 9, the serving path: batch sizes, the seed of the timed requests,
+# timing rounds, the VAE layer of its planted fault, and the VAE's SQNR
+# gate. The UNet gate reads what the UNet adds in the one Euler step (the
+# latents minus the scaled noise both variants share; the whole image is
+# mostly that noise), the quantity phase 3 gates, at phase 3's limit
+# (MIN_SQNR_DB); its planted fault is the UNet calibrated on phase 3's
+# example inputs, whose unit-normal text embeddings are far smaller than
+# the towers'. Phase 3's time_embedding.linear_1 fault is only logged:
+# cross-attention on the towers' embeddings outweighs the time embedding,
+# so it moves the reading by about 2 dB. The VAE gate reads the int8
+# VAE's images against the bf16 VAE's under the same UNet. Readings:
+# PERF.md section 6, PR 14
+SERVE_BATCHES = (1, 4)
+SERVE_SEED = 7
+SERVE_ROUNDS = 3
+SERVE_VAE_FAULT = "decoder.up_blocks_3_resnets_0.conv_shortcut"
+SERVE_VAE_DB = 25.0
+# the VAE decoder's largest int8 GEMMs at 512 px, B = 4 (phase 9's largest
+# batch), and its ragged ones: 3x3 convs (H, C, K, B) -- the 512x512
+# level (M = 1,048,576 rows), conv_out (N = 3), conv_in (C = 4), the
+# 64x64 level -- and qmatmul (M, K, N): the 1x1 shortcut 256 -> 128 at
+# 512x512, the mid-block attention projections at 64x64
+VAE_CONVS = ((512, 256, 128, 4), (512, 128, 3, 1), (64, 4, 512, 1),
+             (64, 512, 512, 4))
+VAE_QMATMULS = ((4 * 512 * 512, 256, 128), (4 * 64 * 64, 512, 512))
 MIN_SQNR_DB = 16.0     # whole step, int8 vs bf16 (sound: about 20-23 dB)
 LAYER_SQNR_DB = 30.0   # each deploy entry vs fake quantization
 # one fault each: caught only per layer / by both gates
@@ -503,30 +552,34 @@ def kernel_cases(torch, dev):
                 f"{plan.stages} stages, {plan.splits} split(s) of "
                 f"{plan.split_k} k, {plan.blocks} blocks")
 
-    convs = [("qconv2d", 1, 64, 320, 320, True), ("qconv2d", 1, 16, 2560,
-             1280, True), ("qconv2d", 1, 64, 4, 320, False),
-             ("qconv2d", 1, 64, 320, 4, False), ("qconv2d", 1, 32, 1920,
-             640, True), ("qconv2d_s2", 2, 64, 320, 320, False),
-             ("qconv2d_s2", 2, 32, 640, 640, False),
-             ("qconv2d", 1, 16, 1280, 1280, True)]
-    for name, stride, H, C, K, epi in convs:
-        x, w = codes(1, H, H, C), codes(3, 3, C, K)
+    # (kernel, stride, H, C, K, epilogue, B): the UNet's, then the VAE
+    # decoder's (``VAE_CONVS``)
+    convs = [("qconv2d", 1, 64, 320, 320, True, 1), ("qconv2d", 1, 16, 2560,
+             1280, True, 1), ("qconv2d", 1, 64, 4, 320, False, 1),
+             ("qconv2d", 1, 64, 320, 4, False, 1), ("qconv2d", 1, 32, 1920,
+             640, True, 1), ("qconv2d_s2", 2, 64, 320, 320, False, 1),
+             ("qconv2d_s2", 2, 32, 640, 640, False, 1),
+             ("qconv2d", 1, 16, 1280, 1280, True, 1)] + [
+             ("qconv2d", 1, H, C, K, False, B) for H, C, K, B in VAE_CONVS]
+    for name, stride, H, C, K, epi, B in convs:
+        x, w = codes(B, H, H, C), codes(3, 3, C, K)
         scale = (torch.rand(K, generator=g, device=dev) + 0.5) * 1e-4
         bias0 = -3.0 * w.int().sum((0, 1, 2)).float()
         P = H // stride
         kw = dict(bias=randn(K, dtype=bf16),
-                  extra_bias=randn(1, K, dtype=bf16) if epi else None,
-                  residual=randn(1, P, P, K, dtype=bf16) if epi else None)
+                  extra_bias=randn(B, K, dtype=bf16) if epi else None,
+                  residual=randn(B, P, P, K, dtype=bf16) if epi else None)
         fn = qconv.qconv2d if stride == 1 else qconv.qconv2d_s2
-        nbytes = (H * H * C + 9 * C * K + 2 * P * P * K * (2 if epi else 1))
-        plan = qconv.qconv_plan(1, H, H, C, K, 3, 3, stride, (1, 1), sms)
+        nbytes = B * (H * H * C + 2 * P * P * K * (2 if epi else 1)) \
+            + 9 * C * K
+        plan = qconv.qconv_plan(B, H, H, C, K, 3, 3, stride, (1, 1), sms)
         cases.append((
-            name, f"{C}->{K} @{H}x{H}" + (" +temb+res" if epi else "")
-            + plan_label(plan),
+            name, f"{C}->{K} @{H}x{H}" + (f" B={B}" if B > 1 else "")
+            + (" +temb+res" if epi else "") + plan_label(plan),
             lambda fn=fn, a=(x, w, scale, bias0), kw=kw: fn(*a, -3.0, **kw),
             lambda s=stride, a=(x, w, scale, bias0), kw=kw:
                 qconv.qconv2d_plain(*a, -3.0, stride=s, **kw),
-            exact_err, nbytes, [(2 * P * P * K * 9 * C, INT8_OPS_PER_S)],
+            exact_err, nbytes, [(2 * B * P * P * K * 9 * C, INT8_OPS_PER_S)],
             None))
     for shape, silu, eps in [((1, 64, 64, 320), True, 1e-5),
                              ((1, 32, 32, 640), False, 1e-6),
@@ -574,7 +627,7 @@ def kernel_cases(torch, dev):
     # beforehand
     for M, K, N in [(1024, 2560, 640), (1, 1280, 1280), (77, 2048, 2560),
                     (256, 5120, 1280), (4096, 960, 320), (256, 1280, 1280),
-                    (1024, 640, 640)]:
+                    (1024, 640, 640)] + list(VAE_QMATMULS):
         x, w = codes(M, K), codes(K, N)
         wk = w.t().contiguous().t()  # [K, N], K-major
         scale = (torch.rand(N, generator=g, device=dev) + 0.5) * 1e-5
@@ -1094,6 +1147,112 @@ def stage_split(torch, fn, flush, check):
     return total
 
 
+def graph_structure(torch, fn):
+    """``fn`` captured into a CUDA graph kept for inspection, read through
+    the CUDA runtime that torch loaded: (the cooperative flag of each
+    kernel node, the type of each edge: 0 plain stream order, 1
+    programmatic)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    with open("/proc/self/maps") as f:
+        path = next(line.split()[-1] for line in f if "libcudart" in line)
+    rt = ctypes.CDLL(path)
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA error {err}")
+
+    n = ctypes.c_size_t(0)
+    ok(rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)), "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)), "cudaGraphGetNodes")
+    coop = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cudaGraphNodeGetType")
+        if kind.value == 0:  # cudaGraphNodeTypeKernel
+            value = (ctypes.c_ubyte * 64)()  # cudaLaunchAttributeValue
+            ok(rt.cudaGraphKernelNodeGetAttribute(
+                ctypes.c_void_p(node), 2, value),  # ...AttributeCooperative
+               "cudaGraphKernelNodeGetAttribute")
+            coop.append(int.from_bytes(bytes(value[:4]), "little"))
+
+    class EdgeData(ctypes.Structure):  # cudaGraphEdgeData
+        _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                    ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+    m = ctypes.c_size_t(0)
+    ok(rt.cudaGraphGetEdges_v2(raw, None, None, None, ctypes.byref(m)),
+       "cudaGraphGetEdges_v2")
+    if m.value == 0:
+        return coop, []
+    src, dst = (ctypes.c_void_p * m.value)(), (ctypes.c_void_p * m.value)()
+    data = (EdgeData * m.value)()
+    ok(rt.cudaGraphGetEdges_v2(raw, src, dst, data, ctypes.byref(m)),
+       "cudaGraphGetEdges_v2")
+    return coop, [e.type for e in data]
+
+
+def capture_report(torch, dev):
+    """How the port's special launches capture into a CUDA graph:
+    ``gn_silu_quantize``'s programmatic dependent launches (the edge
+    types between its three kernel nodes, and its ms a call in a graph of
+    ``CAPTURE_CALLS`` calls against as many eager calls) and the
+    cooperative ``sec_attention_qkv`` and ``geglu_out_qmatmul`` (their
+    kernel nodes' cooperative flag). Every capture replays bit for bit
+    elsewhere (``graphed_step_ms``, the card tests)."""
+    from mixdq_tpu_torch.ops import gn_quant, qmatmul
+    from mixdq_tpu_torch.ops import sec_attention as sa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 64, 64, 320), generator=g, device=dev).to(
+        torch.bfloat16)
+    gam = torch.rand(320, generator=g, device=dev) + 0.5
+    bet = torch.randn(320, generator=g, device=dev)
+
+    def gn():
+        return gn_quant.gn_silu_quantize(x, gam, bet, 30.0, -5.0, 32, 1e-5,
+                                         True)
+
+    coop, edges = graph_structure(torch, gn)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(CAPTURE_CALLS):
+            gn()
+    graph.replay()
+    in_graph = step_ms(torch, graph.replay) / CAPTURE_CALLS
+
+    def eager():
+        for _ in range(CAPTURE_CALLS):
+            gn()
+
+    eager()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_COVER_CYCLES)
+    eager_ms = step_ms(torch, eager) / CAPTURE_CALLS
+    log(f"capture: gn_silu_quantize [1,64,64,320]: {len(coop)} kernel nodes,"
+        f" edge types {edges} (1: programmatic, 0: stream order); "
+        f"{in_graph:.4f} ms a call in a graph of {CAPTURE_CALLS} calls, "
+        f"{eager_ms:.4f} ms eager")
+    args, kw = qkv_case(torch, g, dev, 1, 1024, 10, 64)
+    coop_qkv, _ = graph_structure(torch, lambda: sa.sec_attention_qkv(*args,
+                                                                       **kw))
+    args, kw = geglu_out_case(torch, g, dev, 1024, 640, 2560, 640,
+                              torch.bfloat16, True)
+    coop_ff, _ = graph_structure(
+        torch, lambda: qmatmul.geglu_out_qmatmul(*args, **kw))
+    log(f"capture: cooperative flags of the kernel nodes: sec_attention_qkv "
+        f"T=1024 C=640 {coop_qkv}, geglu_out_qmatmul M=1024 {coop_ff} "
+        "(cudaLaunchCooperativeKernel as it is)")
+
+
 def fused_one_kernel(torch, dev):
     """Each fused act-quantize GEMM at M=1024 K=5120 N=1280 (bf16 x, as
     the kernel benchmark gives it) under torch.profiler: exactly one
@@ -1558,6 +1717,10 @@ def phase_mixed(torch, unet, calib, requests, w8a8_ctx, qparams, seen,
     paths = (("bf16", FP_CTX), ("w8a8_auto", w8a8_ctx),
              *((f"mp_{c}", ctxs[c]) for c in ctxs))
     paired_step_ms(torch, unet, requests, paths, card, "sdxl-turbo mixed")
+    graphed_step_ms(torch, unet, requests[0],
+                    (("bf16", FP_CTX), ("mp_int8_sec", ctxs["int8_sec"]),
+                     ("mp_pallas_dequant", ctxs["pallas_dequant"])), card,
+                    "sdxl-turbo mixed")
     for tag, ctx in paths:
         total, dep = resident_weight_bytes(
             unet, ctx.deploy if ctx.mode == "int8" else {})
@@ -1731,6 +1894,8 @@ def phase_main_path(torch, dev, card):
     paired_step_ms(torch, unet, requests,
                    (("bf16", FP_CTX), ("auto", ctx), ("einsum", ectx)), card,
                    "sdxl-turbo")
+    graphed_step_ms(torch, unet, requests[0],
+                    (("bf16", FP_CTX), ("auto", ctx)), card, "sdxl-turbo")
     return unet, ctx, calib, requests, launches, e_launches, refs, outs
 
 
@@ -2020,6 +2185,10 @@ def phase_outfuse(torch, unet, ctx, requests, refs, outs, card):
                    (("bf16", FP_CTX), ("default", ctx),
                     *((f"outfuse_{t}", c) for t, c in ctxs.items())), card,
                    "sdxl-turbo out-fusion")
+    graphed_step_ms(torch, unet, requests[0],
+                    (("bf16", FP_CTX), ("default", ctx),
+                     ("outfuse_all", ctxs["all"])), card,
+                    "sdxl-turbo out-fusion")
     phase_profile(torch, unet, requests[0], [("outfuse_all", ctxs["all"])])
     return launches
 
@@ -2077,48 +2246,121 @@ def phase_int8_flash_sites(torch, unet, ctx, req):
                                  "doubled q scale")
 
 
+def profile_call(torch, fn, tag, reps=1):
+    """Device time by kernel over ``reps`` calls of ``fn`` back to back
+    (warmed first), written to ``chiprun_out/profile_{tag}.txt``; returns
+    (wall ms, device busy ms, rows of (ms, count, kernel)) of the whole
+    window, rows empty where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0)
+        if dt and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((dt / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
+        f.write(f"wall_ms {wall:.3f} device_busy_ms {busy:.3f}\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:10.4f} ms {n:6d}  {key}\n")
+    if not rows:
+        log(f"profile {tag}: no device time recorded (not measured)")
+    else:
+        log(f"profile {tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall):.3f})")
+    return wall, busy, rows
+
+
 def phase_profile(torch, unet, req, paths):
     """Device time by kernel over one step of each of ``paths`` ((tag,
     context) pairs), written to ``chiprun_out/profile_{tag}.txt``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mixdq_tpu_torch import pipeline
 
-    os.makedirs(OUT_DIR, exist_ok=True)
     for tag, c in paths:
-        args = (unet, req, c)
-        pipeline.unet_step(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pipeline.unet_step(*args)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            dt = getattr(e, "device_time_total", None)
-            if dt is None:
-                dt = getattr(e, "cuda_time_total", 0)
-            if dt and str(getattr(e, "device_type", "")).endswith("CUDA"):
-                rows.append((dt / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
-            f.write(f"wall_ms {wall:.3f} device_busy_ms {busy:.3f}\n")
-            for ms, n, key in rows:
-                f.write(f"{ms:10.4f} ms {n:6d}  {key}\n")
+        _, _, rows = profile_call(
+            torch, lambda c=c: pipeline.unet_step(unet, req, c), tag)
         if not rows:
-            log(f"profile {tag}: no device time recorded (not measured)")
             continue
-        log(f"profile {tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-            f"(idle share {max(0.0, 1 - busy / wall):.3f})")
         for ms, n, key in rows[:8]:
             log(f"  {ms:9.4f} ms x{n:5d} {key[:90]}")
         sec = {name: [round(sum(r[0] for r in rows if pat in r[2]), 4),
                       sum(r[1] for r in rows if pat in r[2])]
                for name, pat in PROFILE_KERNELS.items()}
         log(f"profile {tag}: redesigned kernels' device ms, launches {sec}")
+
+
+def graphed_step_ms(torch, unet, req, paths, card, label):
+    """Each of ``paths`` ((tag, context) pairs) captured as a CUDA graph of
+    one step on ``req`` (``pipelines.graphed.GraphedCall``): the launches
+    counted during the capture must be the path's ``ctx_kernel_calls`` (or
+    the FP step's), and a replay must equal the eager step bit for bit.
+    Then paired medians: in each of ``TIMING_ROUNDS`` rounds the paths in
+    turn, each over ``GRAPH_ITERS`` replays (CUDA events); and one profiled
+    window of ``GRAPH_ITERS`` replays of each
+    (``chiprun_out/profile_graph_*.txt``; one replay alone reads the
+    profiler's own start-up as idle time) beside one profiled eager step
+    (``..._eager_*``). Returns {tag: median ms}."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+    from mixdq_tpu_torch.utils.profiling import timeit
+
+    sample, t, ehs, added = req
+    graphs = {}
+    for tag, c in paths:
+        g = GraphedCall(lambda s, c=c: unet(s, t, ehs, added, ctx=c),
+                        (sample,))
+        want = (pipeline.ctx_kernel_calls(unet.config, c) if c.mode == "int8"
+                else pipeline.expected_kernel_calls(unet.config, c.attn_impl,
+                                                    mode="fp"))
+        if g.launches != want:
+            raise AssertionError(f"{label} graph {tag}: launches counted at "
+                                 f"capture {g.launches}, expected {want}")
+        eager = pipeline.unet_step(unet, req, c)
+        got = g.replay()
+        if not torch.equal(got, eager):
+            raise AssertionError(
+                f"{label} graph {tag}: replay differs from the eager step "
+                f"({sqnr_db(eager, got):.2f} dB)")
+        graphs[tag] = g
+    log(f"{label} graphs: {sorted(graphs)} captured; launches at capture "
+        "equal ctx_kernel_calls; each replay equals its eager step bit for "
+        "bit")
+    times = {tag: [] for tag in graphs}
+    for _ in range(TIMING_ROUNDS):
+        for tag, g in graphs.items():
+            times[tag].append(timeit(g.replay, iters=GRAPH_ITERS, warmup=0))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"{label} graphed step ms (median of {TIMING_ROUNDS} rounds of "
+        f"{GRAPH_ITERS} replays, CUDA events, {card}): "
+        + " ".join(f"{k}={v:.3f}" for k, v in med.items()) + " "
+        + " ".join(f"bf16/{k}={med['bf16'] / v:.3f}" for k, v in med.items()
+                   if k != "bf16"))
+    name = label.replace(" ", "_")
+    for (tag, c), g in zip(paths, graphs.values()):
+        gw, gb, _ = profile_call(torch, g.replay, f"graph_{name}_{tag}",
+                                 GRAPH_ITERS)
+        ew, eb, _ = profile_call(
+            torch, lambda c=c: pipeline.unet_step(unet, req, c),
+            f"eager_{name}_{tag}")
+        log(f"{label} {tag}: graph replay wall {gw / GRAPH_ITERS:.3f} ms "
+            f"busy {gb / GRAPH_ITERS:.3f} ms idle {max(0.0, 1 - gb / gw):.3f}"
+            f" ({GRAPH_ITERS} replays profiled) | eager step wall {ew:.3f} "
+            f"ms busy {eb:.3f} ms idle {max(0.0, 1 - eb / ew):.3f}")
+    del graphs
+    return med
 
 
 def paired_step_ms(torch, unet, requests, paths, card, label):
@@ -2259,6 +2501,8 @@ def phase_sdxl(torch, dev, card):
         raise AssertionError(f"the {FLASH_SQNR_DB} dB gate on {flash} misses "
                              f"dropped keys: {sqnrs[dropped]} dB")
     paired_step_ms(torch, unet, requests, paths, card, "sdxl")
+    graphed_step_ms(torch, unet, requests[0],
+                    (("bf16", paths[0][1]), ("auto", ctx)), card, "sdxl")
     phase_attention_sites(torch, unet, ctx, requests[0], SDXL_FAULT_SITES)
     phase_flash_sites(torch, unet, paths[0][1], requests[0])
     phase_int8_flash_sites(torch, unet, ctx, requests[0])
@@ -2307,6 +2551,213 @@ def phase_kernel_bench(torch, dev, card):
     return launches, calls
 
 
+def odd_channels_faulted_ctx(ctx, name):
+    """``ctx`` with entry ``name``'s odd output channels dequantized with
+    twice their scale. (A fault on a contiguous half of the channels,
+    ``faulted_ctx``, scales whole GroupNorm groups, which the decoder's
+    next GroupNorm undoes.)"""
+    import dataclasses
+
+    e = ctx.deploy[name]
+    scale = e.scale.clone()
+    scale[1::2] *= 2
+    return dataclasses.replace(ctx, deploy={**ctx.deploy,
+                                            name: e.replace(scale=scale)})
+
+
+def unet_added(torch, eng, args):
+    """What the UNet adds in the engine's Euler steps on ``args`` (its
+    ``inputs``): the sampled latents minus the scaled initial noise, which
+    every variant shares; f32."""
+    with torch.inference_mode():
+        x_t = args[2] * eng.schedule.schedule.init_noise_sigma
+        return eng.denoise(*args).float() - x_t.float()
+
+
+def phase_serving(torch, dev, card):
+    """The serving path at full SDXL-Turbo width (``ServingEngine``: both
+    CLIP towers, one Euler step, g = 0, the VAE decode to 512 px images),
+    one captured CUDA graph a batch, at B = 1 and B = 4, for three
+    variants: bf16; the W8A8 UNet (``quantize_w8a8``: ``int8_sec``,
+    ``'auto'``, calibrated on the bf16 pipeline's UNet inputs for four
+    other prompts) with the bf16 VAE; the same UNet with the int8 VAE decoder
+    (``quantize_vae_decoder``, calibrated on the W8A8 pipeline's latents
+    for four other prompts). For each engine, with the launch counts set
+    to 0 just before it is built and read just after its requests: the
+    launches counted at capture must be the UNet's ``ctx_kernel_calls``
+    plus the decoder's ``decoder_kernel_calls`` (the warm-ups and the
+    capture launch three times that); the images finite, in [0, 1], of
+    the expected shape, equal to the eager ``run`` on the same noise bit
+    for bit, the same for a repeated seed and not for another seed. SQNR
+    gates (``MIN_SQNR_DB``, ``SERVE_VAE_DB``), each failed by a planted
+    fault: what the W8A8 UNet adds to the latents (``unet_added``)
+    against bf16's (the fault: the UNet calibrated on phase 3's example
+    inputs), and the int8 VAE's images against the bf16 VAE's under the
+    W8A8 UNet (one layer's odd channels at twice their scale); ms per
+    batch and images/s from graph replays (CUDA events), the host's
+    ``generate`` wall time and the eager ``run`` beside; one profiled
+    replay and eager run at B = 1 per variant. Returns {path: launches}."""
+    import copy
+
+    import numpy as np
+
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.pipelines.serving import ServingEngine
+    from mixdq_tpu_torch.pipelines.txt2img import Text2ImgPipeline
+    from mixdq_tpu_torch.quant.state import FP_CTX
+    from mixdq_tpu_torch.quant.vae_quant import (decoder_kernel_calls,
+                                                 quantize_vae_decoder)
+    from mixdq_tpu_torch.utils.profiling import timeit
+    from mixdq_tpu_torch.utils.prompts import BUILTIN_PROMPTS
+
+    bf16 = torch.bfloat16
+    t0 = time.time()
+    pipe = Text2ImgPipeline("sdxl-turbo", bf16, dev).init_weights(0)
+    # calibrated on the UNet inputs of the bf16 pipeline's own trajectory
+    # for four prompts the timed requests do not use (the reference's
+    # calibration data), as its text embeddings come from the towers
+    rec = pipe(BUILTIN_PROMPTS[-4:], seed=SERVE_SEED + 1,
+               num_inference_steps=1, guidance_scale=0.0,
+               capture_trajectory=True, decode=False)
+    calib = (rec.trajectory[0], rec.timesteps[0], rec.text_emb,
+             rec.added_conds)
+    ctx = pipeline.quantize_w8a8(pipe.unet, calib)
+    # the UNet gate's planted fault: phase 3's calibration data
+    ex = pipeline.example_inputs("sdxl-turbo", 1, 0, bf16, dev)
+    ctx_ex = pipeline.quantize_w8a8(pipe.unet, ex)
+    log("serving: text embedding RMS, the towers' "
+        f"{rec.text_emb.float().pow(2).mean().sqrt().item():.3f}, phase 3's "
+        f"example inputs' {ex[2].float().pow(2).mean().sqrt().item():.3f}")
+    del ex
+    cal = ServingEngine(pipe, ctx, batch_size=4, steps=1, guidance_scale=0.0)
+    latents = cal.denoise(*cal.inputs(BUILTIN_PROMPTS[-4:], SERVE_SEED + 1))
+    vae_q, vctx = quantize_vae_decoder(pipe.vae, [latents])
+    pipe_q = copy.copy(pipe)
+    pipe_q.vae = vae_q
+    torch.cuda.synchronize()
+    log(f"serving: sdxl-turbo pipeline built, UNet deployed W8A8 "
+        f"({len(ctx.deploy)} entries), VAE decoder int8 "
+        f"({len(vctx.deploy)} entries) in {time.time() - t0:.1f}s")
+    unet_calls = pipeline.ctx_kernel_calls(pipe.unet.config, ctx)
+    vae_calls = decoder_kernel_calls(vctx)
+    variants = {
+        "bf16": (pipe, FP_CTX, FP_CTX, dict.fromkeys(unet_calls, 0)),
+        "w8a8": (pipe, ctx, FP_CTX, unet_calls),
+        "w8a8+int8 vae": (pipe_q, ctx, vctx,
+                          {k: unet_calls[k] + vae_calls[k]
+                           for k in unet_calls})}
+    launches, report, gates = {}, {}, []
+    for B in SERVE_BATCHES:
+        prompts = BUILTIN_PROMPTS[:B]
+        images, added = {}, {}
+        for name, (p, c, vc, want) in variants.items():
+            label = f"serving {name} B={B}"
+            ops.reset_counts()
+            t1 = time.time()
+            eng = ServingEngine(p, c, batch_size=B, steps=1,
+                                guidance_scale=0.0, vae_ctx=vc).compile()
+            built = time.time() - t1
+            img = eng.generate(prompts, seed=SERVE_SEED)
+            again = eng.generate(prompts, seed=SERVE_SEED)
+            other = eng.generate(prompts, seed=SERVE_SEED + 2)
+            torch.cuda.synchronize()
+            launches[label] = ops.launch_counts()
+            if eng.launches != want:
+                raise AssertionError(f"{label}: launches counted at capture "
+                                     f"{eng.launches}, expected {want}")
+            if launches[label] != {k: 3 * v for k, v in want.items()} or \
+                    ops.call_counts() != launches[label]:
+                raise AssertionError(f"{label}: launches {launches[label]} "
+                                     "are not three runs' (two warm-ups "
+                                     "and the capture)")
+            if img.shape != (B, 512, 512, 3) or not np.isfinite(img).all() \
+                    or img.min() < 0 or img.max() > 1:
+                raise AssertionError(f"{label}: bad images {img.shape}")
+            if not np.array_equal(img, again) or np.array_equal(img, other):
+                raise AssertionError(f"{label}: a seed does not fix the "
+                                     "images")
+            args = eng.inputs(prompts, SERVE_SEED)
+            eager = eng.run(*args).float().cpu().numpy()
+            if not np.array_equal(img, eager):
+                raise AssertionError(
+                    f"{label}: graphed images differ from the eager run "
+                    f"(max |d| {np.abs(img - eager).max()})")
+            images[name] = torch.from_numpy(img)
+            added[name] = unet_added(torch, eng, args)
+            reps, gen_ms, eager_ms = [], [], []
+            for _ in range(SERVE_ROUNDS):
+                reps.append(timeit(eng._graph.replay, iters=GRAPH_ITERS,
+                                   warmup=0))
+                t1 = time.perf_counter()
+                eng.generate(prompts, seed=SERVE_SEED)
+                gen_ms.append((time.perf_counter() - t1) * 1e3)
+                eager_ms.append(step_ms(torch, lambda: eng.run(*args)))
+            ms = statistics.median(reps)
+            report[label] = dict(
+                ms_per_batch=ms, images_per_s=B * 1e3 / ms,
+                generate_ms=statistics.median(gen_ms),
+                eager_ms=statistics.median(eager_ms))
+            log(f"{label}: compile (2 warm-ups + capture) {built:.1f}s; "
+                f"graph {ms:.3f} ms a batch, {B * 1e3 / ms:.2f} images/s "
+                f"(median of {SERVE_ROUNDS} rounds of {GRAPH_ITERS} "
+                f"replays); generate() wall {report[label]['generate_ms']:.3f}"
+                f" ms (tokenize, copy in, replay, images to the host); eager "
+                f"run {report[label]['eager_ms']:.3f} ms; {card}")
+            if B == 1:
+                tag = "serving_" + name.replace(" ", "_").replace("+", "_")
+                gw, gb, _ = profile_call(torch, eng._graph.replay,
+                                         f"graph_{tag}", GRAPH_ITERS)
+                ew, eb, _ = profile_call(torch, lambda: eng.run(*args),
+                                         f"eager_{tag}")
+                log(f"{label}: graph replay wall {gw / GRAPH_ITERS:.3f} ms "
+                    f"busy {gb / GRAPH_ITERS:.3f} ms idle "
+                    f"{max(0.0, 1 - gb / gw):.3f} ({GRAPH_ITERS} replays "
+                    f"profiled) | eager run wall {ew:.3f} ms busy {eb:.3f} ms"
+                    f" idle {max(0.0, 1 - eb / ew):.3f}")
+            del eng
+        # the UNet gate on what the UNet adds, the VAE gate on images;
+        # planted faults run eagerly on the same inputs
+        unet_fault = FAULT_LAYERS[-1]
+        bad, bad_cal = (ServingEngine(pipe, c, batch_size=B, steps=1,
+                                      guidance_scale=0.0)
+                        for c in (faulted_ctx(ctx, unet_fault), ctx_ex))
+        bad_vae = ServingEngine(pipe_q, ctx, batch_size=B, steps=1,
+                                guidance_scale=0.0,
+                                vae_ctx=odd_channels_faulted_ctx(
+                                    vctx, SERVE_VAE_FAULT))
+        with torch.inference_mode():
+            bad_img = bad_vae.run(*args).float().cpu()
+        sq = {"w8a8 unet": sqnr_db(added["bf16"], added["w8a8"]),
+              "w8a8 unet, fault": sqnr_db(added["bf16"],
+                                          unet_added(torch, bad_cal, args)),
+              "w8a8 unet, layer fault": sqnr_db(added["bf16"],
+                                                unet_added(torch, bad, args)),
+              "w8a8 images": sqnr_db(images["bf16"], images["w8a8"]),
+              "int8 vae images": sqnr_db(images["w8a8"],
+                                         images["w8a8+int8 vae"]),
+              "int8 vae images, fault": sqnr_db(images["w8a8"], bad_img)}
+        log(f"serving B={B} SQNR (dB): what the W8A8 UNet adds to the "
+            f"latents vs bf16 {sq['w8a8 unet']:.2f}, calibrated on phase "
+            f"3's example inputs {sq['w8a8 unet, fault']:.2f} (gate "
+            f"{MIN_SQNR_DB}), with half of {unet_fault}'s channels at "
+            f"twice their scale {sq['w8a8 unet, layer fault']:.2f} (not "
+            f"gated: phase 4's per-entry check); W8A8 images vs bf16 "
+            f"{sq['w8a8 images']:.2f} (not gated); int8 VAE images vs bf16 "
+            f"VAE {sq['int8 vae images']:.2f}, with "
+            f"{SERVE_VAE_FAULT}'s odd channels at twice their scale "
+            f"{sq['int8 vae images, fault']:.2f} (gate {SERVE_VAE_DB})")
+        for what, gate in (("w8a8 unet", MIN_SQNR_DB),
+                           ("int8 vae images", SERVE_VAE_DB)):
+            if sq[what] < gate or sq[f"{what}, fault"] >= gate:
+                gates.append(f"serving B={B}: {what} SQNR {sq[what]:.2f} "
+                             f"dB, faulted {sq[f'{what}, fault']:.2f}, gate "
+                             f"{gate}")
+    log(json.dumps({"serving": report}))
+    if gates:
+        raise AssertionError("; ".join(gates))
+    return launches
+
+
 def main():
     import dataclasses
     import gc
@@ -2340,6 +2791,7 @@ def main():
         " ms (one warp, timed as phase 1 times each kernel)")
     del flush
     fused_one_kernel(torch, dev)
+    capture_report(torch, dev)
     log("phase 1: every kernel matches its plain version")
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
@@ -2380,6 +2832,15 @@ def main():
     per_step["kernel_bench"] = {k: v // kb_calls
                                 for k, v in totals["kernel_bench"].items()}
     log("phase 8: kernel_bench path ok (four shapes, seven rows)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = phase_serving(torch, dev, card)
+    totals.update(serving)
+    # a serving path's "per step": one generation (the capture's launches)
+    per_step.update({p: {k: v // 3 for k, v in c.items()}
+                     for p, c in serving.items()})
+    log("phase 9: serving path ok (bf16, W8A8, W8A8 + int8 VAE at B = "
+        f"{', '.join(map(str, SERVE_BATCHES))}, one CUDA graph a batch)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",
@@ -2404,6 +2865,7 @@ def main():
                                       "sdxl int8_qk", "sdxl int8_qkv",
                                       "kernel_bench")
                           if totals[p][name]), None)
+        serve = f"serving w8a8+int8 vae B={SERVE_BATCHES[-1]}"
         if main_path is None:
             raise AssertionError(f"{name} never launched on a main path")
         requests = (N_SDXL_REQUESTS if main_path.startswith("sdxl ")
@@ -2414,6 +2876,7 @@ def main():
             "replaces": replaces, "launches": totals[main_path][name],
             "launches_path": main_path, "requests": requests,
             "launches_per_step": {p: c[name] for p, c in per_step.items()},
+            "serving_launches": per_step[serve][name], "serving_path": serve,
             "max_abs_err": r["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -3,9 +3,13 @@ arrays, into this port's state dict and ``LayerQParams``.
 
 Flax module paths map to the port's module names through
 ``canonical_name`` (``down_blocks_0/resnets_1/conv1`` ->
-``down_blocks.0.resnets.1.conv1``). Leaves: ``kernel`` (HWIO or
-``[K, N]``, kept as is) and norm ``scale`` -> ``weight``; ``bias`` ->
-``bias``.
+``down_blocks.0.resnets.1.conv1``; the VAE's ``up_blocks_0_resnets_1``
+stays as it is). Leaves: ``kernel`` (HWIO or ``[K, N]``, kept as is),
+norm ``scale`` and ``nn.Embed``'s ``embedding`` -> ``weight``; ``bias``
+-> ``bias``; the raw params of a module (CLIP's ``position_embedding``)
+keep their names. The same function carries the UNet's, the CLIP
+towers' and the VAE's params (``quant_conv`` / ``post_quant_conv``
+included).
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ import torch
 
 from .quant.state import LayerQParams, canonical_name
 
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "bias": "bias"}
+#: params a module holds directly (``self.param``), not through a layer
+_RAW = ("position_embedding",)
 
 
 def _flatten(tree: Dict[str, Any], path: Tuple[str, ...] = ()):
@@ -32,9 +39,12 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params tree (numpy leaves) -> ``state_dict`` of the port."""
     out = {}
     for path, v in _flatten(params):
-        if path[-1] not in _LEAF:
+        if path[-1] in _RAW:
+            key = canonical_name(path)
+        elif path[-1] in _LEAF:
+            key = canonical_name(path[:-1]) + "." + _LEAF[path[-1]]
+        else:
             raise KeyError(f"unknown param leaf {'/'.join(path)}")
-        key = canonical_name(path[:-1]) + "." + _LEAF[path[-1]]
         out[key] = torch.from_numpy(np.array(v, copy=True))
     return out
 

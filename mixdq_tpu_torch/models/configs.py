@@ -1,8 +1,8 @@
-"""UNet configurations of the families this port runs (the SDXL UNet
-architecture at full width: ``sdxl-turbo`` at 512 px and ``sdxl`` at
-1024 px; the ``tiny-sdxl`` cut used by the CPU tests, and ``small-sdxl``,
-a cut whose cross-attention level is two heads of 64, so that the
-whole-attention kernels run on it). Field names and values follow
+"""Configurations of the families this port runs: the SDXL UNet, its two
+CLIP text towers and its VAE, at full width (``sdxl-turbo`` at 512 px and
+``sdxl`` at 1024 px); the ``tiny-sdxl`` cut used by the CPU tests, and
+``small-sdxl``, a cut whose cross-attention level is two heads of 64, so
+that the whole-attention kernels run on it. Field names and values follow
 ``mixdq_tpu.models.configs``."""
 
 from __future__ import annotations
@@ -39,11 +39,43 @@ class UNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_position_embeddings: int = 77
+    intermediate_size: int = 3072
+    projection_dim: Optional[int] = None  # set => pooled projection head
+    hidden_act: str = "quick_gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.13025  # SDXL
+    sample_channels: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelFamilyConfig:
     name: str
     unet: UNetConfig
-    #: width of the pooled text embedding (``text_embeds``)
-    pooled_dim: int
+    vae: VAEConfig
+    text_encoder: CLIPTextConfig
+    text_encoder_2: Optional[CLIPTextConfig] = None  # SDXL dual-encoder
+    is_sdxl: bool = True
+    default_steps: int = 1
+    guidance_scale: float = 0.0
+
+    @property
+    def pooled_dim(self) -> int:
+        """Width of the pooled text embedding (``text_embeds``): the
+        second tower's projection."""
+        return self.text_encoder_2.projection_dim
 
 
 SDXL_UNET = UNetConfig(sample_size=128)
@@ -83,11 +115,42 @@ SMALL_SDXL_UNET = UNetConfig(
     norm_num_groups=16,
 )
 
+CLIP_L = CLIPTextConfig()  # CLIP ViT-L/14 text tower
+CLIP_BIGG = CLIPTextConfig(
+    hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+    projection_dim=1280, hidden_act="gelu")
+SDXL_VAE = VAEConfig()
+
+TINY_CLIP = CLIPTextConfig(
+    vocab_size=1000, hidden_size=64, num_layers=2, num_heads=2,
+    intermediate_size=128, max_position_embeddings=77)
+TINY_CLIP_2 = CLIPTextConfig(
+    vocab_size=1000, hidden_size=64, num_layers=2, num_heads=2,
+    intermediate_size=128, max_position_embeddings=77, projection_dim=64)
+# 4 blocks => the standard 8x spatial factor between pixels and latents
+TINY_VAE = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                     norm_num_groups=8)
+#: ``small-sdxl``'s towers: 32 + 32 = its cross-attention width, and a
+#: pooled projection of 32 (its ``text_embeds``)
+SMALL_CLIP = CLIPTextConfig(
+    vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
+    intermediate_size=64, max_position_embeddings=77)
+SMALL_CLIP_2 = dataclasses.replace(SMALL_CLIP, projection_dim=32,
+                                   hidden_act="gelu")
+
 FAMILIES = {
-    "sdxl-turbo": ModelFamilyConfig("sdxl-turbo", SDXL_TURBO_UNET, 1280),
-    "sdxl": ModelFamilyConfig("sdxl", SDXL_UNET, 1280),
-    "tiny-sdxl": ModelFamilyConfig("tiny-sdxl", TINY_SDXL_UNET, 64),
-    "small-sdxl": ModelFamilyConfig("small-sdxl", SMALL_SDXL_UNET, 32),
+    "sdxl-turbo": ModelFamilyConfig(
+        "sdxl-turbo", SDXL_TURBO_UNET, SDXL_VAE, CLIP_L, CLIP_BIGG,
+        is_sdxl=True, default_steps=1, guidance_scale=0.0),
+    "sdxl": ModelFamilyConfig(
+        "sdxl", SDXL_UNET, SDXL_VAE, CLIP_L, CLIP_BIGG, is_sdxl=True,
+        default_steps=30, guidance_scale=7.5),
+    "tiny-sdxl": ModelFamilyConfig(
+        "tiny-sdxl", TINY_SDXL_UNET, TINY_VAE, TINY_CLIP, TINY_CLIP_2,
+        is_sdxl=True, default_steps=1, guidance_scale=0.0),
+    "small-sdxl": ModelFamilyConfig(
+        "small-sdxl", SMALL_SDXL_UNET, TINY_VAE, SMALL_CLIP, SMALL_CLIP_2,
+        is_sdxl=True, default_steps=1, guidance_scale=0.0),
 }
 
 

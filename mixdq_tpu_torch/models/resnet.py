@@ -68,20 +68,23 @@ class Downsample2D(nn.Module):
         return self.conv(x, ctx)
 
 
+def upsample_conv(conv: QConv, x, ctx: QuantCtx):
+    """Nearest 2x, then ``conv`` (the UNet's and the VAE's upsamplers)."""
+    dp = fused_entry(ctx, conv.qname, kind="conv")
+    if dp is not None:
+        # quantize BEFORE the nearest 2x: duplicating pixels commutes
+        # with per-tensor quantization, on 4x fewer elements
+        x = quantize_per_tensor(x.to(conv.dtype), dp.scale_inv,
+                                dp.zp_shifted, *act_clip_range(dp.a_bits))
+    x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    return conv(x, ctx)
+
+
 class Upsample2D(nn.Module):
     def __init__(self, channels: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
         self.conv = QConv(channels, channels, (3, 3), padding=1, dtype=dtype,
                           device=device)
 
     def forward(self, x, ctx: QuantCtx = FP_CTX):
-        dp = fused_entry(ctx, self.conv.qname, kind="conv")
-        if dp is not None:
-            # quantize BEFORE the nearest 2x: duplicating pixels commutes
-            # with per-tensor quantization, on 4x fewer elements
-            x = quantize_per_tensor(x.to(self.dtype), dp.scale_inv,
-                                    dp.zp_shifted,
-                                    *act_clip_range(dp.a_bits))
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return self.conv(x, ctx)
+        return upsample_conv(self.conv, x, ctx)

@@ -99,10 +99,12 @@ def quantize_w8a8(unet: UNet2DConditionModel, calib: Inputs) -> QuantCtx:
 def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
                    weight_map: Dict[str, int], act_map: Dict[str, int],
                    protect: Sequence[str],
-                   deploy_compute: str = "int8_sec") -> QuantCtx:
+                   deploy_compute: str = "int8_sec",
+                   w_bits: int = 8) -> QuantCtx:
     """Calibrate on ``calib`` and deploy a mixed-precision configuration
-    as ``bench.py:110-194`` does: every layer W8A8, then the weight bit
-    map, then the act-protect list (acts FP: weight-only entries), then
+    as ``bench.py:110-194`` does: every layer W``w_bits``A8, then the
+    weight bit map, then the act-protect list (acts FP: weight-only
+    entries), then
     the act bit map (which turns acts on again for any layer it names).
     Dense W<=4 weights are halves-packed. ``deploy_compute='int8_sec'``:
     fused QKV/KV, BoS-aware, the packed entries unpacked once, under
@@ -110,7 +112,8 @@ def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
     (weight-only): unfused, kept packed, spatial convs left FP."""
     cb = WQ.candidate_bits
     qparams = calibrate(unet, [calib], WQ, AQ)
-    ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=8, a_bits=8)
+    ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=w_bits,
+                        a_bits=8)
     ctrl = apply_bitwidth_config(ctrl, weight_map, "weight", cb)
     ctrl = protect_layers(ctrl, protect)
     ctrl = apply_bitwidth_config(ctrl, act_map, "act", cb)

@@ -1,0 +1,147 @@
+"""Batch serving: one CUDA graph a batch shape (port of
+``mixdq_tpu/pipelines/serving.py``, without its ``mesh``).
+
+``ServingEngine`` runs a whole generation -- tokens -> both CLIP towers ->
+the denoise loop (CFG as a doubled batch) -> VAE decode -> images in
+[0, 1] -- as one program, as the JAX package's jitted ``run`` does: here
+``compile()`` captures ``run`` once into a ``torch.cuda.CUDAGraph`` on
+static token and noise buffers (``graphed.GraphedCall``), and
+``generate`` tokenizes on the host, copies the tokens and the noise (drawn
+outside the graph from a generator seeded by the caller) into the
+buffers, replays, and returns numpy. On the CPU ``run`` is called
+eagerly.
+
+Every engine's split-K GEMMs share one buffer of arrival counters a
+device (``ops.qmatmul.igemm_scratch``); replays on one stream run one
+after another, so two engines never touch it at once.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..quant.state import FP_CTX, QuantCtx
+from . import samplers
+from .graphed import GraphedCall
+from .txt2img import ScheduleTensors, Text2ImgPipeline, make_schedule
+
+
+class ServingEngine:
+    """Graphed txt2img serving at one batch size and step count.
+
+    Usage:
+        eng = ServingEngine(pipe, ctx, batch_size=4, steps=1).compile()
+        images = eng.generate(prompts, seed)
+    """
+
+    def __init__(
+        self,
+        pipe: Text2ImgPipeline,
+        ctx: QuantCtx = FP_CTX,
+        batch_size: int = 1,
+        steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        vae_ctx: QuantCtx = FP_CTX,
+    ):
+        f = pipe.family
+        self.pipe = pipe
+        self.B = batch_size
+        self.steps = steps or f.default_steps
+        self.g = f.guidance_scale if guidance_scale is None else guidance_scale
+        self.height = height or f.unet.sample_size * 8
+        self.width = width or f.unet.sample_size * 8
+        self.ctx = ctx
+        self.vae_ctx = vae_ctx
+        self.schedule = ScheduleTensors(make_schedule(f, self.steps),
+                                        pipe.device)
+        # built here, outside any capture: a graph copies nothing from
+        # the host
+        self.time_ids = pipe.default_time_ids(self.B, self.height,
+                                              self.width)
+        self._graph: Optional[GraphedCall] = None
+
+    @property
+    def euler(self) -> bool:
+        return isinstance(self.schedule.schedule, samplers.EulerSchedule)
+
+    def denoise(self, tokens: torch.Tensor, ntokens: torch.Tensor,
+                noise: torch.Tensor,
+                lcm_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Tokens -> the sampled latents (``run`` without the decode).
+        ``noise``: unit normal initial noise; ``lcm_noise``: the LCM
+        loop's."""
+        pipe = self.pipe
+        embeds, pooled = pipe.encode_prompt(tokens)
+        added = pipe.added_conds(pooled, self.time_ids)
+        neg_embeds, neg_added = None, None
+        if self.g > 1.0:
+            neg_embeds, neg_pooled = pipe.encode_prompt(ntokens)
+            neg_added = pipe.added_conds(neg_pooled, self.time_ids)
+        latents = noise
+        if self.euler:
+            latents = latents * self.schedule.schedule.init_noise_sigma
+        latents, _ = pipe.sample_latents(
+            embeds, added, latents, self.schedule, self.g, neg_embeds,
+            neg_added, self.ctx, False, lcm_noise)
+        return latents
+
+    def run(self, tokens: torch.Tensor, ntokens: torch.Tensor,
+            noise: torch.Tensor, lcm_noise: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+        """One generation: images ``[B, H, W, 3]`` in [0, 1], model
+        dtype."""
+        return self.pipe.decode(self.denoise(tokens, ntokens, noise,
+                                             lcm_noise), self.vae_ctx)
+
+    def compile(self) -> "ServingEngine":
+        """Warm ``run`` and capture it (CUDA), once per engine."""
+        if self._graph is None:
+            self._graph = GraphedCall(self.run, self.inputs([""] * self.B))
+        return self
+
+    @property
+    def launches(self) -> Optional[Dict[str, int]]:
+        """Kernel launches one replay makes (counted at capture; None on
+        the CPU or before ``compile``)."""
+        return None if self._graph is None else self._graph.launches
+
+    def _noise(self, seed: int):
+        pipe = self.pipe
+        gen = torch.Generator(device=pipe.device).manual_seed(seed)
+        noise = pipe.make_noise(self.B, self.height, self.width, gen)
+        lcm_noise = None
+        if not self.euler:
+            lcm_noise = torch.randn((self.steps,) + tuple(noise.shape),
+                                    generator=gen, device=pipe.device,
+                                    dtype=pipe.dtype)
+        return noise, lcm_noise
+
+    def inputs(self, prompts: Sequence[str], seed: int = 0,
+               negative_prompts: Optional[Sequence[str]] = None):
+        """``run``'s arguments for ``B`` prompts: their tokens and the
+        negative prompts' (``""`` each by default) on the device, and the
+        noise drawn from ``torch.Generator(device).manual_seed(seed)``
+        (``Text2ImgPipeline.make_noise``: the pipeline's noise for the same
+        seed; then the LCM loop's)."""
+        if len(prompts) != self.B:
+            raise ValueError(f"engine built for batch {self.B}, got "
+                             f"{len(prompts)} prompts")
+        tokens = self.pipe.tokens(prompts).long()
+        ntokens = self.pipe.tokens(negative_prompts or [""] * self.B).long()
+        noise, lcm_noise = self._noise(seed)
+        return (tokens, ntokens, noise) + (() if self.euler else (lcm_noise,))
+
+    def generate(self, prompts: Sequence[str], seed: int = 0,
+                 negative_prompts: Optional[Sequence[str]] = None
+                 ) -> np.ndarray:
+        """Images ``[B, H, W, 3]`` float32 in [0, 1]: ``run`` on
+        ``inputs(prompts, seed, negative_prompts)``, replayed from the
+        captured graph (compiled at the first call)."""
+        args = self.inputs(prompts, seed, negative_prompts)
+        out = self.compile()._graph(*args)
+        return out.float().cpu().numpy()

@@ -672,3 +672,121 @@ def test_qmatmul_fused_quantizer_range(dev, kernel, zp):
     want = qm.qmatmul_fused_plain(x, w, 10.0, zp, scale, bias0)
     torch.cuda.synchronize()
     smoke().exact_err(torch, got, want)
+
+
+@pytest.mark.parametrize("B,H,C,K", [
+    (1, 32, 128, 3),    # the VAE's conv_out: N = 3
+    (2, 16, 4, 512),    # the VAE's conv_in: C = 4
+    (2, 24, 256, 128),  # a 512 -> 256 -> 128 level, B = 2
+])
+def test_qconv_kernel_vae_shapes(dev, B, H, C, K):
+    """The VAE decoder's ragged convs (small maps): equal to the plain
+    version bit for bit."""
+    from mixdq_tpu_torch.ops.qconv import qconv2d, qconv2d_plain
+
+    g = torch.Generator().manual_seed(2)
+    x, w = _codes(g, dev, B, H, H, C), _codes(g, dev, 3, 3, C, K)
+    scale = ((torch.rand(K, generator=g) + 0.5) * 1e-4).to(dev)
+    bias0 = (-5.0 * w.int().sum((0, 1, 2))).float()
+    bias = torch.randn(K, generator=g).to(dev, torch.bfloat16)
+    got = qconv2d(x, w, scale, bias0, -5.0, bias=bias)
+    want = qconv2d_plain(x, w, scale, bias0, -5.0, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_graphed_step_equals_eager(dev):
+    """A CUDA graph of one small-sdxl W8A8 ``auto`` step (the whole-
+    attention kernels, cooperative launches included) replays equal bit for
+    bit to the eager step on the same inputs, and records each kernel
+    launch of the step (``ctx_kernel_calls``)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+
+    unet = pipeline.build_unet("small-sdxl", 0, torch.float32, dev)
+    req = pipeline.example_inputs("small-sdxl", 1, 3, torch.float32, dev)
+    ctx = pipeline.quantize_w8a8(unet, req)
+    sample, t, ehs, added = req
+    want = pipeline.unet_step(unet, req, ctx)
+    g = GraphedCall(lambda s: unet(s, t, ehs, added, ctx=ctx), (sample,))
+    got = g(sample)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert g.launches == pipeline.ctx_kernel_calls(unet.config, ctx)
+    assert g.launches["sec_attention_qkv"] > 0
+    other = pipeline.example_inputs("small-sdxl", 1, 4, torch.float32, dev)
+    got2 = g(other[0])
+    assert torch.equal(got2.clone(), pipeline.unet_step(
+        unet, (other[0], t, ehs, added), ctx))
+
+
+def test_graphed_serving_engine(dev):
+    """A tiny-sdxl ``ServingEngine`` (W8A8 UNet, one captured graph a
+    batch): the same images for the same seed, other images for another
+    seed, equal to the eager ``run`` on the same noise, and the capture
+    records every kernel launch of the UNet step."""
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.serving import ServingEngine
+    from mixdq_tpu_torch.pipelines.txt2img import Text2ImgPipeline
+
+    pipe = Text2ImgPipeline("tiny-sdxl", torch.float32, dev).init_weights(0)
+    calib = pipeline.example_inputs("tiny-sdxl", 2, 1, torch.float32, dev)
+    ctx = pipeline.quantize_w8a8(pipe.unet, calib)
+    eng = ServingEngine(pipe, ctx, batch_size=2, steps=1).compile()
+    prompts = ["a red cube", "a blue sphere"]
+    a = eng.generate(prompts, seed=1)
+    b = eng.generate(prompts, seed=1)
+    c = eng.generate(prompts, seed=2)
+    assert a.shape == (2, 128, 128, 3) and np.isfinite(a).all()
+    assert np.array_equal(a, b) and not np.array_equal(a, c)
+    assert 0.0 <= a.min() and a.max() <= 1.0
+    eager = eng.run(*eng.inputs(prompts, 1)).float().cpu().numpy()
+    assert np.array_equal(a, eager)
+    assert eng.launches == pipeline.ctx_kernel_calls(pipe.unet.config, ctx)
+
+
+@pytest.mark.parametrize("kernel", ["qmatmul_fused", "qmatmul_fused2"])
+def test_fused_gemms_capture(dev, kernel):
+    """The fused act-quantize GEMMs (``qmatmul_fused2`` one cooperative
+    launch) captured into a CUDA graph: a replay equals the eager call bit
+    for bit, and the capture counts one launch."""
+    from mixdq_tpu_torch.ops import qmatmul as qm
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(1024, 5120, generator=g).to(dev, torch.bfloat16)
+    w = _codes(g, dev, 5120, 1280)
+    scale = ((torch.rand(1280, generator=g) + 0.5) * 1e-5).to(dev)
+    bias0 = (-3.0 * w.int().sum(0)).float()
+    fn = getattr(qm, kernel)
+    want = fn(x, w, 10.0, -3.0, scale, bias0)
+    graph = GraphedCall(lambda a: fn(a, w, 10.0, -3.0, scale, bias0), (x,))
+    got = graph(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert graph.launches[kernel] == 1 and sum(graph.launches.values()) == 1
+
+
+def test_profiling_on_card(dev):
+    """``utils.profiling`` on the card: ``timeit`` (back to back and
+    strict) gives a positive time per call, ``measure_memory`` sees the
+    call's allocation above the static bytes, ``device_memory_stats``
+    reports the allocator's bytes within the card's, and the fingerprint
+    is cached."""
+    from mixdq_tpu_torch.utils import profiling
+
+    a = torch.ones((1024, 1024), device=dev)
+    for strict in (False, True):
+        assert profiling.timeit(lambda: a @ a, iters=3, strict=strict) > 0
+    mem = profiling.measure_memory(lambda: torch.empty(64 << 20,
+                                                       dtype=torch.uint8,
+                                                       device=dev))
+    assert mem["dynamic_mb"] >= 64 * 1.048 and \
+        mem["peak_mb"] >= mem["static_mb"] + mem["dynamic_mb"] - 1e-6
+    st = profiling.device_memory_stats(dev)
+    assert 0 < st["bytes_in_use_mb"] <= st["peak_bytes_in_use_mb"] \
+        < st["bytes_limit_mb"]
+    ms = profiling.host_fingerprint(n=1024, iters=2)
+    assert ms > 0 and profiling.host_fingerprint(n=1024) == ms
