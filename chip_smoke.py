@@ -116,6 +116,20 @@ Phases (none catches its own failure; any failure exits non-zero):
    and in [0, 1], SQNR gates (what the W8A8 UNet adds to the latents,
    the int8 VAE's images) failed by planted faults, ms per batch and
    images/s.
+10. The PTQ flow through files at full SDXL-Turbo width
+   (``phase_ptq_flow``), ``configs/sdxl_turbo.yaml`` as shipped but for
+   its calibration data path (a temporary directory): the three CLIs'
+   ``main()`` in turn (``gen_calib_data``, ``ptq`` with the channel
+   splits, ``quant_txt2img --backend int8 --fuse_qkv``; its context then
+   under ``attn_impl='auto'``, as phase 3's),
+   then the checkpoint read back equal bit for bit (794 layers, the 9
+   split layers with their twins), the deploy's 9 ``conv_split`` entries
+   and its launches in one eager step and at graph capture (both
+   ``ctx_kernel_calls``: phase 3's plus 9 ``qmatmul``), each split entry against fake quantization (>=
+   ``LAYER_SQNR_DB``, failed by its twins' qparams swapped), what the
+   UNet adds in the Euler step against bf16 (>= ``MIN_SQNR_DB``), and the
+   bf16 pipeline's params written and read back (images equal bit for
+   bit); seconds and GB/s of each step.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line.
@@ -298,6 +312,11 @@ MP_CALLS = {
     "pallas_dequant": dict(_NONE, qmatmul=8, wq4_matmul=376, wq_matmul=365),
 }
 MP_DIR = os.path.join("configs", "mp", "sdxl_turbo")
+# phase 10, the PTQ flow: the config as shipped, its split layers, and the
+# prompts and seed of its serving gate and params check
+PTQ_CONFIG = os.path.join("configs", "sdxl_turbo.yaml")
+PTQ_SPLIT_LAYERS = 9
+PTQ_LAYERS = 794
 MP_PATHS = {"int8_sec": "sdxl-turbo mp auto",
             "dequant": "sdxl-turbo w-only dequant",
             "pallas_dequant": "sdxl-turbo w-only pallas_dequant"}
@@ -1894,9 +1913,11 @@ def phase_main_path(torch, dev, card):
     paired_step_ms(torch, unet, requests,
                    (("bf16", FP_CTX), ("auto", ctx), ("einsum", ectx)), card,
                    "sdxl-turbo")
-    graphed_step_ms(torch, unet, requests[0],
-                    (("bf16", FP_CTX), ("auto", ctx)), card, "sdxl-turbo")
-    return unet, ctx, calib, requests, launches, e_launches, refs, outs
+    graphed = graphed_step_ms(torch, unet, requests[0],
+                              (("bf16", FP_CTX), ("auto", ctx)), card,
+                              "sdxl-turbo")
+    return (unet, ctx, calib, requests, launches, e_launches, refs, outs,
+            graphed)
 
 
 def phase_layers(torch, unet, ctx, calib, req):
@@ -2758,6 +2779,274 @@ def phase_serving(torch, dev, card):
     return launches
 
 
+def split_fake_quant(torch, m, x, qp, split):
+    """``fake_quant_layer`` of a channel-split 1x1 conv: each input half
+    with its own qparams (the plain fields for ``[:split]``, the ``*0``
+    twins for ``[split:]``), summed, then the bias."""
+    import types
+
+    from mixdq_tpu_torch.quant.state import LayerQParams
+
+    y = 0
+    halves = ((slice(None, split), qp),
+              (slice(split, None), LayerQParams(
+                  w_delta=qp.w0_delta, a_delta=qp.a0_delta,
+                  a_zp=qp.a0_zp)))
+    for sl, q in halves:
+        half = types.SimpleNamespace(weight=m.weight[:, :, sl], bias=None,
+                                     strides=m.strides, padding=m.padding)
+        y = y + fake_quant_layer(torch, half, x[..., sl], {}, q, q)[0]
+    return y + m.bias.float()
+
+
+def qparams_bits_equal(a, b):
+    """Whether two ``LayerQParams`` set the same fields to the same
+    dtypes, shapes and bits."""
+    for f, x in vars(a).items():
+        y = getattr(b, f)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and (x.dtype != y.dtype or x.shape != y.shape
+                              or x.cpu().numpy().tobytes()
+                              != y.cpu().numpy().tobytes()):
+            return False
+    return True
+
+
+def twins_swapped(qparams, names):
+    """``qparams`` with each of ``names``' halves given the other's
+    qparams (``w*`` and ``a*`` against ``w0*`` and ``a0*``)."""
+    out = dict(qparams)
+    for n in names:
+        q = qparams[n]
+        out[n] = q.replace(w_delta=q.w0_delta, w_zp=q.w0_zp,
+                           a_delta=q.a0_delta, a_zp=q.a0_zp,
+                           w0_delta=q.w_delta, w0_zp=q.w_zp,
+                           a0_delta=q.a_delta, a0_zp=q.a_zp)
+    return out
+
+
+def phase_ptq_flow(torch, dev, card, turbo_graphed):
+    """The PTQ flow through files (``configs/sdxl_turbo.yaml``: 32
+    prompts, batch 4, one step, 512 px, W8A8, BoS-aware), each CLI's
+    ``main()`` on the card in turn, files in a temporary directory:
+    ``gen_calib_data`` (npz keys and shapes), ``ptq`` (calibration with
+    the channel splits, ``qparams.msgpack``), ``quant_txt2img`` (the
+    checkpoint deployed ``int8_sec`` with fused QKV/KV, PNGs); its context
+    is then put under ``attn_impl='auto'``, as phase 3's. Then: the file
+    read back equal bit for bit to the qparams in memory; 9 ``conv_split``
+    entries; ``ctx_kernel_calls`` of the deploy = phase 3's
+    (``TURBO_CALLS``) + 9 ``qmatmul``, held in one eager step with the
+    counts set to 0 (``run_path``) and at graph capture
+    (``graphed_step_ms`` beside bf16; the replay equals the eager step);
+    each split entry on its FP-step input against ``split_fake_quant``
+    (>= ``LAYER_SQNR_DB``) and its twins swapped (< ``LAYER_SQNR_DB`` on
+    at least one); what the UNet adds in the Euler step against bf16's
+    (``unet_added``, >= ``MIN_SQNR_DB``: phase 9's gate); the bf16
+    pipeline's params written (``save_params``) and read into a new
+    pipeline (``load_params``): the same images bit for bit.
+    ``turbo_graphed``: phase 3's graphed step ms, printed beside. Returns
+    {'ptq flow': the launches counted in the eager step}."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models.configs import get_family
+    from mixdq_tpu_torch.models.unet import conv_shortcut_splits
+    from mixdq_tpu_torch.pipelines.loader import (build_pipeline,
+                                                  specs_from_config)
+    from mixdq_tpu_torch.pipelines.serving import ServingEngine
+    from mixdq_tpu_torch.pipelines.txt2img import Text2ImgPipeline
+    from mixdq_tpu_torch.quant import checkpoint
+    from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
+    from mixdq_tpu_torch.quant.state import (FP_CTX, quantizable_layers,
+                                             uniform_ctrl)
+    from mixdq_tpu_torch.scripts import gen_calib_data, ptq, quant_txt2img
+    from mixdq_tpu_torch.utils.config import load_config, merge, save_config
+    from mixdq_tpu_torch.utils.prompts import BUILTIN_PROMPTS
+
+    tmp = tempfile.mkdtemp(prefix="ptq_flow_")
+    try:
+        cfg = merge(load_config(PTQ_CONFIG),
+                    {"calib_data": {"path": os.path.join(tmp, "calib.npz")}})
+        cfg_path = os.path.join(tmp, "sdxl_turbo.yaml")
+        save_config(cfg, cfg_path)
+        if load_config(cfg_path) != cfg:
+            raise AssertionError("the written config reads back otherwise")
+        exp = os.path.join(tmp, "exp")
+        cd = cfg.calib_data
+        log(f"ptq flow: {PTQ_CONFIG} ({cfg.model.family}, "
+            f"{cd.n_samples} prompts, batch {cd.batch_size}, {cd.n_steps} "
+            f"step, {cfg.inference.height} px, W{cfg.quant.weight.n_bits}"
+            f"A{cfg.quant.activation.n_bits}), files in {tmp}")
+
+        gen = gen_calib_data.main(["--config", cfg_path])
+        N, S, h = cd.n_samples, cd.n_steps, cfg.inference.height // 8
+        shapes = {"xs": (S, N, h, h, 4), "ts": (S,),
+                  "outputs": (S, N, h, h, 4), "text_embs": (N, 77, 2048),
+                  "text_embeds": (N, 1280), "time_ids": (N, 6)}
+        with np.load(cd.path) as f:
+            got = {k: f[k].shape for k in f.files}
+            finite = all(np.isfinite(f[k]).all() for k in f.files)
+        if got != shapes or not finite:
+            raise AssertionError(f"calib data {got} (finite {finite}), "
+                                 f"expected {shapes}")
+
+        res = ptq.main(["--config", cfg_path, "--outdir", exp])
+        qparams = res["qparams"]
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_qparams(res["path"], device=dev)
+        t_load = time.perf_counter() - t0
+        split_names = sorted(n for n, q in loaded.items()
+                             if q.w0_delta is not None)
+        want_splits = sorted(conv_shortcut_splits(
+            get_family(cfg.model.family).unet))
+        bad = [n for n in qparams
+               if n not in loaded or not qparams_bits_equal(qparams[n],
+                                                            loaded[n])]
+        twins = all(loaded[n].a0_delta is not None for n in split_names)
+        if (set(loaded) != set(qparams) or bad or len(loaded) != PTQ_LAYERS
+                or split_names != want_splits or not twins):
+            raise AssertionError(
+                f"qparams.msgpack: {len(loaded)} layers (in memory "
+                f"{len(qparams)}), unequal {bad[:4]}, split layers "
+                f"{split_names} (expected {want_splits}), twins {twins}")
+        log(f"ptq flow: qparams.msgpack ({os.path.getsize(res['path'])} "
+            f"bytes) reads back equal bit for bit: {len(loaded)} layers, "
+            f"{len(split_names)} with split twins")
+
+        out = quant_txt2img.main([
+            "--base_path", exp, "--backend", "int8", "--fuse_qkv",
+            "--n_images", "4", "--batch_size", "4",
+            "--outdir", os.path.join(tmp, "images")])
+        pipe_q, q_sec = out["pipe"], out["seconds"]
+        ctx = dataclasses.replace(out["ctx"], attn_impl="auto")
+        for path in out["paths"]:
+            with open(path, "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"{path} is not a PNG")
+        if len(out["paths"]) != 4:
+            raise AssertionError(f"{len(out['paths'])} images, expected 4")
+        cfg_unet = pipe_q.unet.config
+        conv_split = sorted(n for n, e in ctx.deploy.items()
+                            if e.kind == "conv_split")
+        calls = pipeline.ctx_kernel_calls(cfg_unet, ctx)
+        want = dict(TURBO_CALLS, qmatmul=TURBO_CALLS["qmatmul"]
+                    + PTQ_SPLIT_LAYERS)
+        if conv_split != split_names or len(conv_split) != \
+                PTQ_SPLIT_LAYERS or calls != want:
+            raise AssertionError(f"split deploy: conv_split entries "
+                                 f"{conv_split}, launches {calls}, expected "
+                                 f"{want}")
+        log(f"ptq flow: deploy of the loaded file: {len(ctx.deploy)} "
+            f"entries, {len(conv_split)} conv_split; ctx_kernel_calls "
+            f"qmatmul {calls['qmatmul']} a step (phase 3's deploy, no "
+            f"splits: {TURBO_CALLS['qmatmul']})")
+
+        # the bf16 pipeline of the same seed: FP reference and fp weights
+        ref = build_pipeline(cfg, device=dev)
+        with np.load(cd.path) as f:
+            data = {k: f[k] for k in f.files}
+        req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
+        _, launches = run_path(torch, ref.unet, [req], ctx,
+                               "ptq flow split deploy")
+        graphed = graphed_step_ms(torch, ref.unet, req,
+                                  (("bf16", FP_CTX), ("w8a8_splits", ctx)),
+                                  card, "ptq flow")
+        log(f"ptq flow: graphed step ms, split deploy "
+            f"{graphed['w8a8_splits']:.3f} against phase 3's deploy without "
+            f"splits {turbo_graphed['auto']:.3f} (bf16 here "
+            f"{graphed['bf16']:.3f}, phase 3 {turbo_graphed['bf16']:.3f}); "
+            f"{card}")
+
+        seen = record_layer_inputs(torch, ref.unet, req)
+        wq, _, _ = specs_from_config(cfg)
+        bad_ctx = deploy_unet_ctx(
+            ref.unet, twins_swapped(loaded, split_names),
+            uniform_ctrl(split_names), wq, bos_aware=False,
+            splits=ref.splits)
+        q_layers = quantizable_layers(pipe_q.unet)
+        r_layers = quantizable_layers(ref.unet)
+        sound, swapped = {}, {}
+        with torch.inference_mode():
+            for n in split_names:
+                x, kw = seen[n]
+                want_y = split_fake_quant(torch, r_layers[n], x, loaded[n],
+                                          kw["split"])
+                sig = want_y.pow(2).sum().item()
+                for d, c, lay in ((sound, ctx, q_layers[n]),
+                                  (swapped, bad_ctx, r_layers[n])):
+                    err = (lay(x, c, **kw).float() - want_y).pow(2).sum()
+                    d[n] = 10 * math.log10(sig / err.item())
+        log("ptq flow: each conv_split entry vs fake quantization (dB): "
+            + ", ".join(f"{n} {sound[n]:.2f} / twins swapped "
+                        f"{swapped[n]:.2f}" for n in split_names)
+            + f" (gate {LAYER_SQNR_DB})")
+        if min(sound.values()) < LAYER_SQNR_DB or \
+                min(swapped.values()) >= LAYER_SQNR_DB:
+            raise AssertionError(f"split entries {sound}, swapped {swapped}")
+
+        prompts = BUILTIN_PROMPTS[:N_REQUESTS]
+        engines = [ServingEngine(p, c, batch_size=len(prompts), steps=1,
+                                 guidance_scale=0.0)
+                   for p, c in ((ref, FP_CTX), (pipe_q, ctx))]
+        args = engines[0].inputs(prompts, SERVE_SEED)
+        added = [unet_added(torch, e, args) for e in engines]
+        s = sqnr_db(added[0], added[1])
+        log(f"ptq flow: what the W8A8 UNet (calibrated through the files, "
+            f"with splits) adds in the Euler step vs bf16, B="
+            f"{len(prompts)}: {s:.2f} dB (gate {MIN_SQNR_DB})")
+        if s < MIN_SQNR_DB:
+            raise AssertionError(f"ptq flow UNet SQNR {s:.2f} dB")
+        del engines, pipe_q, out, seen
+
+        params = os.path.join(tmp, "params.msgpack")
+        free = shutil.disk_usage(tmp).free
+        log(f"ptq flow: {free} bytes free in {tmp} before the params file")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_params(ref, params)
+        t_save = time.perf_counter() - t0
+        fd = os.open(params, os.O_RDONLY)
+        os.fsync(fd)
+        os.close(fd)
+        t_sync = time.perf_counter() - t0
+        size = os.path.getsize(params)
+        fresh = Text2ImgPipeline("sdxl-turbo", ref.dtype, dev)
+        t0 = time.perf_counter()
+        checkpoint.load_params(fresh, params)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        imgs = [p(prompts, seed=SERVE_SEED, num_inference_steps=1,
+                  guidance_scale=0.0).images for p in (ref, fresh)]
+        if imgs[0].shape != (len(prompts), 512, 512, 3) or \
+                not np.isfinite(imgs[0]).all() or \
+                not np.array_equal(imgs[0], imgs[1]):
+            raise AssertionError("reloaded params give other images (max "
+                                 f"|d| {np.abs(imgs[0] - imgs[1]).max()})")
+        log(f"ptq flow: params.msgpack {size} bytes: save_params "
+            f"{t_save:.2f}s ({size / t_save / 1e9:.2f} GB/s into the page "
+            f"cache), with fsync {t_sync:.2f}s ({size / t_sync / 1e9:.2f} "
+            f"GB/s to the disk); load_params of the file just written "
+            f"{t_read:.2f}s ({size / t_read / 1e9:.2f} GB/s, a warm page "
+            "cache); the reloaded pipeline's images equal the original's "
+            "bit for bit")
+        sec = res["seconds"]
+        log(f"ptq flow seconds: gen_calib_data {gen['seconds']:.2f}, "
+            f"calibration ({len(loaded)} layers, "
+            f"{N * S // cd.batch_size} batches) {sec['calibrate']:.2f}, "
+            f"save_qparams + load_qparams {sec['save'] + t_load:.3f}, "
+            f"deploy {q_sec['deploy']:.2f}; pipeline builds (random "
+            f"weights) {sec['build']:.2f} (ptq), {q_sec['build']:.2f} "
+            f"(quant_txt2img); {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"ptq flow": launches}
+
+
 def main():
     import dataclasses
     import gc
@@ -2796,8 +3085,8 @@ def main():
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl and small-sdxl parity ok under both attn_impl "
         "values and small-sdxl out-fused")
-    unet, ctx, calib, requests, launches, e_launches, refs, outs = \
-        phase_main_path(torch, dev, card)
+    unet, ctx, calib, requests, launches, e_launches, refs, outs, \
+        turbo_graphed = phase_main_path(torch, dev, card)
     req = requests[0]
     log("phase 3: main paths ok (auto, einsum)")
     totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
@@ -2841,6 +3130,11 @@ def main():
                      for p, c in serving.items()})
     log("phase 9: serving path ok (bf16, W8A8, W8A8 + int8 VAE at B = "
         f"{', '.join(map(str, SERVE_BATCHES))}, one CUDA graph a batch)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step.update(phase_ptq_flow(torch, dev, card, turbo_graphed))
+    log("phase 10: PTQ flow ok (gen_calib_data, ptq with splits, "
+        "quant_txt2img; checkpoint and params round trips)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",

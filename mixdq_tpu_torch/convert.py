@@ -36,7 +36,10 @@ def _flatten(tree: Dict[str, Any], path: Tuple[str, ...] = ()):
 
 
 def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax params tree (numpy leaves) -> ``state_dict`` of the port."""
+    """Flax params tree -> ``state_dict`` of the port. Numpy leaves are
+    copied; tensor leaves (``quant.checkpoint.load_params``' views of the
+    file) are passed on as they are, for ``load_state_dict`` to copy once
+    into the module."""
     out = {}
     for path, v in _flatten(params):
         if path[-1] in _RAW:
@@ -45,7 +48,8 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key = canonical_name(path[:-1]) + "." + _LEAF[path[-1]]
         else:
             raise KeyError(f"unknown param leaf {'/'.join(path)}")
-        out[key] = torch.from_numpy(np.array(v, copy=True))
+        out[key] = (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.array(v, copy=True)))
     return out
 
 

@@ -181,11 +181,15 @@ class QConv(nn.Module):
                 extra_bias: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``split``: channel count of the first half of a concatenated
-        input (calibration records the halves' ranges apart). ``extra_bias``
+        input (calibration records the halves' ranges apart; a
+        ``conv_split`` entry carries its own). ``extra_bias``
         ``[B, features]`` and ``residual`` ``[B, P, Q, features]`` are
         added exactly once — in the conv kernel's epilogue on the
         ``int8_sec`` path."""
         dp = ctx.entry(self.qname)
+        if dp is not None and dp.kind == "conv_split":
+            return self._conv_split(x, dp, ctx.deploy_compute, extra_bias,
+                                    residual)
         if dp is None:
             w, scale = self.weight, None
         elif dp.act_off or ctx.deploy_compute == "dequant":
@@ -205,6 +209,42 @@ class QConv(nn.Module):
         if residual is not None:
             y = y + residual.to(self.dtype)
         return y
+
+    def _conv_split(self, x, dp, compute, eb, res):
+        """A ``conv_split`` entry (``mixdq_tpu/models/layers.py:462-472``,
+        ``:538-555``): each input-channel half with its own entry, summed.
+        Weight-only (act-protected, or ``'dequant'``): two convs on the
+        codes, each times its own per-column scale. Otherwise (``int8_sec``
+        and ``'pallas_dequant'``, whose 1x1 convs keep the act-quantized
+        path): each half act-quantized with its own params, then two
+        ``qmatmul`` products, the bias on ``part0``'s; then ``y0 + y1``,
+        ``extra_bias`` and the residual in the model dtype."""
+        if x.dtype == torch.int8:
+            raise ValueError(f"{self.qname}: a conv_split entry takes the "
+                             "fp input")
+        if self.kernel_size != (1, 1) or self.strides != (1, 1):
+            raise NotImplementedError(f"{self.qname}: conv_split of a "
+                                      f"{self.kernel_size} conv")
+        x = x.to(self.dtype)
+        halves = ((x[..., :dp.split], dp.part0, self.bias),
+                  (x[..., dp.split:], dp.part1, None))
+        ys = []
+        for xh, e, b in halves:
+            if dp.act_off or compute == "dequant":
+                y = self._conv(xh, e.w_int.to(self.dtype)) * e.w_delta().to(
+                    self.dtype)
+            else:
+                B, H, W, C = xh.shape
+                y = qlinear(codes_of(xh, e).reshape(-1, C),
+                            e.w_int.reshape(C, -1), e.scale, e.bias0,
+                            bias=b, out_dtype=self.dtype).reshape(B, H, W, -1)
+            ys.append(y)
+        y = ys[0] + ys[1]
+        if (dp.act_off or compute == "dequant") and self.bias is not None:
+            y = y + self.bias
+        if eb is not None:
+            y = y + eb.to(self.dtype)[:, None, None, :]
+        return y if res is None else y + res.to(self.dtype)
 
     def _conv_int8(self, x, e, eb, res, fuse):
         """One int8 conv of entry ``e``. ``fuse`` (``int8_sec``): every add

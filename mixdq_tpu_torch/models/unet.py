@@ -66,6 +66,25 @@ class _Block(nn.Module):
         return x
 
 
+def conv_shortcut_splits(cfg: UNetConfig) -> Dict[str, int]:
+    """Channel splits of the up blocks' concat-shortcut convs (port of
+    ``mixdq_tpu/models/unet.py:conv_shortcut_splits``): layer name ->
+    upstream hidden channel count (the first half of the concatenated
+    input). For SDXL: ``[1280, 1280, 1280, 1280, 640, 640, 640, 320,
+    320]``."""
+    rev = list(reversed(cfg.block_out_channels))
+    out: Dict[str, int] = {}
+    n_layers = cfg.layers_per_block + 1
+    for i in range(len(cfg.up_block_types)):
+        for j in range(n_layers):
+            if j == 0:
+                split = rev[0] if i == 0 else rev[i - 1]
+            else:
+                split = rev[i]
+            out[f"up_blocks.{i}.resnets.{j}.conv_shortcut"] = split
+    return out
+
+
 class UNet2DConditionModel(nn.Module):
     def __init__(self, config: UNetConfig, dtype=torch.float32, device=None):
         super().__init__()

@@ -197,8 +197,9 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
     ``layers.layer_compute``): act-quantized dense entries on
     ``qmatmul``, weight-only ones on ``wq4_matmul`` (packed), on
     ``wq_matmul`` (``'pallas_dequant'``) or on no kernel; act-quantized
-    convs on ``qconv2d`` / ``qconv2d_s2`` (spatial) or ``qmatmul`` (1x1),
-    weight-only convs on none; a GroupNorm producer for every
+    convs on ``qconv2d`` / ``qconv2d_s2`` (spatial) or ``qmatmul`` (1x1;
+    a ``conv_split`` entry's two halves, two), weight-only convs on none;
+    a GroupNorm producer for every
     act-quantized resnet conv, ``conv_out`` and ``proj_in`` under
     ``int8_sec``. Each transformer block's attention sites go through
     ``routing.attention_route`` and its ff site through
@@ -248,6 +249,9 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                       else "qconv2d"] += 1
             calls["gn_silu_quantize"] += sec and name.endswith(
                 (".conv1", ".conv2", "conv_out"))
+        elif e.kind == "conv_split":
+            # a 1x1 product a half, act-quantized unless weight-only
+            calls["qmatmul"] += 0 if e.act_off or compute == "dequant" else 2
         elif e.kind == "linear" and ".transformer_blocks." not in name:
             dense(e)
             calls["gn_silu_quantize"] += (sec and name.endswith(".proj_in")

@@ -25,7 +25,7 @@ import torch
 
 from ..models.clip import CLIPTextModel
 from ..models.configs import ModelFamilyConfig, get_family
-from ..models.unet import UNet2DConditionModel
+from ..models.unet import UNet2DConditionModel, conv_shortcut_splits
 from ..models.vae import AutoencoderKL
 from ..pipeline import resolve_device
 from ..quant.state import FP_CTX, QuantCtx
@@ -89,6 +89,9 @@ class Text2ImgPipeline:
                                if f.text_encoder_2 is not None else None)
         self.tokenizer = load_tokenizer(tokenizer_path,
                                         f.text_encoder.vocab_size)
+        #: channel splits of the up blocks' concat-shortcut convs
+        #: (calibration and deploy take them: ``conv_split`` entries)
+        self.splits = conv_shortcut_splits(f.unet)
 
     def init_weights(self, seed: int = 0) -> "Text2ImgPipeline":
         """Random weights: the UNet as ``pipeline.build_unet(seed)``, the

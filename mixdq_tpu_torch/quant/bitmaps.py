@@ -8,6 +8,8 @@ forms: a bit map, one ``layer.name: bits`` per line, or a layer list, one
 skipped. A leading ``model.`` (the reference's module prefix) is stripped
 from each name. Any other line raises ``ValueError``: nested files (the
 sensitivity logs, ``validation.yaml``) belong to the bit-width search.
+An act-protect list may also be the reference's torch-saved ``.pt`` list
+of names (``load_act_protect_pt``).
 """
 
 from __future__ import annotations
@@ -61,6 +63,17 @@ def load_bit_map(path: str) -> Dict[str, int]:
 
 def load_layer_list(path: str) -> List[str]:
     """An act-protect list: a layer list, or a bit map whose names count
-    (as ``load_act_protect`` accepts either)."""
+    (as ``load_act_protect`` accepts either), or the reference's
+    torch-saved ``.pt`` list of names (``act_sensitivie_a8_1%.pt``), read
+    with ``weights_only=True``: a list of strings needs nothing more."""
+    if path.endswith(".pt"):
+        import torch
+
+        names = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(names, (list, tuple)) or not all(
+                isinstance(n, str) for n in names):
+            raise ValueError(f"{path}: {type(names).__name__}, not a list "
+                             "of layer names")
+        return [_strip(n) for n in names]
     _, entries = _entries(path)
     return [_strip(e[0]) for e in entries]

@@ -1,7 +1,10 @@
 """Calibration: multi-bit weight and activation qparams (port of
 ``mixdq_tpu/quant/calibrate.py``).
 
-* Weights: a pure fit over each quantizable layer's weight.
+* Weights: a pure fit over each quantizable layer's weight; a
+  channel-split conv (``splits``: the up blocks' concat-shortcut convs)
+  gets twin fits over its two input-channel slices, the first in
+  ``w_delta`` / ``w_zp`` and the second in ``w0_delta`` / ``w0_zp``.
 * Activations: forward pre-hooks on every ``QDense``/``QConv`` record the
   per-tensor (min, max) of the layer input, clamped to contain 0 (the two
   halves of a ``split`` conv input separately, the second under
@@ -22,12 +25,25 @@ Stats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
 @torch.no_grad()
-def fit_weight_qparams_tree(model: torch.nn.Module, wq: QuantSpec
+def fit_weight_qparams_tree(model: torch.nn.Module, wq: QuantSpec,
+                            splits: Optional[Dict[str, int]] = None
                             ) -> Dict[str, LayerQParams]:
+    """Multi-bit weight qparams of every quantizable layer; a conv in
+    ``splits`` ({name: split}) gets twins over HWIO input channels
+    ``[:split]`` and ``[split:]``."""
+    splits = splits or {}
     out: Dict[str, LayerQParams] = {}
     for name, m in quantizable_layers(model).items():
-        d, z = fit_weight_qparams(m.weight, wq)
-        out[name] = LayerQParams(w_delta=d, w_zp=z)
+        w = m.weight
+        if name in splits and w.ndim == 4:
+            s = splits[name]
+            d, z = fit_weight_qparams(w[:, :, :s, :], wq)
+            d0, z0 = fit_weight_qparams(w[:, :, s:, :], wq)
+            out[name] = LayerQParams(w_delta=d, w_zp=z, w0_delta=d0,
+                                     w0_zp=z0)
+        else:
+            d, z = fit_weight_qparams(w, wq)
+            out[name] = LayerQParams(w_delta=d, w_zp=z)
     return out
 
 
@@ -111,11 +127,15 @@ def merge_qparams(weight_qp: Dict[str, LayerQParams],
 
 @torch.no_grad()
 def calibrate(model: torch.nn.Module, calib_batches: Iterable[Tuple],
-              wq: QuantSpec, aq: QuantSpec,
-              momentum: float = 0.95) -> Dict[str, LayerQParams]:
+              wq: QuantSpec, aq: QuantSpec, momentum: float = 0.95,
+              splits: Optional[Dict[str, int]] = None
+              ) -> Dict[str, LayerQParams]:
     """Weight fit + running-stat activation fit. ``calib_batches``:
-    argument tuples of ``model`` (sample, t, ehs, added)."""
-    weight_qp = fit_weight_qparams_tree(model, wq)
+    argument tuples of ``model`` (sample, t, ehs, added); ``splits``: the
+    channel-split convs whose weights get twin fits (their act halves are
+    recorded apart whether or not they are named here, as in the JAX
+    package)."""
+    weight_qp = fit_weight_qparams_tree(model, wq, splits)
     running = None
     for batch in calib_batches:
         running = ema_update_stats(running, collect_act_stats(model, batch),

@@ -11,15 +11,18 @@ the model dtype and the weight scale is ``scale * scale_inv``, built on
 its 8-bit act params (placeholders, delta 1 and zero point 128, where it
 has none). Self-attention q/k/v and
 cross-attention k/v fold into fused ``to_qkv``/``to_kv`` entries whose
-scales are rebuilt against the anchor layer's act params. Layers with an
+scales are rebuilt against the anchor layer's act params. A channel-split
+conv (``splits``, the up blocks' concat-shortcut convs calibrated with
+twin qparams) gets a ``conv_split`` entry: ``part0`` over input channels
+``[:split]`` from the plain fields (``w_delta``, ``a_delta``, ``a_zp``)
+and ``part1`` over ``[split:]`` from the ``*0`` twins. Layers with an
 entry never read their fp weight, which ``prune_deployed_weights`` then
 drops.
 
-Not ported here: channel-split convs (``conv_split``, built only when
-``splits`` are given; the SDXL-Turbo deploys of ``bench.py`` pass none),
-AdaRound ``alphas``, device int4 storage (``use_int4_storage``, a TPU
-workaround), the hoisted ``time_emb_proj`` / cross-k/v banks (the
-per-layer path is numerically the same) and precomputed BoS outputs.
+Not ported here: AdaRound ``alphas``, device int4 storage
+(``use_int4_storage``, a TPU workaround), the hoisted ``time_emb_proj`` /
+cross-k/v banks (the per-layer path is numerically the same) and
+precomputed BoS outputs.
 """
 
 from __future__ import annotations
@@ -49,7 +52,11 @@ class DeployEntry:
     zp_shifted: Optional[float] = None
     #: f32 [K, N] dequantized weight for the FP BoS token of cross-attn k/v
     bos_w: Optional[torch.Tensor] = None
-    kind: str = "linear"  # linear | conv | fused_away
+    kind: str = "linear"  # linear | conv | conv_split | fused_away
+    #: ``conv_split``: input channels of ``part0``; the two halves' entries
+    split: int = 0
+    part0: Optional["DeployEntry"] = None
+    part1: Optional["DeployEntry"] = None
     a_bits: int = 8
     #: weight-only entry of an act-protected layer: acts stay FP
     act_off: bool = False
@@ -86,13 +93,17 @@ def build_deploy_params(
     fuse_qkv: bool = False,
     pack_w4: bool = False,
     skip_spatial_convs: bool = False,
+    splits: Optional[Dict[str, int]] = None,
 ) -> Dict[str, DeployEntry]:
     """Deploy entries for every layer of ``layer_bits`` (name -> (w_bits,
     a_bits), a_bits None for an act-protected layer) that has qparams.
     Weights of 2/4 bits ride int8 storage and math; with ``pack_w4``,
     dense ones with an even K are halves-packed instead.
     ``skip_spatial_convs``: convs with a kernel larger than 1x1 stay FP
-    (the weight-only deploys)."""
+    (the weight-only deploys). ``splits`` ({name: split}): a conv named
+    there whose qparams hold the ``w0_*`` twins deploys as ``conv_split``
+    (``mixdq_tpu/quant/deploy.py:158-173``)."""
+    splits = splits or {}
     cb = list(candidate_bits)
     layers = quantizable_layers(model)
     deploy: Dict[str, DeployEntry] = {}
@@ -115,12 +126,30 @@ def build_deploy_params(
         a_zp = (torch.full((len(cb),), 128.0, device=w.device)
                 if qp.a_zp is None else qp.a_zp)
         eff_bits = max(w_bits, 4)
-        args = (w, qp.w_delta[cb.index(w_bits)], a_delta[ab], a_zp[ab])
+        wb = cb.index(w_bits)
+        args = (w, qp.w_delta[wb], a_delta[ab], a_zp[ab])
         if w.ndim == 2:
             pack = pack_w4 and eff_bits == 4 and w.shape[0] % 2 == 0
             deploy[name] = _entry(qops.prepare_qlinear_params(
                 *args, n_bits=eff_bits, a_bits=eff_a_bits), "linear",
                 eff_a_bits, act_off, pack)
+        elif name in splits and qp.w0_delta is not None:
+            # the plain fields hold the first slice, the *0 twins the
+            # second (act twins: placeholders where absent, as above)
+            s = splits[name]
+            a0_delta = (torch.ones(len(cb), device=w.device)
+                        if qp.a0_delta is None else qp.a0_delta)
+            a0_zp = (torch.full((len(cb),), 128.0, device=w.device)
+                     if qp.a0_zp is None else qp.a0_zp)
+            parts = [_entry(qops.prepare_qconv_params(
+                ws, wd[wb], ad[ab], az[ab], n_bits=eff_bits,
+                a_bits=eff_a_bits), "conv", eff_a_bits, act_off, False)
+                for ws, wd, ad, az in (
+                    (w[:, :, :s, :], qp.w_delta, a_delta, a_zp),
+                    (w[:, :, s:, :], qp.w0_delta, a0_delta, a0_zp))]
+            deploy[name] = DeployEntry(kind="conv_split", split=s,
+                                       a_bits=eff_a_bits, act_off=act_off,
+                                       part0=parts[0], part1=parts[1])
         else:
             deploy[name] = _entry(qops.prepare_qconv_params(
                 *args, n_bits=eff_bits, a_bits=eff_a_bits), "conv",
@@ -245,14 +274,17 @@ def layer_bits_from_ctrl(ctrl, candidate_bits=(2, 4, 8)
 def deploy_unet_ctx(model: torch.nn.Module, qparams, ctrl, wq: QuantSpec,
                     bos_aware: bool = True, fuse_qkv: bool = False,
                     pack_w4: bool = False, skip_spatial_convs: bool = False,
-                    deploy_compute: str = "int8_sec") -> QuantCtx:
+                    deploy_compute: str = "int8_sec",
+                    splits: Optional[Dict[str, int]] = None) -> QuantCtx:
     """An int8-mode ``QuantCtx`` for ``model`` under ``deploy_compute``.
-    BoS weights are attached only where a BoS path runs (``int8_sec``)."""
+    BoS weights are attached only where a BoS path runs (``int8_sec``);
+    ``splits``: ``conv_split`` entries (``build_deploy_params``)."""
     layer_bits = layer_bits_from_ctrl(ctrl, wq.candidate_bits)
     deploy = build_deploy_params(model, qparams, layer_bits,
                                  wq.candidate_bits, fuse_qkv=fuse_qkv,
                                  pack_w4=pack_w4,
-                                 skip_spatial_convs=skip_spatial_convs)
+                                 skip_spatial_convs=skip_spatial_convs,
+                                 splits=splits)
     if bos_aware and deploy_compute == "int8_sec":
         deploy = attach_bos_weights(deploy)
     logger.info("deployed %d/%d layers", len(deploy),

@@ -747,6 +747,90 @@ def test_graphed_serving_engine(dev):
     assert eng.launches == pipeline.ctx_kernel_calls(pipe.unet.config, ctx)
 
 
+def _split_unet(dev, dtype=torch.float32):
+    """tiny-sdxl on the card in ``dtype``, calibrated with its channel splits and
+    deployed W8A8 (``int8_sec``, fused QKV/KV, ``conv_split`` entries)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models.unet import conv_shortcut_splits
+    from mixdq_tpu_torch.quant.calibrate import calibrate
+    from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
+    from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
+
+    unet = pipeline.build_unet("tiny-sdxl", 0, dtype, dev)
+    req = pipeline.example_inputs("tiny-sdxl", 1, 5, dtype, dev)
+    splits = conv_shortcut_splits(unet.config)
+    qparams = calibrate(unet, [req], pipeline.WQ, pipeline.AQ, splits=splits)
+    ctx = deploy_unet_ctx(unet, qparams,
+                          uniform_ctrl(list(quantizable_layers(unet))),
+                          pipeline.WQ, fuse_qkv=True, splits=splits)
+    assert sum(e.kind == "conv_split" for e in ctx.deploy.values()) == 6
+    return unet, req, ctx, splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_split_entry_equals_plain(dev, dtype):
+    """A ``conv_split`` entry under ``int8_sec`` (two act-quantizes, two
+    ``qmatmul`` launches, the bias on part0's) equals the same sum of the
+    plain ``qmatmul_plain`` products bit for bit."""
+    from mixdq_tpu_torch import ops
+    from mixdq_tpu_torch.ops.qmatmul import qmatmul_plain
+    from mixdq_tpu_torch.ops.qops import act_clip_range, quantize_per_tensor
+    from mixdq_tpu_torch.quant.state import quantizable_layers
+
+    unet, req, ctx, splits = _split_unet(dev, dtype)
+    seen = {}
+    name = "up_blocks.0.resnets.0.conv_shortcut"
+    layer = quantizable_layers(unet)[name]
+
+    def hook(mod, args, kwargs):
+        seen["x"] = args[0]
+
+    h = layer.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.inference_mode():
+        unet(*req)
+    h.remove()
+    x = seen["x"] * 3  # past the calibrated range: clipped codes
+    e = ctx.deploy[name]
+    s = e.split
+    ops.reset_counts()
+    with torch.inference_mode():
+        got = layer(x, ctx, split=s)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["qmatmul"] == 2
+        ys = []
+        for xh, p, b in ((x[..., :s], e.part0, layer.bias),
+                         (x[..., s:], e.part1, None)):
+            c = quantize_per_tensor(xh, p.scale_inv, p.zp_shifted,
+                                    *act_clip_range(p.a_bits))
+            C = c.shape[-1]
+            ys.append(qmatmul_plain(c.reshape(-1, C), p.w_int.reshape(C, -1),
+                                    p.scale, p.bias0, b, dtype).reshape(
+                *c.shape[:-1], -1))
+        want = ys[0] + ys[1]
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_graphed_split_step_equals_eager(dev):
+    """A CUDA graph of one tiny-sdxl W8A8 step with ``conv_split`` entries
+    replays equal bit for bit to the eager step, and the capture counts
+    ``ctx_kernel_calls`` (two ``qmatmul`` launches a split entry)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+
+    unet, req, ctx, _ = _split_unet(dev)
+    sample, t, ehs, added = req
+    want = pipeline.unet_step(unet, req, ctx)
+    g = GraphedCall(lambda x: unet(x, t, ehs, added, ctx=ctx), (sample,))
+    got = g(sample)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    calls = pipeline.ctx_kernel_calls(unet.config, ctx)
+    assert g.launches == calls
+    no_split = {n: e for n, e in ctx.deploy.items() if e.kind != "conv_split"}
+    assert calls["qmatmul"] == pipeline.expected_kernel_calls(
+        unet.config, ctx.attn_impl, deploy=no_split)["qmatmul"] + 12
+
+
 @pytest.mark.parametrize("kernel", ["qmatmul_fused", "qmatmul_fused2"])
 def test_fused_gemms_capture(dev, kernel):
     """The fused act-quantize GEMMs (``qmatmul_fused2`` one cooperative
