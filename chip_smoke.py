@@ -129,10 +129,37 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``LAYER_SQNR_DB``, failed by its twins' qparams swapped), what the
    UNet adds in the Euler step against bf16 (>= ``MIN_SQNR_DB``), and the
    bf16 pipeline's params written and read back (images equal bit for
-   bit); seconds and GB/s of each step.
+   bit); seconds and GB/s of each step. Its files stay for phase 11.
+11. Fake-quant mode and the rest of ``QuantCtx`` (``phase_fake``):
+   ``quant_txt2img --backend fake`` on phase 10's files (SDXL-Turbo 512
+   px, bf16, W8A8, BoS-aware): no kernel launched, the step against bf16
+   (>= ``MIN_SQNR_DB``, failed by ``STEP_FAULT_LAYER``'s weight delta a
+   64th of itself) and against the ``int8_sec`` deploy of the same
+   qparams (logged), every attention / ff / resnet module of a float32
+   copy fake against the W8A8 ``deploy_compute='int8'`` deploy (>=
+   ``LAYER_SQNR_DB``, failed by ``FAKE_FAULT_LAYER``'s act delta doubled;
+   in bf16, against it and int8_sec, logged); the q/k/v/softmax act
+   quantizers (``QKV_QUANT_ENTRIES`` entries, none without the softmax
+   spec; the step logged against W8A8 fake); the mixed fake step
+   (``configs/mp/sdxl_turbo``: logged against bf16 and the int8_sec mixed
+   deploy; each W >= 4 entry without its residual fake against the
+   deploy, failed by ``MIXED_FAULT_LAYER``'s weight delta halved); ``attn_impl`` =
+   ``EXPLICIT_IMPLS`` on the int8_sec deploy (launches, every site's
+   kernel against its plain version by phase 1's rule, the kernel
+   dropping ``FLASH_DROPPED_KEYS`` keys caught at a Tk = 77 and a Tq =
+   256 site); ``deploy_compute='int8'`` (launches, step against bf16
+   failed by ``STEP_FAULT_LAYER``'s scale negated, each entry without its
+   residual against fake quantization with phase 4's fault); eager and graphed step ms of every path beside bf16 and
+   int8_sec (the captures' launches = ``ctx_kernel_calls``, replays equal
+   eager); then SDXL 1024 W8A8 fake under ``'auto'``
+   (``FAKE_SDXL_CALLS``: 10 ``flash_attention``; step against bf16 with
+   the same fault; each flash site against ``flash_attention_plain`` >=
+   ``FLASH_SITE_SQNR_DB``, failed by dropped keys; eager and graphed ms
+   beside bf16 and int8_sec).
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
-card's name and power limit, and the ``ok`` line.
+card's name and power limit, and the ``ok`` line; every line but the
+last also goes to ``chiprun_out/chip_smoke.log``.
 """
 
 import collections
@@ -140,9 +167,11 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -337,6 +366,38 @@ MP_FAULT_SITES = (
     "mid_block.attentions.0.transformer_blocks.2.attn2.to_out.0",
     "mid_block.attentions.0.transformer_blocks.6.attn2.to_out.0")
 
+# phase 11, fake-quant mode and the rest of QuantCtx. The module gate:
+# each attention / ff / resnet module of a float32 copy of the UNet,
+# teacher-forced on its FP-step input, fake quantization against the W8A8
+# deploy under deploy_compute='int8' (einsum route: the same chain; its
+# act-quantizers read the values fake mode's read) at LAYER_SQNR_DB. In
+# bf16, fake mode rounds each dequantized value to 8 significant bits,
+# about a code far from the zero point, and the int8_sec producers
+# quantize f32 values that fake mode first rounds to bf16: sound ff and
+# resnet modules then read 25.9-28.2 dB (H100 80GB HBM3, 700 W), logged
+# only. The gate's planted fault doubles the act delta of one
+# layer in the fake context: an ff.net.2, whose input (the GEGLU's
+# heavy-tailed product) has the coarsest 8-bit codes of a module's layers
+FAKE_FAULT_LAYER = "mid_block.attentions.0.transformer_blocks.0.ff.net.2"
+# the whole steps' planted faults: in a fake step conv_in's weight delta a
+# 64th of itself (its weights clipped to a 64th of their range), in a
+# deploy the sign of conv_in's scale flipped (phase 3's fault there, half
+# its channels at twice their scale, reads 16.84 dB on the towers'
+# embeddings: not caught)
+STEP_FAULT_LAYER = "conv_in"
+# the mixed fake step's per-entry gate (W >= 4 entries, fake against the
+# deploy) is failed by one W4 entry's weight delta halved in the fake
+# context
+MIXED_FAULT_LAYER = "time_embedding.linear_1"
+# the q/k/v/softmax act quantizers of SDXL-Turbo: 70 transformer blocks,
+# two attentions each, four quantizers each
+QKV_QUANT_ENTRIES = 560
+# the explicit attn_impl values and the kernel each runs at every site
+EXPLICIT_IMPLS = ("flash", "int8_flash", "int8qkv_flash")
+# launches per SDXL 1024 fake step under 'auto': the ten attn1 sites at
+# T = 4096
+FAKE_SDXL_CALLS = dict(_NONE, flash_attention=10)
+
 # every function of the JAX package that reaches pl.pallas_call
 TPU_KERNELS = [
     ("pallas_qconv.py:331 qconv2d_pallas", "qconv2d"),
@@ -458,8 +519,15 @@ for _k in ("sec_attention", "sec_attention_q", "sec_attention_qkv",
                    "the int8 projections with attention on their codes")
 
 
+#: the open ``chiprun_out/chip_smoke.log`` (``main``): every line of
+#: ``log`` also goes there, since the command's output keeps only its end
+LOG_FILE = None
+
+
 def log(*a):
     print(*a, flush=True)
+    if LOG_FILE is not None:
+        print(*a, file=LOG_FILE, flush=True)
 
 
 def card_line():
@@ -2323,7 +2391,7 @@ def phase_profile(torch, unet, req, paths):
         log(f"profile {tag}: redesigned kernels' device ms, launches {sec}")
 
 
-def graphed_step_ms(torch, unet, req, paths, card, label):
+def graphed_step_ms(torch, unet, req, paths, card, label, profiled=None):
     """Each of ``paths`` ((tag, context) pairs) captured as a CUDA graph of
     one step on ``req`` (``pipelines.graphed.GraphedCall``): the launches
     counted during the capture must be the path's ``ctx_kernel_calls`` (or
@@ -2333,7 +2401,8 @@ def graphed_step_ms(torch, unet, req, paths, card, label):
     window of ``GRAPH_ITERS`` replays of each
     (``chiprun_out/profile_graph_*.txt``; one replay alone reads the
     profiler's own start-up as idle time) beside one profiled eager step
-    (``..._eager_*``). Returns {tag: median ms}."""
+    (``..._eager_*``), for the tags in ``profiled`` (default: all).
+    Returns {tag: median ms}."""
     from mixdq_tpu_torch import pipeline
     from mixdq_tpu_torch.pipelines.graphed import GraphedCall
     from mixdq_tpu_torch.utils.profiling import timeit
@@ -2343,9 +2412,7 @@ def graphed_step_ms(torch, unet, req, paths, card, label):
     for tag, c in paths:
         g = GraphedCall(lambda s, c=c: unet(s, t, ehs, added, ctx=c),
                         (sample,))
-        want = (pipeline.ctx_kernel_calls(unet.config, c) if c.mode == "int8"
-                else pipeline.expected_kernel_calls(unet.config, c.attn_impl,
-                                                    mode="fp"))
+        want = pipeline.ctx_kernel_calls(unet.config, c)
         if g.launches != want:
             raise AssertionError(f"{label} graph {tag}: launches counted at "
                                  f"capture {g.launches}, expected {want}")
@@ -2371,6 +2438,8 @@ def graphed_step_ms(torch, unet, req, paths, card, label):
                    if k != "bf16"))
     name = label.replace(" ", "_")
     for (tag, c), g in zip(paths, graphs.values()):
+        if profiled is not None and tag not in profiled:
+            continue
         gw, gb, _ = profile_call(torch, g.replay, f"graph_{name}_{tag}",
                                  GRAPH_ITERS)
         ew, eb, _ = profile_call(
@@ -2826,7 +2895,7 @@ def twins_swapped(qparams, names):
     return out
 
 
-def phase_ptq_flow(torch, dev, card, turbo_graphed):
+def phase_ptq_flow(torch, dev, card, turbo_graphed, tmp):
     """The PTQ flow through files (``configs/sdxl_turbo.yaml``: 32
     prompts, batch 4, one step, 512 px, W8A8, BoS-aware), each CLI's
     ``main()`` on the card in turn, files in a temporary directory:
@@ -2845,11 +2914,12 @@ def phase_ptq_flow(torch, dev, card, turbo_graphed):
     (``unet_added``, >= ``MIN_SQNR_DB``: phase 9's gate); the bf16
     pipeline's params written (``save_params``) and read into a new
     pipeline (``load_params``): the same images bit for bit.
-    ``turbo_graphed``: phase 3's graphed step ms, printed beside. Returns
-    {'ptq flow': the launches counted in the eager step}."""
+    ``turbo_graphed``: phase 3's graphed step ms, printed beside; ``tmp``:
+    the directory of the files, which phase 11 reads after. Returns
+    ({'ptq flow': the launches counted in the eager step}, the experiment
+    directory, the calibration data's path)."""
     import dataclasses
     import shutil
-    import tempfile
 
     import numpy as np
 
@@ -2868,183 +2938,696 @@ def phase_ptq_flow(torch, dev, card, turbo_graphed):
     from mixdq_tpu_torch.utils.config import load_config, merge, save_config
     from mixdq_tpu_torch.utils.prompts import BUILTIN_PROMPTS
 
-    tmp = tempfile.mkdtemp(prefix="ptq_flow_")
+    cfg = merge(load_config(PTQ_CONFIG),
+                {"calib_data": {"path": os.path.join(tmp, "calib.npz")}})
+    cfg_path = os.path.join(tmp, "sdxl_turbo.yaml")
+    save_config(cfg, cfg_path)
+    if load_config(cfg_path) != cfg:
+        raise AssertionError("the written config reads back otherwise")
+    exp = os.path.join(tmp, "exp")
+    cd = cfg.calib_data
+    log(f"ptq flow: {PTQ_CONFIG} ({cfg.model.family}, "
+        f"{cd.n_samples} prompts, batch {cd.batch_size}, {cd.n_steps} "
+        f"step, {cfg.inference.height} px, W{cfg.quant.weight.n_bits}"
+        f"A{cfg.quant.activation.n_bits}), files in {tmp}")
+
+    gen = gen_calib_data.main(["--config", cfg_path])
+    N, S, h = cd.n_samples, cd.n_steps, cfg.inference.height // 8
+    shapes = {"xs": (S, N, h, h, 4), "ts": (S,),
+              "outputs": (S, N, h, h, 4), "text_embs": (N, 77, 2048),
+              "text_embeds": (N, 1280), "time_ids": (N, 6)}
+    with np.load(cd.path) as f:
+        got = {k: f[k].shape for k in f.files}
+        finite = all(np.isfinite(f[k]).all() for k in f.files)
+    if got != shapes or not finite:
+        raise AssertionError(f"calib data {got} (finite {finite}), "
+                             f"expected {shapes}")
+
+    res = ptq.main(["--config", cfg_path, "--outdir", exp])
+    qparams = res["qparams"]
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_qparams(res["path"], device=dev)
+    t_load = time.perf_counter() - t0
+    split_names = sorted(n for n, q in loaded.items()
+                         if q.w0_delta is not None)
+    want_splits = sorted(conv_shortcut_splits(
+        get_family(cfg.model.family).unet))
+    bad = [n for n in qparams
+           if n not in loaded or not qparams_bits_equal(qparams[n],
+                                                        loaded[n])]
+    twins = all(loaded[n].a0_delta is not None for n in split_names)
+    if (set(loaded) != set(qparams) or bad or len(loaded) != PTQ_LAYERS
+            or split_names != want_splits or not twins):
+        raise AssertionError(
+            f"qparams.msgpack: {len(loaded)} layers (in memory "
+            f"{len(qparams)}), unequal {bad[:4]}, split layers "
+            f"{split_names} (expected {want_splits}), twins {twins}")
+    log(f"ptq flow: qparams.msgpack ({os.path.getsize(res['path'])} "
+        f"bytes) reads back equal bit for bit: {len(loaded)} layers, "
+        f"{len(split_names)} with split twins")
+
+    out = quant_txt2img.main([
+        "--base_path", exp, "--backend", "int8", "--fuse_qkv",
+        "--n_images", "4", "--batch_size", "4",
+        "--outdir", os.path.join(tmp, "images")])
+    pipe_q, q_sec = out["pipe"], out["seconds"]
+    ctx = dataclasses.replace(out["ctx"], attn_impl="auto")
+    for path in out["paths"]:
+        with open(path, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{path} is not a PNG")
+    if len(out["paths"]) != 4:
+        raise AssertionError(f"{len(out['paths'])} images, expected 4")
+    cfg_unet = pipe_q.unet.config
+    conv_split = sorted(n for n, e in ctx.deploy.items()
+                        if e.kind == "conv_split")
+    calls = pipeline.ctx_kernel_calls(cfg_unet, ctx)
+    want = dict(TURBO_CALLS, qmatmul=TURBO_CALLS["qmatmul"]
+                + PTQ_SPLIT_LAYERS)
+    if conv_split != split_names or len(conv_split) != \
+            PTQ_SPLIT_LAYERS or calls != want:
+        raise AssertionError(f"split deploy: conv_split entries "
+                             f"{conv_split}, launches {calls}, expected "
+                             f"{want}")
+    log(f"ptq flow: deploy of the loaded file: {len(ctx.deploy)} "
+        f"entries, {len(conv_split)} conv_split; ctx_kernel_calls "
+        f"qmatmul {calls['qmatmul']} a step (phase 3's deploy, no "
+        f"splits: {TURBO_CALLS['qmatmul']})")
+
+    # the bf16 pipeline of the same seed: FP reference and fp weights
+    ref = build_pipeline(cfg, device=dev)
+    with np.load(cd.path) as f:
+        data = {k: f[k] for k in f.files}
+    req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
+    _, launches = run_path(torch, ref.unet, [req], ctx,
+                           "ptq flow split deploy")
+    graphed = graphed_step_ms(torch, ref.unet, req,
+                              (("bf16", FP_CTX), ("w8a8_splits", ctx)),
+                              card, "ptq flow")
+    log(f"ptq flow: graphed step ms, split deploy "
+        f"{graphed['w8a8_splits']:.3f} against phase 3's deploy without "
+        f"splits {turbo_graphed['auto']:.3f} (bf16 here "
+        f"{graphed['bf16']:.3f}, phase 3 {turbo_graphed['bf16']:.3f}); "
+        f"{card}")
+
+    seen = record_layer_inputs(torch, ref.unet, req)
+    wq, _, _ = specs_from_config(cfg)
+    bad_ctx = deploy_unet_ctx(
+        ref.unet, twins_swapped(loaded, split_names),
+        uniform_ctrl(split_names), wq, bos_aware=False,
+        splits=ref.splits)
+    q_layers = quantizable_layers(pipe_q.unet)
+    r_layers = quantizable_layers(ref.unet)
+    sound, swapped = {}, {}
+    with torch.inference_mode():
+        for n in split_names:
+            x, kw = seen[n]
+            want_y = split_fake_quant(torch, r_layers[n], x, loaded[n],
+                                      kw["split"])
+            sig = want_y.pow(2).sum().item()
+            for d, c, lay in ((sound, ctx, q_layers[n]),
+                              (swapped, bad_ctx, r_layers[n])):
+                err = (lay(x, c, **kw).float() - want_y).pow(2).sum()
+                d[n] = 10 * math.log10(sig / err.item())
+    log("ptq flow: each conv_split entry vs fake quantization (dB): "
+        + ", ".join(f"{n} {sound[n]:.2f} / twins swapped "
+                    f"{swapped[n]:.2f}" for n in split_names)
+        + f" (gate {LAYER_SQNR_DB})")
+    if min(sound.values()) < LAYER_SQNR_DB or \
+            min(swapped.values()) >= LAYER_SQNR_DB:
+        raise AssertionError(f"split entries {sound}, swapped {swapped}")
+
+    prompts = BUILTIN_PROMPTS[:N_REQUESTS]
+    engines = [ServingEngine(p, c, batch_size=len(prompts), steps=1,
+                             guidance_scale=0.0)
+               for p, c in ((ref, FP_CTX), (pipe_q, ctx))]
+    args = engines[0].inputs(prompts, SERVE_SEED)
+    added = [unet_added(torch, e, args) for e in engines]
+    s = sqnr_db(added[0], added[1])
+    log(f"ptq flow: what the W8A8 UNet (calibrated through the files, "
+        f"with splits) adds in the Euler step vs bf16, B="
+        f"{len(prompts)}: {s:.2f} dB (gate {MIN_SQNR_DB})")
+    if s < MIN_SQNR_DB:
+        raise AssertionError(f"ptq flow UNet SQNR {s:.2f} dB")
+    del engines, pipe_q, out, seen
+
+    params = os.path.join(tmp, "params.msgpack")
+    free = shutil.disk_usage(tmp).free
+    log(f"ptq flow: {free} bytes free in {tmp} before the params file")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_params(ref, params)
+    t_save = time.perf_counter() - t0
+    fd = os.open(params, os.O_RDONLY)
+    os.fsync(fd)
+    os.close(fd)
+    t_sync = time.perf_counter() - t0
+    size = os.path.getsize(params)
+    fresh = Text2ImgPipeline("sdxl-turbo", ref.dtype, dev)
+    t0 = time.perf_counter()
+    checkpoint.load_params(fresh, params)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    imgs = [p(prompts, seed=SERVE_SEED, num_inference_steps=1,
+              guidance_scale=0.0).images for p in (ref, fresh)]
+    if imgs[0].shape != (len(prompts), 512, 512, 3) or \
+            not np.isfinite(imgs[0]).all() or \
+            not np.array_equal(imgs[0], imgs[1]):
+        raise AssertionError("reloaded params give other images (max "
+                             f"|d| {np.abs(imgs[0] - imgs[1]).max()})")
+    log(f"ptq flow: params.msgpack {size} bytes: save_params "
+        f"{t_save:.2f}s ({size / t_save / 1e9:.2f} GB/s into the page "
+        f"cache), with fsync {t_sync:.2f}s ({size / t_sync / 1e9:.2f} "
+        f"GB/s to the disk); load_params of the file just written "
+        f"{t_read:.2f}s ({size / t_read / 1e9:.2f} GB/s, a warm page "
+        "cache); the reloaded pipeline's images equal the original's "
+        "bit for bit")
+    sec = res["seconds"]
+    log(f"ptq flow seconds: gen_calib_data {gen['seconds']:.2f}, "
+        f"calibration ({len(loaded)} layers, "
+        f"{N * S // cd.batch_size} batches) {sec['calibrate']:.2f}, "
+        f"save_qparams + load_qparams {sec['save'] + t_load:.3f}, "
+        f"deploy {q_sec['deploy']:.2f}; pipeline builds (random "
+        f"weights) {sec['build']:.2f} (ptq), {q_sec['build']:.2f} "
+        f"(quant_txt2img); {card}")
+    os.remove(params)
+    return {"ptq flow": launches}, exp, cd.path
+
+
+@contextlib.contextmanager
+def recorded_attention_kernels():
+    """Within the block, every call of the UNet's attention kernels
+    (``flash_attention``, ``int8_flash_attention``,
+    ``int8qkv_flash_attention``) is appended to the yielded list as
+    (kernel, sources, kwargs) and then runs."""
+    from mixdq_tpu_torch.models import attention as mod
+
+    names = ("flash_attention", "int8_flash_attention",
+             "int8qkv_flash_attention")
+    sound = {n: getattr(mod, n) for n in names}
+    calls = []
+
+    def recording(n):
+        def fn(*srcs, **kw):
+            calls.append((n, srcs, kw))
+            return sound[n](*srcs, **kw)
+        return fn
+
+    for n in names:
+        setattr(mod, n, recording(n))
     try:
-        cfg = merge(load_config(PTQ_CONFIG),
-                    {"calib_data": {"path": os.path.join(tmp, "calib.npz")}})
-        cfg_path = os.path.join(tmp, "sdxl_turbo.yaml")
-        save_config(cfg, cfg_path)
-        if load_config(cfg_path) != cfg:
-            raise AssertionError("the written config reads back otherwise")
-        exp = os.path.join(tmp, "exp")
-        cd = cfg.calib_data
-        log(f"ptq flow: {PTQ_CONFIG} ({cfg.model.family}, "
-            f"{cd.n_samples} prompts, batch {cd.batch_size}, {cd.n_steps} "
-            f"step, {cfg.inference.height} px, W{cfg.quant.weight.n_bits}"
-            f"A{cfg.quant.activation.n_bits}), files in {tmp}")
-
-        gen = gen_calib_data.main(["--config", cfg_path])
-        N, S, h = cd.n_samples, cd.n_steps, cfg.inference.height // 8
-        shapes = {"xs": (S, N, h, h, 4), "ts": (S,),
-                  "outputs": (S, N, h, h, 4), "text_embs": (N, 77, 2048),
-                  "text_embeds": (N, 1280), "time_ids": (N, 6)}
-        with np.load(cd.path) as f:
-            got = {k: f[k].shape for k in f.files}
-            finite = all(np.isfinite(f[k]).all() for k in f.files)
-        if got != shapes or not finite:
-            raise AssertionError(f"calib data {got} (finite {finite}), "
-                                 f"expected {shapes}")
-
-        res = ptq.main(["--config", cfg_path, "--outdir", exp])
-        qparams = res["qparams"]
-        t0 = time.perf_counter()
-        loaded = checkpoint.load_qparams(res["path"], device=dev)
-        t_load = time.perf_counter() - t0
-        split_names = sorted(n for n, q in loaded.items()
-                             if q.w0_delta is not None)
-        want_splits = sorted(conv_shortcut_splits(
-            get_family(cfg.model.family).unet))
-        bad = [n for n in qparams
-               if n not in loaded or not qparams_bits_equal(qparams[n],
-                                                            loaded[n])]
-        twins = all(loaded[n].a0_delta is not None for n in split_names)
-        if (set(loaded) != set(qparams) or bad or len(loaded) != PTQ_LAYERS
-                or split_names != want_splits or not twins):
-            raise AssertionError(
-                f"qparams.msgpack: {len(loaded)} layers (in memory "
-                f"{len(qparams)}), unequal {bad[:4]}, split layers "
-                f"{split_names} (expected {want_splits}), twins {twins}")
-        log(f"ptq flow: qparams.msgpack ({os.path.getsize(res['path'])} "
-            f"bytes) reads back equal bit for bit: {len(loaded)} layers, "
-            f"{len(split_names)} with split twins")
-
-        out = quant_txt2img.main([
-            "--base_path", exp, "--backend", "int8", "--fuse_qkv",
-            "--n_images", "4", "--batch_size", "4",
-            "--outdir", os.path.join(tmp, "images")])
-        pipe_q, q_sec = out["pipe"], out["seconds"]
-        ctx = dataclasses.replace(out["ctx"], attn_impl="auto")
-        for path in out["paths"]:
-            with open(path, "rb") as f:
-                if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                    raise AssertionError(f"{path} is not a PNG")
-        if len(out["paths"]) != 4:
-            raise AssertionError(f"{len(out['paths'])} images, expected 4")
-        cfg_unet = pipe_q.unet.config
-        conv_split = sorted(n for n, e in ctx.deploy.items()
-                            if e.kind == "conv_split")
-        calls = pipeline.ctx_kernel_calls(cfg_unet, ctx)
-        want = dict(TURBO_CALLS, qmatmul=TURBO_CALLS["qmatmul"]
-                    + PTQ_SPLIT_LAYERS)
-        if conv_split != split_names or len(conv_split) != \
-                PTQ_SPLIT_LAYERS or calls != want:
-            raise AssertionError(f"split deploy: conv_split entries "
-                                 f"{conv_split}, launches {calls}, expected "
-                                 f"{want}")
-        log(f"ptq flow: deploy of the loaded file: {len(ctx.deploy)} "
-            f"entries, {len(conv_split)} conv_split; ctx_kernel_calls "
-            f"qmatmul {calls['qmatmul']} a step (phase 3's deploy, no "
-            f"splits: {TURBO_CALLS['qmatmul']})")
-
-        # the bf16 pipeline of the same seed: FP reference and fp weights
-        ref = build_pipeline(cfg, device=dev)
-        with np.load(cd.path) as f:
-            data = {k: f[k] for k in f.files}
-        req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
-        _, launches = run_path(torch, ref.unet, [req], ctx,
-                               "ptq flow split deploy")
-        graphed = graphed_step_ms(torch, ref.unet, req,
-                                  (("bf16", FP_CTX), ("w8a8_splits", ctx)),
-                                  card, "ptq flow")
-        log(f"ptq flow: graphed step ms, split deploy "
-            f"{graphed['w8a8_splits']:.3f} against phase 3's deploy without "
-            f"splits {turbo_graphed['auto']:.3f} (bf16 here "
-            f"{graphed['bf16']:.3f}, phase 3 {turbo_graphed['bf16']:.3f}); "
-            f"{card}")
-
-        seen = record_layer_inputs(torch, ref.unet, req)
-        wq, _, _ = specs_from_config(cfg)
-        bad_ctx = deploy_unet_ctx(
-            ref.unet, twins_swapped(loaded, split_names),
-            uniform_ctrl(split_names), wq, bos_aware=False,
-            splits=ref.splits)
-        q_layers = quantizable_layers(pipe_q.unet)
-        r_layers = quantizable_layers(ref.unet)
-        sound, swapped = {}, {}
-        with torch.inference_mode():
-            for n in split_names:
-                x, kw = seen[n]
-                want_y = split_fake_quant(torch, r_layers[n], x, loaded[n],
-                                          kw["split"])
-                sig = want_y.pow(2).sum().item()
-                for d, c, lay in ((sound, ctx, q_layers[n]),
-                                  (swapped, bad_ctx, r_layers[n])):
-                    err = (lay(x, c, **kw).float() - want_y).pow(2).sum()
-                    d[n] = 10 * math.log10(sig / err.item())
-        log("ptq flow: each conv_split entry vs fake quantization (dB): "
-            + ", ".join(f"{n} {sound[n]:.2f} / twins swapped "
-                        f"{swapped[n]:.2f}" for n in split_names)
-            + f" (gate {LAYER_SQNR_DB})")
-        if min(sound.values()) < LAYER_SQNR_DB or \
-                min(swapped.values()) >= LAYER_SQNR_DB:
-            raise AssertionError(f"split entries {sound}, swapped {swapped}")
-
-        prompts = BUILTIN_PROMPTS[:N_REQUESTS]
-        engines = [ServingEngine(p, c, batch_size=len(prompts), steps=1,
-                                 guidance_scale=0.0)
-                   for p, c in ((ref, FP_CTX), (pipe_q, ctx))]
-        args = engines[0].inputs(prompts, SERVE_SEED)
-        added = [unet_added(torch, e, args) for e in engines]
-        s = sqnr_db(added[0], added[1])
-        log(f"ptq flow: what the W8A8 UNet (calibrated through the files, "
-            f"with splits) adds in the Euler step vs bf16, B="
-            f"{len(prompts)}: {s:.2f} dB (gate {MIN_SQNR_DB})")
-        if s < MIN_SQNR_DB:
-            raise AssertionError(f"ptq flow UNet SQNR {s:.2f} dB")
-        del engines, pipe_q, out, seen
-
-        params = os.path.join(tmp, "params.msgpack")
-        free = shutil.disk_usage(tmp).free
-        log(f"ptq flow: {free} bytes free in {tmp} before the params file")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        checkpoint.save_params(ref, params)
-        t_save = time.perf_counter() - t0
-        fd = os.open(params, os.O_RDONLY)
-        os.fsync(fd)
-        os.close(fd)
-        t_sync = time.perf_counter() - t0
-        size = os.path.getsize(params)
-        fresh = Text2ImgPipeline("sdxl-turbo", ref.dtype, dev)
-        t0 = time.perf_counter()
-        checkpoint.load_params(fresh, params)
-        torch.cuda.synchronize()
-        t_read = time.perf_counter() - t0
-        imgs = [p(prompts, seed=SERVE_SEED, num_inference_steps=1,
-                  guidance_scale=0.0).images for p in (ref, fresh)]
-        if imgs[0].shape != (len(prompts), 512, 512, 3) or \
-                not np.isfinite(imgs[0]).all() or \
-                not np.array_equal(imgs[0], imgs[1]):
-            raise AssertionError("reloaded params give other images (max "
-                                 f"|d| {np.abs(imgs[0] - imgs[1]).max()})")
-        log(f"ptq flow: params.msgpack {size} bytes: save_params "
-            f"{t_save:.2f}s ({size / t_save / 1e9:.2f} GB/s into the page "
-            f"cache), with fsync {t_sync:.2f}s ({size / t_sync / 1e9:.2f} "
-            f"GB/s to the disk); load_params of the file just written "
-            f"{t_read:.2f}s ({size / t_read / 1e9:.2f} GB/s, a warm page "
-            "cache); the reloaded pipeline's images equal the original's "
-            "bit for bit")
-        sec = res["seconds"]
-        log(f"ptq flow seconds: gen_calib_data {gen['seconds']:.2f}, "
-            f"calibration ({len(loaded)} layers, "
-            f"{N * S // cd.batch_size} batches) {sec['calibrate']:.2f}, "
-            f"save_qparams + load_qparams {sec['save'] + t_load:.3f}, "
-            f"deploy {q_sec['deploy']:.2f}; pipeline builds (random "
-            f"weights) {sec['build']:.2f} (ptq), {q_sec['build']:.2f} "
-            f"(quant_txt2img); {card}")
+        yield calls
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return {"ptq flow": launches}
+        for n, f in sound.items():
+            setattr(mod, n, f)
+
+
+def site_kernel_checks(torch, calls, drop=0):
+    """Each recorded attention kernel call run again, its kernel against
+    its plain version on the same sources by phase 1's rule
+    (``flash_err``) and as SQNR; with ``drop`` the kernel reads all but
+    the last ``drop`` keys. Returns [(kernel, 'Tq=.. Tk=..', error or
+    the failure, dB)]."""
+    from mixdq_tpu_torch.ops import attention
+
+    out = []
+    with torch.inference_mode():
+        for n, srcs, kw in calls:
+            q, k, v = srcs
+            if drop:
+                k, v = (k[:, :-drop].contiguous(), v[:, :-drop].contiguous())
+            got = getattr(attention, n)(q, k, v, **kw)
+            want = getattr(attention, n + "_plain")(*srcs, **kw)
+            try:
+                err = flash_err(torch, got, want)
+            except AssertionError as e:
+                err = e
+            out.append((n, f"Tq={q.shape[1]} Tk={srcs[1].shape[1]}", err,
+                        sqnr_db(want, got)))
+    return out
+
+
+def record_resnet_inputs(torch, unet, req):
+    """{resnet block name: (x, temb, split)} of every ``ResnetBlock2D`` in
+    one FP step."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models.resnet import ResnetBlock2D
+
+    seen = {}
+
+    def hook(mod, args, kwargs):
+        seen[mod.qname] = (args[0], args[1], kwargs.get("split", 0))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in unet.modules() if isinstance(m, ResnetBlock2D)]
+    try:
+        pipeline.unet_step(unet, req)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def resnet_sqnrs(torch, unet, ctx, seen, ref_ctx):
+    """SQNR in dB of each resnet block under ``ctx`` against the block under
+    ``ref_ctx``, teacher-forced on its FP-step input; the signal is what
+    the block adds to its input (the whole output where the shortcut is a
+    conv)."""
+    out = {}
+    with torch.inference_mode():
+        for name, (x, temb, split) in sorted(seen.items()):
+            blk = unet.get_submodule(name)
+            got = blk(x, temb, ctx, split=split).float()
+            ref = blk(x, temb, ref_ctx, split=split).float()
+            base = x.float() if ref.shape == x.shape else 0
+            err = (got - ref).pow(2).sum().item()
+            out[name] = (math.inf if err == 0 else 10 * math.log10(
+                (ref - base).pow(2).sum().item() / err))
+    return out
+
+
+def layer_inputs_without_residual(torch, unet, req):
+    """``record_layer_inputs`` with each layer's ``residual`` dropped: the
+    residual stream (max |x| ~128 at the 16x16 level on the towers'
+    embeddings) rounds a bf16 output by more than a conv's own
+    quantization error (conv2 entries read 20.5 dB against fake
+    quantization with it, under int8_sec and pallas_dequant alike); no
+    path quantizes it."""
+    return {n: (x, {k: v for k, v in kw.items() if k != "residual"})
+            for n, (x, kw) in record_layer_inputs(torch, unet, req).items()}
+
+
+def scaled_delta(ctx, name, factor, field="a_delta"):
+    """The fake context ``ctx`` with layer ``name``'s act deltas (or
+    ``field``) times ``factor``, its zero points kept."""
+    import dataclasses
+
+    qp = ctx.qparams[name]
+    return dataclasses.replace(ctx, qparams={
+        **ctx.qparams, name: qp.replace(**{field: getattr(qp, field)
+                                           * factor})})
+
+
+def module_sqnrs(torch, unet, fake, deploy, req):
+    """SQNR in dB of every attention, feed-forward and resnet module
+    under ``deploy`` against the module under ``fake``, each teacher-
+    forced on its FP-step input."""
+    seen = record_attention_inputs(torch, unet, req, ff=True)
+    s = site_sqnrs(torch, unet, deploy, seen, ref_ctx=fake)
+    s.update(resnet_sqnrs(torch, unet, deploy,
+                          record_resnet_inputs(torch, unet, req), fake))
+    return s
+
+
+def module_kind(name):
+    return ("resnet" if "resnets" in name
+            else name.rsplit(".", 1)[-1].rstrip("0123456789"))
+
+
+def log_modules(label, s):
+    low = sorted(s.items(), key=lambda kv: kv[1])
+    by_kind = {k: round(min(v for n, v in s.items() if module_kind(n) == k),
+                        2) for k in sorted({module_kind(n) for n in s})}
+    log(f"{label}: {len(s)} modules (dB): min {low[0][1]:.2f} median "
+        f"{statistics.median(s.values()):.2f}, min by kind {by_kind}; "
+        f"lowest {[(n, round(v, 2)) for n, v in low[:3]]}")
+    return low
+
+
+def module_gate(torch, unet, fake, deploy, req, label):
+    """Every attention, feed-forward and resnet module of ``unet`` (the
+    float32 copy: bf16 fake mode rounds each dequantized value to 8
+    significant bits, about a code's worth far from the zero point, which
+    no deploy does), teacher-forced on its FP-step input: fake
+    quantization against the deploy (>= ``LAYER_SQNR_DB``); with
+    ``FAKE_FAULT_LAYER``'s act delta doubled in the fake context its
+    feed-forward module must fail."""
+    low = log_modules(f"{label}, fake vs the {deploy.deploy_compute} "
+                      f"deploy (gate {LAYER_SQNR_DB})",
+                      module_sqnrs(torch, unet, fake, deploy, req))
+    if low[0][1] < LAYER_SQNR_DB:
+        raise AssertionError(f"{label}: module {low[0][0]} {low[0][1]} dB "
+                             f"< {LAYER_SQNR_DB}")
+    site = FAKE_FAULT_LAYER[:FAKE_FAULT_LAYER.index(".ff.") + 3]
+    seen = record_attention_inputs(torch, unet, req, ff=True)
+    f = site_sqnrs(torch, unet, deploy, seen, [site],
+                   ref_ctx=scaled_delta(fake, FAKE_FAULT_LAYER, 2.0))[site]
+    log(f"{label}: module {site} with {FAKE_FAULT_LAYER}'s act delta "
+        f"doubled in the fake context: {f:.2f} dB")
+    if f >= LAYER_SQNR_DB:
+        raise AssertionError(f"{label}: the module gate misses a doubled act "
+                             "delta")
+
+
+def step_gate(torch, unet, req, ref, ctx, label, fault_ctx):
+    """One step of ``ctx`` against the bf16 step ``ref`` (>= ``MIN_SQNR_DB``)
+    and of ``fault_ctx`` (< ``MIN_SQNR_DB``). Returns (output, dB)."""
+    from mixdq_tpu_torch import pipeline
+
+    out = pipeline.unet_step(unet, req, ctx)
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output {out.shape}")
+    s = sqnr_db(ref, out)
+    f = sqnr_db(ref, pipeline.unet_step(unet, req, fault_ctx))
+    log(f"{label} vs bf16: {s:.2f} dB; with its planted fault {f:.2f} dB "
+        f"(gate {MIN_SQNR_DB})")
+    if s < MIN_SQNR_DB or f >= MIN_SQNR_DB:
+        raise AssertionError(f"{label}: {s:.2f} dB, fault {f:.2f} dB, gate "
+                             f"{MIN_SQNR_DB}")
+    return out, s
+
+
+def explicit_sites(torch, unet, ctx, req, impl, fault_tk=(77, 256)):
+    """The explicit ``attn_impl`` step of ``ctx``: every site's kernel
+    (recorded) against its plain version on the same sources by phase 1's
+    rule; the kernel reading all but the last ``FLASH_DROPPED_KEYS`` keys
+    must fail at the first site of each key count in ``fault_tk`` (the
+    cross-attention's 77 text tokens, SDXL-Turbo's 16x16 self-attention at
+    Tq = Tk = 256). Returns the context."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models import routing
+
+    c = dataclasses.replace(ctx, attn_impl=impl)
+    with recorded_attention_kernels() as calls:
+        pipeline.unet_step(unet, req, c)
+    kernel = routing.EXPLICIT_ATTN[impl]
+    sites = 2 * sum(1 for n, _ in unet.named_modules()
+                    if n.endswith(".attn1"))
+    if len(calls) != sites or {n for n, _, _ in calls} != {kernel}:
+        raise AssertionError(f"{impl}: {len(calls)} kernel calls "
+                             f"({ {n for n, _, _ in calls} }), expected "
+                             f"{sites} of {kernel}")
+    checks = site_kernel_checks(torch, calls)
+    bad = [(sh, str(e)) for _, sh, e, _ in checks
+           if isinstance(e, AssertionError)]
+    shapes = collections.Counter(sh for _, sh, _, _ in checks)
+    errs = [e for _, _, e, _ in checks if not isinstance(e, AssertionError)]
+    log(f"{impl}: {len(checks)} sites ({dict(shapes)}) kernel vs plain: "
+        f"max |diff| {max(errs, default=float('nan'))}, min "
+        f"{min(d for *_, d in checks):.2f} dB, {len(bad)} off")
+    if bad:
+        raise AssertionError(f"{impl}: sites off their plain version: "
+                             f"{bad[:3]}")
+    picks = [next(i for i, (_, srcs, _) in enumerate(calls)
+                  if srcs[1].shape[1] == T) for T in fault_tk]
+    faulted = site_kernel_checks(torch, [calls[i] for i in picks],
+                                 drop=FLASH_DROPPED_KEYS)
+    log(f"{impl}: with the last {FLASH_DROPPED_KEYS} keys dropped: "
+        + "; ".join(f"{sh} {d:.2f} dB, "
+                    f"{'fails' if isinstance(e, AssertionError) else 'PASSES'}"
+                    for _, sh, e, d in faulted))
+    if not all(isinstance(e, AssertionError) for _, _, e, _ in faulted):
+        raise AssertionError(f"{impl}: the site check misses dropped keys")
+    return c
+
+
+def phase_fake_turbo(torch, dev, card, exp, calib_path):
+    """SDXL-Turbo 512 px at full width, random weights from seed 0, on
+    phase 10's files (``exp``: its experiment directory, ``calib_path``:
+    its calibration data): the W8A8 fake step through ``quant_txt2img
+    --backend fake``, the q/k/v/softmax quantizers, mixed fake, the
+    explicit attention kernels and ``deploy_compute='int8'`` (module
+    docstring, phase 11). Returns {path: launches of one step}."""
+    import dataclasses
+
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.models.unet import UNet2DConditionModel
+    from mixdq_tpu_torch.quant import bitmaps
+    from mixdq_tpu_torch.quant.calibrate import calibrate
+    from mixdq_tpu_torch.quant.core import QuantSpec
+    from mixdq_tpu_torch.quant.deploy import (deploy_unet_ctx,
+                                              layer_bits_from_ctrl,
+                                              unpack_packed_entries)
+    from mixdq_tpu_torch.quant.state import (FP_CTX, QuantCtx,
+                                             quantizable_layers,
+                                             uniform_ctrl)
+    from mixdq_tpu_torch.scripts import ptq, quant_txt2img
+
+    launches = {}
+    # -- SDXL-Turbo 512 px, W8A8 fake through quant_txt2img --backend fake
+    t0 = time.time()
+    out = quant_txt2img.main([
+        "--base_path", exp, "--n_images", "1", "--batch_size", "1",
+        "--outdir", os.path.join(os.path.dirname(exp), "images_fake")])
+    for path in out["paths"]:
+        with open(path, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{path} is not a PNG")
+    pipe, fake = out["pipe"], out["ctx"]
+    unet = pipe.unet
+    if fake.mode != "fake" or fake.qkv_quant or len(out["paths"]) != 1:
+        raise AssertionError(f"quant_txt2img --backend fake: mode "
+                             f"{fake.mode}, qkv_quant {fake.qkv_quant}")
+    qparams, wq = fake.qparams, fake.wq
+    with np.load(calib_path) as f:
+        data = {k: f[k] for k in f.files}
+    req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
+    sec = dataclasses.replace(deploy_unet_ctx(
+        unet, qparams, fake.ctrl, wq, bos_aware=fake.bos_aware,
+        fuse_qkv=True, splits=pipe.splits), attn_impl="auto")
+    sec_e = dataclasses.replace(sec, attn_impl="einsum")
+    ctx8 = deploy_unet_ctx(unet, qparams, fake.ctrl, wq,
+                           bos_aware=fake.bos_aware, fuse_qkv=True,
+                           splits=pipe.splits, deploy_compute="int8")
+    torch.cuda.synchronize()
+    log(f"phase 11: quant_txt2img --backend fake on phase 10's files "
+        f"({out['seconds']['generate']:.2f}s for one image) and the deploys "
+        f"of its qparams (int8_sec, int8): {time.time() - t0:.1f}s")
+    for c in (fake, sec, ctx8):  # warm-up outside the counts
+        pipeline.unet_step(unet, req, c)
+    (y_fake,), launches["sdxl-turbo fake"] = run_path(
+        torch, unet, [req], fake, "sdxl-turbo fake")
+    if any(launches["sdxl-turbo fake"].values()):
+        raise AssertionError("a 512 px fake step launched a kernel")
+    ref = pipeline.unet_step(unet, req)
+    y_sec = pipeline.unet_step(unet, req, sec)
+    step_gate(torch, unet, req, ref, fake, "sdxl-turbo W8A8 fake",
+              scaled_delta(fake, STEP_FAULT_LAYER, 1 / 64, "w_delta"))
+    log(f"sdxl-turbo W8A8 fake vs the int8_sec deploy of the same qparams: "
+        f"{sqnr_db(y_sec, y_fake):.2f} dB; int8_sec vs bf16 "
+        f"{sqnr_db(ref, y_sec):.2f} dB")
+    for d in (ctx8, sec_e):  # bf16: logged
+        log_modules(f"sdxl-turbo W8A8 fake, bf16, vs the {d.deploy_compute} "
+                    "deploy (logged)", module_sqnrs(torch, unet, fake, d, req))
+    unet32 = UNet2DConditionModel(unet.config, torch.float32, dev).eval()
+    unet32.load_state_dict(unet.state_dict())
+    sample, t, ehs, added = req
+    req32 = (sample.float(), t, ehs.float(),
+             {k: v.float() for k, v in added.items()})
+    module_gate(torch, unet32, fake, ctx8, req32,
+                "sdxl-turbo W8A8 fake, float32 copy")
+    del unet32, req32
+    gc_cuda(torch)
+
+    # -- the q/k/v/softmax act quantizers (einsum at every site)
+    sm = QuantSpec(running_stat=True, always_zero=True)
+    t0 = time.time()
+    qp_sm = calibrate(unet, [req], pipeline.WQ, pipeline.AQ, softmax_aq=sm,
+                      splits=pipe.splits)
+    n_qact = sum(".act_quantizer_" in n for n in qp_sm)
+    n_none = sum(".act_quantizer_" in n for n in calibrate(
+        unet, [req], pipeline.WQ, pipeline.AQ, splits=pipe.splits))
+    log(f"qkv_quant: calibration with the softmax spec {time.time() - t0:.1f}"
+        f"s: {n_qact} act_quantizer_* entries (expected "
+        f"{QKV_QUANT_ENTRIES}; without the spec, the planted fault: "
+        f"{n_none})")
+    if n_qact != QKV_QUANT_ENTRIES or n_none == QKV_QUANT_ENTRIES:
+        raise AssertionError(f"qkv_quant: {n_qact} act quantizer entries")
+    qkv = QuantCtx(mode="fake", qparams=qp_sm,
+                   ctrl=uniform_ctrl(sorted(qp_sm)), bos_aware=True,
+                   qkv_quant=True, softmax_aq=sm, attn_impl="auto")
+    (y_qkv,), launches["sdxl-turbo fake qkv"] = run_path(
+        torch, unet, [req], qkv, "sdxl-turbo fake qkv_quant")
+    y_w8 = pipeline.unet_step(unet, req, dataclasses.replace(
+        qkv, qkv_quant=False, softmax_aq=None))
+    log(f"sdxl-turbo fake with q/k/v/softmax quantizers vs W8A8 fake "
+        f"without them: {sqnr_db(y_w8, y_qkv):.2f} dB; vs bf16 "
+        f"{sqnr_db(ref, y_qkv):.2f} dB")
+    del qp_sm, qkv
+
+    # -- mixed precision fake (configs/mp/sdxl_turbo + act-protect)
+    wmap = bitmaps.load_bit_map(os.path.join(MP_DIR, "final_config",
+                                             "weight", "5.04.yaml"))
+    amap = bitmaps.load_bit_map(os.path.join(MP_DIR, "final_config", "act",
+                                             "7.43.yaml"))
+    protect = bitmaps.load_layer_list(os.path.join(MP_DIR,
+                                                   "act_protect.yaml"))
+    mctrl = pipeline.mixed_ctrl(unet, wmap, amap, protect)
+    mfake = dataclasses.replace(fake, ctrl=mctrl)
+    mdep = deploy_unet_ctx(unet, qparams, mctrl, wq, bos_aware=True,
+                           fuse_qkv=True, pack_w4=True, splits=pipe.splits)
+    mdep = dataclasses.replace(mdep, deploy=unpack_packed_entries(
+        mdep.deploy), attn_impl="auto")
+    y_m = pipeline.unet_step(unet, req, mfake)
+    log(f"sdxl-turbo mixed fake (W5.04 / A7.43 + act-protect) vs bf16 "
+        f"{sqnr_db(ref, y_m):.2f} dB, vs the int8_sec mixed deploy "
+        f"{sqnr_db(pipeline.unet_step(unet, req, mdep), y_m):.2f} dB "
+        "(logged: 28 W2 layers fake-clamp to [-2, 1], the deploy to "
+        "[-8, 7])")
+    bits = layer_bits_from_ctrl(mctrl)
+    seen = layer_inputs_without_residual(torch, unet, req)
+    layers = quantizable_layers(unet)
+    names = [n for n, (wb, _) in sorted(bits.items()) if wb >= 4
+             and mdep.deploy.get(n) is not None
+             and mdep.deploy[n].kind != "fused_away"]
+    bad_w = scaled_delta(mfake, MIXED_FAULT_LAYER, 0.5, "w_delta")
+    if bits[MIXED_FAULT_LAYER][0] != 4:
+        raise AssertionError(f"{MIXED_FAULT_LAYER} is not a W4 layer")
+
+    def entry_db(name, f_ctx):
+        x, kw = seen[name]
+        with torch.inference_mode():
+            want = layers[name](x, f_ctx, **kw).float()
+            got = layers[name](x, mdep, **kw).float()
+        err = (got - want).pow(2).sum().item()
+        return math.inf if err == 0 else 10 * math.log10(
+            want.pow(2).sum().item() / err)
+
+    es = {n: entry_db(n, mfake) for n in names}
+    low = sorted(es.items(), key=lambda kv: kv[1])
+    f = entry_db(MIXED_FAULT_LAYER, bad_w)
+    log(f"sdxl-turbo mixed: {len(es)} W>=4 entries (of {len(bits)} "
+        f"quantized layers), fake vs the deploy, each on its FP-step input "
+        f"(dB): min {low[0][1]:.2f} median "
+        f"{statistics.median(es.values()):.2f}, lowest "
+        f"{[(n, round(v, 2)) for n, v in low[:3]]}; {MIXED_FAULT_LAYER} with "
+        f"its weight delta halved in the fake context {f:.2f} (gate "
+        f"{LAYER_SQNR_DB})")
+    if low[0][1] < LAYER_SQNR_DB or f >= LAYER_SQNR_DB:
+        raise AssertionError(f"mixed entries {low[:3]}, fault {f}")
+    del mdep, mfake, bad_w, seen
+
+    # -- explicit attention kernels on the int8_sec deploy
+    t0 = time.time()
+    ectxs = {}
+    for impl in EXPLICIT_IMPLS:
+        c = explicit_sites(torch, unet, sec, req, impl)
+        pipeline.unet_step(unet, req, c)
+        (y,), launches[f"sdxl-turbo {impl}"] = run_path(
+            torch, unet, [req], c, f"sdxl-turbo attn_impl={impl}")
+        log(f"sdxl-turbo attn_impl={impl} vs bf16 {sqnr_db(ref, y):.2f} dB, "
+            f"vs auto {sqnr_db(y_sec, y):.2f} dB")
+        ectxs[impl] = c
+
+    log(f"phase 11 explicit attn_impl checks: {time.time() - t0:.1f}s")
+
+    # -- deploy_compute='int8'
+    t0 = time.time()
+    (y8,), launches["sdxl-turbo int8"] = run_path(
+        torch, unet, [req], ctx8, "sdxl-turbo deploy_compute=int8")
+    e = ctx8.deploy[STEP_FAULT_LAYER]
+    step_gate(torch, unet, req, ref, ctx8, "sdxl-turbo deploy_compute=int8",
+              dataclasses.replace(ctx8, deploy={
+                  **ctx8.deploy, STEP_FAULT_LAYER: e.replace(
+                      scale=-e.scale)}))
+    log(f"sdxl-turbo deploy_compute=int8 vs int8_sec: "
+        f"{sqnr_db(y_sec, y8):.2f} dB")
+    seen = layer_inputs_without_residual(torch, unet, req)
+    names = [n for n, e in ctx8.deploy.items()
+             if e.kind not in ("fused_away", "conv_split")]
+    s = layer_sqnrs(torch, unet, ctx8, qparams, seen, names)
+    low = sorted(s.items(), key=lambda kv: kv[1])
+    f = layer_sqnrs(torch, unet, faulted_ctx(ctx8, FAULT_LAYERS[0]), qparams,
+                    seen, [FAULT_LAYERS[0]])[FAULT_LAYERS[0]]
+    log(f"deploy_compute=int8: {len(s)} entries vs fake quantization (dB): "
+        f"min {low[0][1]:.2f} median {statistics.median(s.values()):.2f}; "
+        f"lowest {[(n, round(v, 2)) for n, v in low[:3]]}; "
+        f"{FAULT_LAYERS[0]} with its fault {f:.2f} (gate {LAYER_SQNR_DB})")
+    if low[0][1] < LAYER_SQNR_DB or f >= LAYER_SQNR_DB:
+        raise AssertionError(f"int8 compute entries {low[:3]}, fault {f}")
+    log(f"phase 11 deploy_compute=int8 checks: {time.time() - t0:.1f}s")
+    del seen
+
+    # -- timings: eager and graphed, beside bf16 and int8_sec
+    paths = (("bf16", FP_CTX), ("int8_sec", sec), ("fake", fake),
+             *((impl, c) for impl, c in ectxs.items()), ("int8", ctx8))
+    t0 = time.time()
+    paired_step_ms(torch, unet, [req], paths, card, "phase 11 sdxl-turbo")
+    graphed_step_ms(torch, unet, req, paths, card, "phase 11 sdxl-turbo",
+                    profiled=("fake",))
+    log(f"phase 11 sdxl-turbo timings: {time.time() - t0:.1f}s")
+    return launches
+
+
+def phase_fake_sdxl(torch, dev, card):
+    """SDXL 1024 px, W8A8 fake under ``'auto'`` (``fake_quant_ctx``):
+    ``FAKE_SDXL_CALLS`` in one eager step and at capture, the step against
+    bf16 (with ``STEP_FAULT_LAYER``'s fault), each flash site against
+    ``flash_attention_plain`` (failed by dropped keys), eager and graphed
+    step ms beside bf16 and the int8_sec deploy of the same qparams.
+    Returns {path: launches of one step}."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
+    from mixdq_tpu_torch.quant.state import FP_CTX
+
+    bf16 = torch.bfloat16
+    t0 = time.time()
+    unet = pipeline.build_unet("sdxl", seed=0, dtype=bf16, device=dev)
+    calib = pipeline.example_inputs("sdxl", 1, 0, bf16, dev)
+    fake = pipeline.fake_quant_ctx(unet, calib)
+    sec = dataclasses.replace(deploy_unet_ctx(
+        unet, fake.qparams, fake.ctrl, pipeline.WQ, fuse_qkv=True),
+        attn_impl="auto")
+    fp = dataclasses.replace(FP_CTX, attn_impl="auto")
+    torch.cuda.synchronize()
+    log(f"sdxl 1024 build + fake_quant_ctx + deploy: {time.time() - t0:.1f}s")
+    if pipeline.ctx_kernel_calls(unet.config, fake) != FAKE_SDXL_CALLS:
+        raise AssertionError("sdxl fake: the structure's launch counts "
+                             "changed")
+    req = pipeline.example_inputs("sdxl", 1, 200, bf16, dev)
+    pipeline.unet_step(unet, req, fake)
+    (_,), launches = run_path(torch, unet, [req], fake, "sdxl fake auto")
+    ref = pipeline.unet_step(unet, req, fp)
+    step_gate(torch, unet, req, ref, fake, "sdxl W8A8 fake auto",
+              scaled_delta(fake, STEP_FAULT_LAYER, 1 / 64, "w_delta"))
+    with recorded_attention_kernels() as calls:
+        pipeline.unet_step(unet, req, fake)
+    checks = site_kernel_checks(torch, calls)
+    v = [d for *_, d in checks]
+    bad = [sh for _, sh, e, _ in checks if isinstance(e, AssertionError)]
+    log(f"sdxl fake: {len(checks)} flash sites "
+        f"({dict(collections.Counter(sh for _, sh, _, _ in checks))}) vs "
+        f"flash_attention_plain (dB): min {min(v):.2f} median "
+        f"{statistics.median(v):.2f} (gate {FLASH_SITE_SQNR_DB}; off "
+        f"flash_err {bad})")
+    if len(checks) != FAKE_SDXL_CALLS["flash_attention"] or \
+            min(v) < FLASH_SITE_SQNR_DB or bad:
+        raise AssertionError(f"sdxl fake flash sites {v}, {bad}")
+    f = site_kernel_checks(torch, calls[:1], drop=FLASH_DROPPED_KEYS)[0][3]
+    log(f"sdxl fake flash site with its last {FLASH_DROPPED_KEYS} keys "
+        f"dropped: {f:.2f} dB")
+    if f >= FLASH_SITE_SQNR_DB:
+        raise AssertionError("the sdxl fake flash site check misses dropped "
+                             "keys")
+    del calls, checks
+    paths = (("bf16", fp), ("int8_sec", sec), ("fake", fake))
+    paired_step_ms(torch, unet, [req], paths, card, "phase 11 sdxl")
+    graphed_step_ms(torch, unet, req, paths, card, "phase 11 sdxl",
+                    profiled=("fake",))
+    return {"sdxl fake": launches}
+
+
+def phase_fake(torch, dev, card, exp, calib_path):
+    """Phase 11: ``phase_fake_turbo`` on phase 10's files, then
+    ``phase_fake_sdxl``. Returns {path: launches of one step}."""
+    launches = phase_fake_turbo(torch, dev, card, exp, calib_path)
+    gc_cuda(torch)
+    launches.update(phase_fake_sdxl(torch, dev, card))
+    gc_cuda(torch)
+    return launches
+
+
+def gc_cuda(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3063,13 +3646,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    global LOG_FILE
+    LOG_FILE = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
         f" | {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
     _build.build_all()
     log(f"phase 0: built {len(_build.SOURCES)} kernel sources in "
         f"{time.time() - t0:.1f}s")
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "nvcc_build.txt"), "w") as f:
         for src, text in _build.BUILD_LOGS.items():
             f.write(f"===== {src}\n{text}\n")
@@ -3132,9 +3717,25 @@ def main():
         f"{', '.join(map(str, SERVE_BATCHES))}, one CUDA graph a batch)")
     gc.collect()
     torch.cuda.empty_cache()
-    per_step.update(phase_ptq_flow(torch, dev, card, turbo_graphed))
-    log("phase 10: PTQ flow ok (gen_calib_data, ptq with splits, "
-        "quant_txt2img; checkpoint and params round trips)")
+    tmp = tempfile.mkdtemp(prefix="ptq_flow_")
+    try:
+        ptq_launches, exp, calib_path = phase_ptq_flow(
+            torch, dev, card, turbo_graphed, tmp)
+        per_step.update(ptq_launches)
+        log("phase 10: PTQ flow ok (gen_calib_data, ptq with splits, "
+            "quant_txt2img; checkpoint and params round trips)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        fake_launches = phase_fake(torch, dev, card, exp, calib_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_step.update(fake_launches)
+    totals.update(fake_launches)
+    log(f"phase 11: fake-quant mode ok ({time.time() - t0:.1f}s: W8A8, "
+        "q/k/v/softmax and mixed fake at 512 px, attn_impl flash / "
+        "int8_flash / int8qkv_flash, deploy_compute=int8, W8A8 fake at "
+        "1024 px)")
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",

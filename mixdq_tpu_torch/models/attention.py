@@ -1,5 +1,4 @@
-"""Attention / transformer blocks (port of ``mixdq_tpu/models/attention.py``
-on its ``attn_impl='einsum'`` and ``'auto'`` paths).
+"""Attention / transformer blocks (port of ``mixdq_tpu/models/attention.py``).
 
 On the int8 path the pre-LayerNorm of a dense consumer is DEFERRED: the
 block passes the raw residual stream plus ``(gamma, beta, entry)`` and the
@@ -20,7 +19,17 @@ runs ``geglu_out_qmatmul`` where ff is in ``ctx.out_fuse`` and its gate
 holds (``routing.whole_ff``), else ``geglu_qmatmul`` and ``ff.net.2``.
 With ``ctx.ln_fold`` off, the block materializes every deferred
 LayerNorm's codes itself and the sub-modules get codes plus the raw
-residual.
+residual. An explicit ``attn_impl`` (``'flash'``, ``'int8_flash'``,
+``'int8qkv_flash'``) runs its kernel at every site in any mode, after
+the projections (a deferred LayerNorm materialized first).
+
+With ``ctx.qkv_quant``, q, k and v pass through their act quantizers
+(``act_quantizer_q`` / ``_k`` / ``_v``, ``QAct``) once split from their
+sources, and the einsum chain's probabilities through
+``act_quantizer_softmax`` when the context has a ``softmax_aq``; in fake
+mode the sites then run the einsum chain. In int8 mode the quantizers are
+the identity and are skipped, so the kernels keep reading the fused
+projections in place.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from ..ops.sec_attention import (sec_attention, sec_attention_q,
                                  sec_attention_qkv_out)
 from ..quant.state import FP_CTX, QuantCtx
 from . import routing
-from .layers import (GroupNorm, LayerNorm, QDense, bos_row, codes_of,
+from .layers import (GroupNorm, LayerNorm, QAct, QDense, bos_row, codes_of,
                      deploy_linear, layer_compute, name_layers)
 
 
@@ -101,6 +110,10 @@ class Attention(nn.Module):
         self.to_k = QDense(kv_dim, inner, use_bias=False, **kw)
         self.to_v = QDense(kv_dim, inner, use_bias=False, **kw)
         self.to_out = nn.ModuleList([QDense(inner, query_dim, **kw)])
+        self.act_quantizer_q = QAct()
+        self.act_quantizer_k = QAct()
+        self.act_quantizer_v = QAct()
+        self.act_quantizer_softmax = QAct(softmax=True)
 
     def forward(self, hidden_states, encoder_hidden_states=None,
                 ctx: QuantCtx = FP_CTX, residual=None, ln=None):
@@ -125,7 +138,8 @@ class Attention(nn.Module):
             fused_codes=dp_f is not None and dp_f.w_int is not None,
             q_codes=dp_q is not None and dp_q.w_int is not None,
             out_codes=dp_o is not None and dp_o.w_int is not None,
-            out_fuse=ctx.out_fuse, int8_flash=ctx.int8_flash)
+            out_fuse=ctx.out_fuse, int8_flash=ctx.int8_flash,
+            qkv_quant=ctx.qkv_quant)
         if route.kernel == routing.QKV:
             return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
         if route.kernel == routing.QKV_OUT:
@@ -159,9 +173,16 @@ class Attention(nn.Module):
             srcs = (self.to_q(hidden_states, ctx),
                     self.to_k(kv_input, ctx, bos_aware=is_cross),
                     self.to_v(kv_input, ctx, bos_aware=is_cross))
+        offsets = route.offsets
+        if ctx.qkv_quant and ctx.mode != "int8":
+            inner = self.heads * self.head_dim
+            srcs = tuple(qa(src[..., off:off + inner], ctx) for qa, src, off
+                         in zip((self.act_quantizer_q, self.act_quantizer_k,
+                                 self.act_quantizer_v), srcs, offsets))
+            offsets = (0, 0, 0)
         kw = dict(heads=self.heads, head_dim=self.head_dim,
-                  scale=self.head_dim ** -0.5, q_off=route.offsets[0],
-                  k_off=route.offsets[1], v_off=route.offsets[2])
+                  scale=self.head_dim ** -0.5, q_off=offsets[0],
+                  k_off=offsets[1], v_off=offsets[2])
         if route.kernel == routing.SEC:
             dp_o = ctx.entry(self.to_out[0].qname)
             out = sec_attention(*srcs, dp_o.scale_inv, dp_o.zp_shifted,
@@ -173,7 +194,7 @@ class Attention(nn.Module):
                   else int8qkv_flash_attention)
             out = fn(*srcs, out_dtype=self.dtype, **kw)
         else:
-            out = self._einsum(*srcs, route.offsets)
+            out = self._einsum(*srcs, offsets, ctx)
         return self._finish(out, ctx, residual)
 
     def _finish(self, out, ctx, residual):
@@ -181,9 +202,10 @@ class Attention(nn.Module):
         out = self.to_out[0](out, ctx)
         return out if residual is None else deploy_res_add(residual, out)
 
-    def _einsum(self, q_src, k_src, v_src, offsets):
+    def _einsum(self, q_src, k_src, v_src, offsets, ctx):
         """Matmul + f32 softmax chain over the q/k/v panels at
-        ``offsets``."""
+        ``offsets``; the probabilities, in the model dtype, through the
+        softmax act quantizer under ``qkv_quant`` with a ``softmax_aq``."""
         inner = self.heads * self.head_dim
         q, k, v = (src[..., off:off + inner]
                    for src, off in zip((q_src, k_src, v_src), offsets))
@@ -194,6 +216,8 @@ class Attention(nn.Module):
         vh = v.reshape(B, Tk, self.heads, self.head_dim).transpose(1, 2)
         logits = (qh @ kh.transpose(-1, -2)) * self.head_dim ** -0.5
         probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        if ctx.qkv_quant and ctx.softmax_aq is not None:
+            probs = self.act_quantizer_softmax(probs, ctx)
         return (probs @ vh).transpose(1, 2).reshape(B, Tq, inner)
 
     def _codes(self, x, dp):
@@ -282,8 +306,10 @@ class GEGLU(nn.Module):
                 ctx.deploy_compute, ctx.entry(self.proj.qname), consumer_dp):
             return self.proj(x, ctx, geglu_out=consumer_dp)
         h, gate = self.proj(x, ctx).chunk(2, -1)
-        return (h.float() * gelu(gate.float(), ctx.gelu == "tanh")).to(
-            self.dtype)
+        g = gate.float()
+        a = (g * torch.sigmoid(1.702 * g) if ctx.gelu == "sigmoid"
+             else gelu(g, ctx.gelu == "tanh"))
+        return (h.float() * a).to(self.dtype)
 
 
 class FeedForward(nn.Module):

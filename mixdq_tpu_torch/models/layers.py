@@ -1,10 +1,14 @@
-"""Quant-aware layers: ``QDense``, ``QConv`` and the norms (port of
-``mixdq_tpu/models/layers.py``).
+"""Quant-aware layers: ``QDense``, ``QConv``, ``QAct`` and the norms (port
+of ``mixdq_tpu/models/layers.py``).
 
 Layouts follow the JAX package: activations NHWC, conv weights HWIO
 ``[kh, kw, C, K]``, dense weights ``[K, N]`` (in, out). Quantization is
 driven by the ``QuantCtx`` passed to ``forward``: in ``'fp'`` mode the
-layers run their fp weights; in ``'int8'`` mode a layer with a deploy
+layers run their fp weights; in ``'fake'`` mode they cast weight and
+input to the module dtype, then fake-quantize both (``ctx.quant_weight``
+/ ``ctx.quant_act``; a split conv's halves each with their own params;
+a BoS-aware dense layer's first token through the unquantized weight);
+in ``'int8'`` mode a layer with a deploy
 entry (``ctx.deploy[name]``, name = the module's dotted name) runs that
 entry instead and never reads its fp weight: act-quantized int8 math, or
 weight-only math (``layer_compute``) for act-protected entries and under
@@ -62,7 +66,7 @@ def layer_compute(compute: str, dp) -> str:
     ``'pallas_dequant'``."""
     if dp.act_off:
         return "dequant"
-    return "int8" if compute == "int8_sec" else compute
+    return "int8" if compute in ("int8", "int8_sec") else compute
 
 
 def deploy_linear(x: torch.Tensor, dp, compute: str, dtype) -> torch.Tensor:
@@ -119,7 +123,10 @@ class QDense(nn.Module):
         ``[..., features // 2]``."""
         dp = ctx.entry(self.qname)
         if dp is None:
-            y = x.to(self.dtype) @ self.weight
+            if ctx.mode == "fake":
+                y = self._fake(x, ctx, bos_aware)
+            else:
+                y = x.to(self.dtype) @ self.weight
             return y if self.bias is None else y + self.bias
         if dp.kind == "fused_away":
             raise ValueError(f"layer {self.qname} was folded into a fused "
@@ -145,6 +152,17 @@ class QDense(nn.Module):
                                  "fp input")
             y = torch.cat([bos_row(x, dp, self.dtype), y[..., 1:, :]], -2)
         return y if self.bias is None else y + self.bias
+
+    def _fake(self, x, ctx, bos_aware):
+        """The fake-quant product (``mixdq_tpu/models/layers.py:297-310``):
+        the first (BoS) token of a BoS-aware layer through the
+        unquantized weight."""
+        w, x = self.weight.to(self.dtype), x.to(self.dtype)
+        xq = ctx.quant_act(self.qname, x)
+        wq = ctx.quant_weight(self.qname, w, channel_axis=-1)
+        if bos_aware and ctx.bos_aware and x.ndim >= 3:
+            return torch.cat([x[..., :1, :] @ w, xq[..., 1:, :] @ wq], -2)
+        return xq @ wq
 
 
 class QConv(nn.Module):
@@ -192,6 +210,8 @@ class QConv(nn.Module):
                                     residual)
         if dp is None:
             w, scale = self.weight, None
+            if ctx.mode == "fake":
+                x, w = self._fake_operands(x, w, ctx, split)
         elif dp.act_off or ctx.deploy_compute == "dequant":
             # weight-only: the codes as the conv weight, the per-column
             # scale on the output (mixdq_tpu/models/layers.py:458-473)
@@ -209,6 +229,20 @@ class QConv(nn.Module):
         if residual is not None:
             y = y + residual.to(self.dtype)
         return y
+
+    def _fake_operands(self, x, w, ctx, split):
+        """Input and weight cast to the module dtype, then fake-quantized;
+        a split conv's halves each with their own params, the weight split
+        on HWIO axis 2 (``mixdq_tpu/models/layers.py:395-412``)."""
+        n, x, w = self.qname, x.to(self.dtype), w.to(self.dtype)
+        if not split:
+            return ctx.quant_act(n, x), ctx.quant_weight(n, w)
+        xq = torch.cat([ctx.quant_act(n, x[..., :split]),
+                        ctx.quant_act(n, x[..., split:], split_part=1)], -1)
+        wq = torch.cat([ctx.quant_weight(n, w[:, :, :split]),
+                        ctx.quant_weight(n, w[:, :, split:], split_part=1)],
+                       2)
+        return xq, wq
 
     def _conv_split(self, x, dp, compute, eb, res):
         """A ``conv_split`` entry (``mixdq_tpu/models/layers.py:462-472``,
@@ -275,6 +309,25 @@ class QConv(nn.Module):
         if eb is not None:
             y = y + eb.to(self.dtype)[:, None, None, :]
         return y if res is None else y + res.to(self.dtype)
+
+
+class QAct(nn.Module):
+    """A bare act quantizer (the attention's ``act_quantizer_q`` / ``_k`` /
+    ``_v`` / ``_softmax``; its ``qname`` is the key of its qparams): the
+    identity outside fake mode, where calibration hooks read its input;
+    in fake mode ``ctx.quant_act`` under ``ctx.aq``, or ``ctx.softmax_aq``
+    for the softmax quantizer when the context has one."""
+
+    def __init__(self, softmax: bool = False):
+        super().__init__()
+        self.softmax = softmax
+
+    def forward(self, x: torch.Tensor, ctx: QuantCtx = FP_CTX) -> torch.Tensor:
+        if ctx.mode != "fake":
+            return x
+        spec = (ctx.softmax_aq if self.softmax and ctx.softmax_aq is not None
+                else ctx.aq)
+        return ctx.quant_act(self.qname, x, spec=spec)
 
 
 class GroupNorm(nn.Module):

@@ -8,6 +8,12 @@ reference takes at each shape, so the port runs the same kernel at the
 same site; they are not limits of the Hopper kernels, which take every
 shape with ``head_dim`` in ``ops.sec_attention.HEAD_DIMS``.
 
+An explicit ``attn_impl`` (``EXPLICIT_ATTN``) sends every site to its
+kernel in any mode; the ``sec_attention*`` kernels run under ``'auto'``
+only. In fake mode with the q/k/v act quantizers on (``qkv_quant``) every
+site runs the einsum chain, which alone materializes the probabilities
+that the softmax quantizer reads (``mixdq_tpu/models/attention.py:404``).
+
 The context's kernel options (``QuantCtx.out_fuse`` / ``int8_flash``)
 enter as arguments: a site runs its whole-block kernel
 (``sec_attention_qkv_out`` at attn1, ``sec_attention_q_out`` at attn2,
@@ -40,6 +46,9 @@ _FLASH_BY_MODE = {"off": FLASH, "qk": INT8_FLASH, "qkv": INT8QKV_FLASH}
 #: the JAX package's default out-fusion set (``MIXDQ_SEC_OUTFUSE`` unset)
 DEFAULT_OUT_FUSE = frozenset({"attn2"})
 EINSUM = "einsum"
+#: explicit ``attn_impl`` values -> the kernel of every site
+EXPLICIT_ATTN = {"flash": FLASH, "int8_flash": INT8_FLASH,
+                 "int8qkv_flash": INT8QKV_FLASH}
 
 
 def _lanes(head_dim: int, heads: int) -> bool:
@@ -193,10 +202,11 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
                     fused_codes: bool = True, q_codes: bool = True,
                     out_codes: bool = True,
                     out_fuse: frozenset = DEFAULT_OUT_FUSE,
-                    int8_flash: str = "off") -> Route:
+                    int8_flash: str = "off", qkv_quant: bool = False) -> Route:
     """The JAX package's choice for one attention site.
 
-    ``mode``: the context's ``'fp'`` / ``'int8'``; ``compute``: its
+    ``mode``: the context's ``'fp'`` / ``'fake'`` / ``'int8'``;
+    ``qkv_quant``: the context's q/k/v act quantizers are on; ``compute``: its
     ``deploy_compute`` (the attention kernels run under ``'int8_sec'``
     only); ``fused``: a fused QKV (self) / KV (cross) deploy entry runs
     the projections; ``codes``: the site's input is int8 codes or a
@@ -230,6 +240,10 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
     if sec and out_entry and sec_attention_ok(heads, head_dim, Tq, Tk,
                                               *offsets):
         return Route(SEC, offsets)
+    if mode == "fake" and qkv_quant:
+        return Route(EINSUM, offsets)
+    if attn_impl in EXPLICIT_ATTN:
+        return Route(EXPLICIT_ATTN[attn_impl], offsets)
     if attn_impl == "auto" and Tq * Tk >= FLASH_TQ_TK:
         # int8 QK^T / PV at int8 self-attention sites (attention.py:493-498)
         kernel = (_FLASH_BY_MODE[int8_flash] if mode == "int8" and not cross

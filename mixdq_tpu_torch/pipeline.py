@@ -6,7 +6,8 @@ cross-attention, ``attn_impl='auto'`` whole-attention kernels: the
 ``bench.py`` headline); ``quantize_mixed`` deploys a mixed-precision
 configuration (per-layer weight and act bit maps and an act-protect
 list, as ``bench.py``'s ``MIXDQ_BENCH_MP_*`` runs) under ``int8_sec`` or
-one of the weight-only computes.
+one of the weight-only computes; ``fake_quant_ctx`` gives the fake-quant
+simulation of either from the same calibration.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -30,6 +31,8 @@ from .quant.core import QuantSpec
 from .quant.deploy import DeployEntry, deploy_unet_ctx, unpack_packed_entries
 from .quant.state import (FP_CTX, QuantCtx, apply_bitwidth_config,
                           protect_layers, quantizable_layers, uniform_ctrl)
+
+BitMap = Optional[Dict[str, int]]
 
 #: weight / activation quantizers of the W8A8 deploy (bench.py:110-111)
 WQ = QuantSpec(sym=True, channel_wise=True, round_mode="nearest")
@@ -96,6 +99,36 @@ def quantize_w8a8(unet: UNet2DConditionModel, calib: Inputs) -> QuantCtx:
     return dataclasses.replace(ctx, attn_impl="auto")
 
 
+def mixed_ctrl(unet: UNet2DConditionModel, weight_map: BitMap = None,
+               act_map: BitMap = None, protect: Sequence[str] = (),
+               w_bits: int = 8, a_bits: int = 8):
+    """The per-layer controls of a configuration in ``bench.py``'s order:
+    every layer W``w_bits``A``a_bits``, then the weight bit map, then the
+    act-protect list, then the act bit map."""
+    cb = WQ.candidate_bits
+    ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=w_bits,
+                        a_bits=a_bits)
+    ctrl = apply_bitwidth_config(ctrl, weight_map or {}, "weight", cb)
+    ctrl = protect_layers(ctrl, protect)
+    return apply_bitwidth_config(ctrl, act_map or {}, "act", cb)
+
+
+def fake_quant_ctx(unet: UNet2DConditionModel, calib: Inputs,
+                   w_bits: int = 8, a_bits: int = 8,
+                   weight_map: BitMap = None, act_map: BitMap = None,
+                   act_protect: Sequence[str] = ()) -> QuantCtx:
+    """The fake-quant simulation of the configuration (``mixed_ctrl``)
+    calibrated on ``calib`` as ``quantize_w8a8`` / ``quantize_mixed``
+    calibrate: a ``mode='fake'`` context, BoS-aware, under
+    ``attn_impl='auto'`` (flash attention where the JAX package's routing
+    takes it)."""
+    qparams = calibrate(unet, [calib], WQ, AQ)
+    ctrl = mixed_ctrl(unet, weight_map, act_map, act_protect, w_bits,
+                      a_bits)
+    return QuantCtx(mode="fake", qparams=qparams, ctrl=ctrl, wq=WQ, aq=AQ,
+                    bos_aware=True, attn_impl="auto")
+
+
 def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
                    weight_map: Dict[str, int], act_map: Dict[str, int],
                    protect: Sequence[str],
@@ -110,13 +143,8 @@ def quantize_mixed(unet: UNet2DConditionModel, calib: Inputs,
     fused QKV/KV, BoS-aware, the packed entries unpacked once, under
     ``attn_impl='auto'``; ``'dequant'`` / ``'pallas_dequant'``
     (weight-only): unfused, kept packed, spatial convs left FP."""
-    cb = WQ.candidate_bits
     qparams = calibrate(unet, [calib], WQ, AQ)
-    ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=w_bits,
-                        a_bits=8)
-    ctrl = apply_bitwidth_config(ctrl, weight_map, "weight", cb)
-    ctrl = protect_layers(ctrl, protect)
-    ctrl = apply_bitwidth_config(ctrl, act_map, "act", cb)
+    ctrl = mixed_ctrl(unet, weight_map, act_map, protect, w_bits)
     sec = deploy_compute == "int8_sec"
     ctx = deploy_unet_ctx(unet, qparams, ctrl, WQ, fuse_qkv=sec,
                           pack_w4=True, skip_spatial_convs=not sec,
@@ -184,13 +212,16 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                           compute: str = "int8_sec",
                           out_fuse: frozenset = routing.DEFAULT_OUT_FUSE,
                           ln_fold: bool = True,
-                          int8_flash: str = "off") -> Dict[str, int]:
+                          int8_flash: str = "off",
+                          qkv_quant: bool = False) -> Dict[str, int]:
     """Kernel calls of one UNet step of ``example_inputs`` implied by the
     UNet structure and a deploy: ``deploy`` under ``compute`` (default:
     ``w8a8_layout``, the deploy of ``quantize_w8a8``) in ``mode='int8'``,
-    or the FP UNet (``mode='fp'``: the attention kernels only), under the
-    context's kernel options ``out_fuse`` / ``ln_fold`` / ``int8_flash``
-    (``QuantCtx``; ``ctx_kernel_calls`` reads them from a context).
+    or the FP or fake-quant UNet (``mode='fp'`` / ``'fake'``: the
+    attention kernels only; none in fake mode with ``qkv_quant``), under
+    ``attn_impl`` and the context's kernel options ``out_fuse`` /
+    ``ln_fold`` / ``int8_flash`` (``QuantCtx``; ``ctx_kernel_calls``
+    reads them from a context).
 
     Each entry counts as the layers run it, by its kind, weight bits
     (packed or int8 codes) and act bits (act-quantized or weight-only,
@@ -217,7 +248,8 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                 r = routing.attention_route(
                     mode=mode, attn_impl=attn_impl, fused=False, cross=cross,
                     heads=heads, head_dim=d, Tq=T,
-                    Tk=TEXT_TOKENS if cross else T, C_in=heads * d)
+                    Tk=TEXT_TOKENS if cross else T, C_in=heads * d,
+                    qkv_quant=qkv_quant)
                 if r.kernel != routing.EINSUM:
                     calls[r.kernel] += 1
         return calls
@@ -320,7 +352,8 @@ def ctx_kernel_calls(cfg, ctx: QuantCtx) -> Dict[str, int]:
     return expected_kernel_calls(
         cfg, ctx.attn_impl, mode=ctx.mode, deploy=ctx.deploy,
         compute=ctx.deploy_compute, out_fuse=ctx.out_fuse,
-        ln_fold=ctx.ln_fold, int8_flash=ctx.int8_flash)
+        ln_fold=ctx.ln_fold, int8_flash=ctx.int8_flash,
+        qkv_quant=ctx.qkv_quant)
 
 
 @torch.inference_mode()

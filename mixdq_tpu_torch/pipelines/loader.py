@@ -22,9 +22,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def specs_from_config(cfg: Config
                       ) -> Tuple[QuantSpec, QuantSpec, Optional[QuantSpec]]:
     """(weight, activation, softmax) ``QuantSpec``s of the ``quant:``
-    stanza. The softmax spec is always None here: ``softmax.enabled:
-    true`` raises, since the q/k/v and softmax act quantizers run only in
-    fake-quant mode, which the port has not yet (ROADMAP Queue A 3)."""
+    stanza; the softmax spec (asymmetric, always-zero, ``softmax.n_bits``)
+    only under ``softmax.enabled: true``, else None."""
     q = cfg.quant
     cb = tuple(q.get("candidate_bits", [2, 4, 8]))
     w = q.weight
@@ -41,11 +40,12 @@ def specs_from_config(cfg: Config
         round_mode=a.get("round_mode", "nearest_ste"),
         running_stat=a.get("running_stat", True), candidate_bits=cb)
     sm = q.get("softmax")
+    softmax_aq = None
     if sm is not None and sm.get("enabled", False):
-        raise NotImplementedError(
-            "quant.softmax.enabled: the q/k/v and softmax act quantizers "
-            "belong to fake-quant mode, not ported yet (ROADMAP Queue A 3)")
-    return wq, aq, None
+        softmax_aq = QuantSpec(
+            n_bits=sm.get("n_bits", 8), sym=False, channel_wise=False,
+            round_mode="nearest_ste", always_zero=True, candidate_bits=cb)
+    return wq, aq, softmax_aq
 
 
 def build_pipeline(cfg: Config, device=None, seed: int = 0

@@ -9,7 +9,10 @@
   per-tensor (min, max) of the layer input, clamped to contain 0 (the two
   halves of a ``split`` conv input separately, the second under
   ``name + '.split'``); an EMA with momentum 0.95 merges calibration
-  batches, and a min-max fit maps the final ranges to qparams.
+  batches, and a min-max fit maps the final ranges to qparams. With a
+  softmax spec (``softmax_aq``) the forward runs with the attention's
+  q/k/v/softmax act quantizers on (``qkv_quant``) and their hooks record
+  too; names that contain ``'softmax'`` are fitted under ``softmax_aq``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from .core import QuantSpec, fit_qparams_multibit, fit_weight_qparams
-from .state import FP_CTX, LayerQParams, quantizable_layers
+from .state import (FP_CTX, LayerQParams, QuantCtx, act_quantizers,
+                    quantizable_layers)
 
 Stats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -53,9 +57,12 @@ def _minmax(x: torch.Tensor):
 
 
 @torch.no_grad()
-def collect_act_stats(model: torch.nn.Module, batch: Tuple) -> Stats:
-    """One fp forward of ``model(*batch)`` with a pre-hook on every
-    quantizable layer; returns ``{name[.split]: (min, max)}``."""
+def collect_act_stats(model: torch.nn.Module, batch: Tuple,
+                      ctx: QuantCtx = FP_CTX) -> Stats:
+    """One fp forward of ``model(*batch)`` under ``ctx`` (an fp context)
+    with a pre-hook on every quantizable layer and act quantizer (which
+    the forward calls under ``ctx.qkv_quant``); returns
+    ``{name[.split]: (min, max)}``."""
     stats: Stats = {}
 
     def record(key, x):
@@ -74,10 +81,11 @@ def collect_act_stats(model: torch.nn.Module, batch: Tuple) -> Stats:
         else:
             record(mod.qname, x)
 
+    mods = {**quantizable_layers(model), **act_quantizers(model)}
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in quantizable_layers(model).values()]
+               for m in mods.values()]
     try:
-        model(*batch, ctx=FP_CTX)
+        model(*batch, ctx=ctx)
     finally:
         for h in handles:
             h.remove()
@@ -100,14 +108,18 @@ def ema_update_stats(running: Optional[Stats], new: Stats,
     return out
 
 
-def fit_act_qparams_from_stats(stats: Stats, aq: QuantSpec
+def fit_act_qparams_from_stats(stats: Stats, aq: QuantSpec,
+                               softmax_aq: Optional[QuantSpec] = None
                                ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{name: {'a_delta', 'a_zp'[, 'a0_delta', 'a0_zp']}}``."""
+    """``{name: {'a_delta', 'a_zp'[, 'a0_delta', 'a0_zp']}}``; names that
+    contain ``'softmax'`` under ``softmax_aq`` when given."""
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, (mn, mx) in stats.items():
         is_split = key.endswith(".split")
         name = key[: -len(".split")] if is_split else key
-        d, z = fit_qparams_multibit(mn, mx, aq)
+        spec = (softmax_aq if softmax_aq is not None and "softmax" in name
+                else aq)
+        d, z = fit_qparams_multibit(mn, mx, spec)
         frag = out.setdefault(name, {})
         if is_split:
             frag["a0_delta"], frag["a0_zp"] = d, z
@@ -127,18 +139,22 @@ def merge_qparams(weight_qp: Dict[str, LayerQParams],
 
 @torch.no_grad()
 def calibrate(model: torch.nn.Module, calib_batches: Iterable[Tuple],
-              wq: QuantSpec, aq: QuantSpec, momentum: float = 0.95,
-              splits: Optional[Dict[str, int]] = None
-              ) -> Dict[str, LayerQParams]:
-    """Weight fit + running-stat activation fit. ``calib_batches``:
-    argument tuples of ``model`` (sample, t, ehs, added); ``splits``: the
+              wq: QuantSpec, aq: QuantSpec,
+              softmax_aq: Optional[QuantSpec] = None,
+              splits: Optional[Dict[str, int]] = None,
+              momentum: float = 0.95) -> Dict[str, LayerQParams]:
+    """Weight fit + running-stat activation fit (the JAX package's
+    signature). ``calib_batches``: argument tuples of ``model`` (sample,
+    t, ehs, added); ``softmax_aq``: the softmax quantizer's spec, which
+    also turns on the q/k/v/softmax act quantizers' stats; ``splits``: the
     channel-split convs whose weights get twin fits (their act halves are
     recorded apart whether or not they are named here, as in the JAX
     package)."""
     weight_qp = fit_weight_qparams_tree(model, wq, splits)
+    ctx = QuantCtx(qkv_quant=softmax_aq is not None, softmax_aq=softmax_aq)
     running = None
     for batch in calib_batches:
-        running = ema_update_stats(running, collect_act_stats(model, batch),
-                                   momentum)
-    return merge_qparams(weight_qp,
-                         fit_act_qparams_from_stats(running or {}, aq))
+        running = ema_update_stats(
+            running, collect_act_stats(model, batch, ctx), momentum)
+    return merge_qparams(weight_qp, fit_act_qparams_from_stats(
+        running or {}, aq, softmax_aq))

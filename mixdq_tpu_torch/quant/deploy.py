@@ -15,11 +15,14 @@ scales are rebuilt against the anchor layer's act params. A channel-split
 conv (``splits``, the up blocks' concat-shortcut convs calibrated with
 twin qparams) gets a ``conv_split`` entry: ``part0`` over input channels
 ``[:split]`` from the plain fields (``w_delta``, ``a_delta``, ``a_zp``)
-and ``part1`` over ``[split:]`` from the ``*0`` twins. Layers with an
+and ``part1`` over ``[split:]`` from the ``*0`` twins. AdaRound
+``alphas`` ({layer: alpha of the weight's shape}) fold into the codes as
+the hard rounding ``floor(w / delta) + (alpha >= 0)`` (a split conv's
+halves slice alpha on HWIO axis 2). Layers with an
 entry never read their fp weight, which ``prune_deployed_weights`` then
 drops.
 
-Not ported here: AdaRound ``alphas``, device int4 storage
+Not ported here: device int4 storage
 (``use_int4_storage``, a TPU workaround), the hoisted ``time_emb_proj`` /
 cross-k/v banks (the per-layer path is numerically the same) and
 precomputed BoS outputs.
@@ -94,6 +97,7 @@ def build_deploy_params(
     pack_w4: bool = False,
     skip_spatial_convs: bool = False,
     splits: Optional[Dict[str, int]] = None,
+    alphas: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, DeployEntry]:
     """Deploy entries for every layer of ``layer_bits`` (name -> (w_bits,
     a_bits), a_bits None for an act-protected layer) that has qparams.
@@ -102,8 +106,10 @@ def build_deploy_params(
     ``skip_spatial_convs``: convs with a kernel larger than 1x1 stay FP
     (the weight-only deploys). ``splits`` ({name: split}): a conv named
     there whose qparams hold the ``w0_*`` twins deploys as ``conv_split``
-    (``mixdq_tpu/quant/deploy.py:158-173``)."""
+    (``mixdq_tpu/quant/deploy.py:158-173``). ``alphas``: AdaRound
+    rounding offsets folded into the codes."""
     splits = splits or {}
+    alphas = alphas or {}
     cb = list(candidate_bits)
     layers = quantizable_layers(model)
     deploy: Dict[str, DeployEntry] = {}
@@ -127,12 +133,13 @@ def build_deploy_params(
                 if qp.a_zp is None else qp.a_zp)
         eff_bits = max(w_bits, 4)
         wb = cb.index(w_bits)
+        alpha = alphas.get(name)
         args = (w, qp.w_delta[wb], a_delta[ab], a_zp[ab])
         if w.ndim == 2:
             pack = pack_w4 and eff_bits == 4 and w.shape[0] % 2 == 0
             deploy[name] = _entry(qops.prepare_qlinear_params(
-                *args, n_bits=eff_bits, a_bits=eff_a_bits), "linear",
-                eff_a_bits, act_off, pack)
+                *args, n_bits=eff_bits, alpha=alpha, a_bits=eff_a_bits),
+                "linear", eff_a_bits, act_off, pack)
         elif name in splits and qp.w0_delta is not None:
             # the plain fields hold the first slice, the *0 twins the
             # second (act twins: placeholders where absent, as above)
@@ -143,21 +150,24 @@ def build_deploy_params(
                      if qp.a0_zp is None else qp.a0_zp)
             parts = [_entry(qops.prepare_qconv_params(
                 ws, wd[wb], ad[ab], az[ab], n_bits=eff_bits,
+                alpha=None if alpha is None else alpha[:, :, sl, :],
                 a_bits=eff_a_bits), "conv", eff_a_bits, act_off, False)
-                for ws, wd, ad, az in (
-                    (w[:, :, :s, :], qp.w_delta, a_delta, a_zp),
-                    (w[:, :, s:, :], qp.w0_delta, a0_delta, a0_zp))]
+                for ws, wd, ad, az, sl in (
+                    (w[:, :, :s, :], qp.w_delta, a_delta, a_zp,
+                     slice(None, s)),
+                    (w[:, :, s:, :], qp.w0_delta, a0_delta, a0_zp,
+                     slice(s, None)))]
             deploy[name] = DeployEntry(kind="conv_split", split=s,
                                        a_bits=eff_a_bits, act_off=act_off,
                                        part0=parts[0], part1=parts[1])
         else:
             deploy[name] = _entry(qops.prepare_qconv_params(
-                *args, n_bits=eff_bits, a_bits=eff_a_bits), "conv",
-                eff_a_bits, act_off, False)
+                *args, n_bits=eff_bits, alpha=alpha, a_bits=eff_a_bits),
+                "conv", eff_a_bits, act_off, False)
     if fuse_qkv:
         deploy = fuse_attention_projections(deploy, model, qparams,
                                             layer_bits, candidate_bits,
-                                            pack_w4=pack_w4)
+                                            pack_w4=pack_w4, alphas=alphas)
     return deploy
 
 
@@ -169,13 +179,17 @@ def fuse_attention_projections(
     layer_bits: Dict[str, Tuple[int, Optional[int]]],
     candidate_bits=(2, 4, 8),
     pack_w4: bool = False,
+    alphas: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, DeployEntry]:
     """Fold ``attn1`` q/k/v into ``to_qkv`` and ``attn2`` k/v into
     ``to_kv``: one set of codes (the anchor's act params) feeds one
     ``[K, 3N]`` / ``[K, 2N]`` GEMM. Members become ``fused_away``. A
     weight-only (``act_off``) member keeps its triplet unfused; packed
     members fuse, each rebuilt at its own weight bits, and the fused entry
-    is packed again (with ``pack_w4``) only when every member is W<=4."""
+    is packed again (with ``pack_w4``) only when every member is W<=4.
+    ``alphas``: each member's AdaRound offsets, as in
+    ``build_deploy_params``."""
+    alphas = alphas or {}
     cb = list(candidate_bits)
     layers = quantizable_layers(model)
     out = dict(deploy)
@@ -210,7 +224,8 @@ def fuse_attention_projections(
         ab = cb.index(layer_bits[anchor][1])
         preps = [qops.prepare_qlinear_params(
             w, qparams[n].w_delta[cb.index(layer_bits[n][0])], qa.a_delta[ab],
-            qa.a_zp[ab], n_bits=max(layer_bits[n][0], 4), a_bits=fa_bits)
+            qa.a_zp[ab], n_bits=max(layer_bits[n][0], 4),
+            alpha=alphas.get(n), a_bits=fa_bits)
             for n, w in zip(members, ws)]
         w_int = torch.cat([p["w_int"] for p in preps], 1)
         packed = (pack_w4 and all(layer_bits[n][0] <= 4 for n in members)
@@ -275,17 +290,20 @@ def deploy_unet_ctx(model: torch.nn.Module, qparams, ctrl, wq: QuantSpec,
                     bos_aware: bool = True, fuse_qkv: bool = False,
                     pack_w4: bool = False, skip_spatial_convs: bool = False,
                     deploy_compute: str = "int8_sec",
-                    splits: Optional[Dict[str, int]] = None) -> QuantCtx:
+                    splits: Optional[Dict[str, int]] = None,
+                    alphas: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> QuantCtx:
     """An int8-mode ``QuantCtx`` for ``model`` under ``deploy_compute``.
-    BoS weights are attached only where a BoS path runs (``int8_sec``);
-    ``splits``: ``conv_split`` entries (``build_deploy_params``)."""
+    BoS weights are attached only where a BoS path runs (``int8_sec`` and
+    ``int8``); ``splits``: ``conv_split`` entries; ``alphas``: AdaRound
+    offsets folded into the codes (``build_deploy_params``)."""
     layer_bits = layer_bits_from_ctrl(ctrl, wq.candidate_bits)
     deploy = build_deploy_params(model, qparams, layer_bits,
                                  wq.candidate_bits, fuse_qkv=fuse_qkv,
                                  pack_w4=pack_w4,
                                  skip_spatial_convs=skip_spatial_convs,
-                                 splits=splits)
-    if bos_aware and deploy_compute == "int8_sec":
+                                 splits=splits, alphas=alphas)
+    if bos_aware and deploy_compute in ("int8", "int8_sec"):
         deploy = attach_bos_weights(deploy)
     logger.info("deployed %d/%d layers", len(deploy),
                 len(quantizable_layers(model)))

@@ -1,5 +1,4 @@
-"""Quantization state and context (port of the parts of
-``mixdq_tpu/quant/state.py`` the deploy paths read).
+"""Quantization state and context (port of ``mixdq_tpu/quant/state.py``).
 
 * ``canonical_name`` maps a flax module path to the diffusers dotted name
   (``resnets_0`` -> ``resnets.0``); the port's ``nn.Module`` tree already
@@ -8,8 +7,13 @@
   stacks (``*0`` twins for channel-split convs).
 * ``LayerCtrl`` holds one layer's enable flags and bit indices;
   ``apply_bitwidth_config`` / ``protect_layers`` set them from a per-layer
-  bit map and an act-protect list.
-* ``QuantCtx`` is threaded through every module's ``forward``.
+  bit map and an act-protect list; ``group_ctrl``, ``quant_till_ctrl``
+  and ``solo_layer_ctrl`` quantize a group of layers, the first ``k`` or
+  one alone (the sensitivity sweeps' controls).
+* ``QuantCtx`` is threaded through every module's ``forward``; in
+  ``'fake'`` mode its ``quant_weight`` / ``quant_act`` fake-quantize each
+  layer's weight and input under the layer's control.
+* ``capture_acts`` returns each layer's input in one forward.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.routing import DEFAULT_OUT_FUSE
-from .core import DEFAULT_CANDIDATE_BITS
+from ..models.routing import DEFAULT_OUT_FUSE, EXPLICIT_ATTN
+from .core import (DEFAULT_CANDIDATE_BITS, QuantSpec, fake_quant,
+                   fake_quant_adaround)
 
 _LIST_NAMES = (
     "down_blocks", "up_blocks", "resnets", "attentions",
@@ -119,42 +124,115 @@ def apply_bitwidth_config(ctrl: Dict[str, LayerCtrl], bit_config: Dict[str, int]
     return out
 
 
-def protect_layers(ctrl: Dict[str, LayerCtrl], names: Sequence[str]
-                   ) -> Dict[str, LayerCtrl]:
-    """Turn act quantization off for the listed layers (the act-protect
-    list: weight-only layers). A layer the controls do not hold raises
-    ``KeyError``."""
+def protect_layers(ctrl: Dict[str, LayerCtrl], names: Sequence[str],
+                   which: str = "act") -> Dict[str, LayerCtrl]:
+    """Turn quantization off for the listed layers: their acts
+    (``which='act'``, the act-protect list: weight-only layers), their
+    weights (``'weight'``) or both (any other value). A layer the
+    controls do not hold raises ``KeyError``."""
     out = dict(ctrl)
     for n in names:
         if n not in out:
             raise KeyError(f"protect list references unknown layer: {n}")
-        out[n] = dataclasses.replace(out[n], a_on=False)
+        if which == "act":
+            out[n] = dataclasses.replace(out[n], a_on=False)
+        elif which == "weight":
+            out[n] = dataclasses.replace(out[n], w_on=False)
+        else:
+            out[n] = dataclasses.replace(out[n], a_on=False, w_on=False)
     return out
 
 
-#: deploy compute strategies (``mixdq_tpu/models/layers.py:51``) that the
-#: port runs; the JAX package's plain ``'int8'`` (XLA convs) is not ported
-DEPLOY_COMPUTE = ("int8_sec", "dequant", "pallas_dequant")
+def group_ctrl(layer_names: Sequence[str], targets: Sequence[str], which: str,
+               bits: int,
+               candidate_bits: Sequence[int] = DEFAULT_CANDIDATE_BITS
+               ) -> Dict[str, LayerCtrl]:
+    """Quantize only the layers a target names, exactly or as a dotted
+    prefix: weights (``which='weight'``), acts (``'act'``) or both
+    (``'both'``) at ``bits``; every other layer off."""
+    ctrl = uniform_ctrl(layer_names, w_on=False, a_on=False,
+                        candidate_bits=candidate_bits)
+    on = make_ctrl(w_on=which in ("weight", "both"),
+                   a_on=which in ("act", "both"), w_bits=bits, a_bits=bits,
+                   candidate_bits=candidate_bits)
+    for n in layer_names:
+        if any(n == t or n.startswith(t + ".") for t in targets):
+            ctrl[n] = on
+    return ctrl
+
+
+def quant_till_ctrl(ordered_names: Sequence[str], k: int, which: str = "both",
+                    bits: int = 8,
+                    candidate_bits: Sequence[int] = DEFAULT_CANDIDATE_BITS
+                    ) -> Dict[str, LayerCtrl]:
+    """Quantize the first ``k`` layers of ``ordered_names`` only."""
+    return group_ctrl(ordered_names, list(ordered_names[:k]), which, bits,
+                      candidate_bits)
+
+
+def solo_layer_ctrl(layer_names: Sequence[str], target: str, which: str,
+                    bits: int,
+                    candidate_bits: Sequence[int] = DEFAULT_CANDIDATE_BITS
+                    ) -> Dict[str, LayerCtrl]:
+    """Quantize one layer's weight (``which='weight'``) or acts
+    (``'act'``) alone at ``bits``: the sensitivity sweep's control."""
+    ctrl = uniform_ctrl(layer_names, w_on=False, a_on=False,
+                        candidate_bits=candidate_bits)
+    ctrl[target] = make_ctrl(
+        w_on=which == "weight", a_on=which == "act",
+        w_bits=bits if which == "weight" else candidate_bits[0],
+        a_bits=bits if which == "act" else candidate_bits[0],
+        candidate_bits=candidate_bits)
+    return ctrl
+
+
+#: deploy compute strategies (``mixdq_tpu/models/layers.py:51``)
+DEPLOY_COMPUTE = ("int8", "int8_sec", "dequant", "pallas_dequant")
+#: context modes
+MODES = ("fp", "fake", "int8")
+#: ``attn_impl`` values: the einsum chain, the JAX package's routing by
+#: shape, or one attention kernel at every site
+ATTN_IMPLS = ("einsum", "auto") + tuple(EXPLICIT_ATTN)
+#: GEGLU gates
+GELUS = ("tanh", "exact", "sigmoid")
 #: sites whose out-projection a whole-block kernel may take over
 OUT_FUSE_SITES = frozenset({"attn1", "attn2", "ff"})
 #: flash attention's int8 modes at int8 self-attention sites
 INT8_FLASH = ("off", "qk", "qkv")
 
 
+_WQ_DEFAULT = QuantSpec(sym=True, channel_wise=True, round_mode="nearest")
+_AQ_DEFAULT = QuantSpec(sym=False, channel_wise=False,
+                        round_mode="nearest_ste", running_stat=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantCtx:
     """What the model needs to know about quantization. ``mode``: ``'fp'``
-    (no quantization; calibration hooks observe this pass) or ``'int8'``
-    (deploy entries in ``deploy`` replace the fp weights).
+    (no quantization; calibration hooks observe this pass), ``'fake'``
+    (fake-quant simulation: each layer's weight and input fake-quantized
+    under ``qparams`` and its control in ``ctrl``) or ``'int8'`` (deploy
+    entries in ``deploy`` replace the fp weights).
 
-    The int8 mode is the JAX package's ``deploy_compute='int8_sec'``
-    (every spatial conv on the int8 conv kernel, GN/LN producers emitting
-    codes, 1x1 convs and dense layers on the int8 GEMM kernel).
+    Fake mode: ``wq`` / ``aq`` are the weight and act quantizers' specs,
+    ``softmax_aq`` the softmax probabilities' (always-zero); with
+    ``qkv_quant`` the attention's q, k, v (and, with ``softmax_aq``, its
+    probabilities) pass through their act quantizers (``QAct``, named
+    ``...attn1.act_quantizer_q`` and so on), and then attention runs the
+    einsum chain; ``alphas`` ({layer: alpha of the weight's shape}) give
+    a layer's weight AdaRound rounding, soft (``soft_round``) or hard.
+
     ``attn_impl``: ``'einsum'`` (the default, as in the JAX package:
-    matmul + softmax chain) or ``'auto'`` (the ``bench.py`` headline: with
+    matmul + softmax chain), ``'auto'`` (the ``bench.py`` headline: with
     fused QKV/KV, every self-attention runs ``sec_attention_qkv`` and
     every cross-attention ``sec_attention_q_out`` with its pre-LayerNorm
-    folded in). ``gelu``: ``'tanh'`` or ``'exact'``.
+    folded in; flash attention at ``Tq * Tk >= 2^22``), or one kernel at
+    every site in any mode: ``'flash'`` (``flash_attention``),
+    ``'int8_flash'`` (``int8_flash_attention``) or ``'int8qkv_flash'``
+    (``int8qkv_flash_attention``); the ``sec_attention*`` kernels run
+    only under ``'auto'``. ``gelu``: ``'tanh'``, ``'exact'`` or
+    ``'sigmoid'`` (``x * sigmoid(1.702 x)`` in the unfused GEGLU; the
+    fused int8 GEGLU kernels take exact gelu for it).
 
     The kernel options of the ``int8_sec`` / ``'auto'`` deploy, which the
     JAX package reads from environment variables at trace time (the port
@@ -175,8 +253,15 @@ class QuantCtx:
       in int8 (``'qkv'``: ``int8qkv_flash_attention``) or in bf16
       (``'off'``): ``MIXDQ_INT8_FLASH`` ``"qk"`` / ``"1"`` / ``"0"``.
 
-    ``deploy_compute`` (int8 mode): ``'int8_sec'`` as above;
-    ``'dequant'`` (weight-only: acts stay in the model dtype, packed-W4
+    ``deploy_compute`` (int8 mode): ``'int8_sec'`` (the port's default;
+    the JAX package's default is ``'int8'``): every spatial conv on the
+    int8 conv kernel with its adds in the epilogue, GN/LN producers
+    emitting codes, 1x1 convs and dense layers on the int8 GEMM kernel,
+    the whole-attention kernels under ``'auto'``; ``'int8'``: each
+    layer's act-quantize as its own pass, then ``qmatmul`` (dense, 1x1
+    convs) or ``qconv2d`` / ``qconv2d_s2`` (spatial convs, bias in the
+    epilogue, ``extra_bias`` and the residual added after), no GN/LN
+    producers and no whole-attention kernels; ``'dequant'`` (weight-only: acts stay in the model dtype, packed-W4
     dense entries run ``wq4_matmul``, the others the product with the
     int8 codes and then the per-channel scale, 1x1 convs likewise) or
     ``'pallas_dequant'`` (the same, with ``wq_matmul`` for the int8 dense
@@ -185,6 +270,9 @@ class QuantCtx:
     run weight-only under every compute."""
 
     deploy: Any = None  # Dict[str, DeployEntry]
+    qparams: Any = None  # Dict[str, LayerQParams]
+    ctrl: Any = None  # Dict[str, LayerCtrl]
+    alphas: Any = None  # Dict[str, torch.Tensor]
     mode: str = "fp"
     bos_aware: bool = False
     fuse_qkv: bool = False
@@ -194,15 +282,20 @@ class QuantCtx:
     out_fuse: frozenset = DEFAULT_OUT_FUSE
     ln_fold: bool = True
     int8_flash: str = "off"
+    wq: QuantSpec = _WQ_DEFAULT
+    aq: QuantSpec = _AQ_DEFAULT
+    softmax_aq: Optional[QuantSpec] = None
+    qkv_quant: bool = False
+    soft_round: bool = False
 
     def __post_init__(self):
-        if self.mode not in ("fp", "int8"):
-            raise ValueError(f"mode {self.mode!r}: this port runs fp/int8")
-        if self.gelu not in ("tanh", "exact"):
-            raise ValueError(f"gelu {self.gelu!r}")
-        if self.attn_impl not in ("einsum", "auto"):
-            raise ValueError(f"attn_impl {self.attn_impl!r}: this port runs "
-                             "'einsum' or 'auto'")
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r}: one of {MODES}")
+        if self.gelu not in GELUS:
+            raise ValueError(f"gelu {self.gelu!r}: one of {GELUS}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: one of "
+                             f"{ATTN_IMPLS}")
         if self.deploy_compute not in DEPLOY_COMPUTE:
             raise ValueError(f"deploy_compute {self.deploy_compute!r}: this "
                              f"port runs {DEPLOY_COMPUTE}")
@@ -222,6 +315,63 @@ class QuantCtx:
             return None
         return self.deploy.get(name)
 
+    def layer(self, name: str):
+        """(qparams, control) of layer ``name``, each None if absent."""
+        qp = self.qparams.get(name) if self.qparams is not None else None
+        ct = self.ctrl.get(name) if self.ctrl is not None else None
+        return qp, ct
+
+    def quant_weight(self, name: str, w: torch.Tensor, channel_axis: int = -1,
+                     split_part: int = 0) -> torch.Tensor:
+        """``w`` fake-quantized under layer ``name``'s weight qparams at its
+        control's bits (``split_part`` 1: the ``w0_*`` twins of a split
+        conv's second half), per-channel deltas along ``channel_axis``;
+        AdaRound rounding where ``alphas`` holds an alpha of ``w``'s shape
+        (the primary part only). ``w`` itself outside fake mode, without
+        qparams or control, or with the weight control off."""
+        if self.mode != "fake":
+            return w
+        qp, ct = self.layer(name)
+        if qp is None or ct is None:
+            return w
+        delta_l = qp.w_delta if split_part == 0 else qp.w0_delta
+        zp_l = qp.w_zp if split_part == 0 else qp.w0_zp
+        if delta_l is None or not ct.w_on:
+            return w
+        bits = self.wq.candidate_bits[ct.w_idx]
+        delta, zp = delta_l[ct.w_idx], zp_l[ct.w_idx]
+        if delta.ndim > 0:
+            shape = [1] * w.ndim
+            shape[channel_axis % w.ndim] = w.shape[channel_axis % w.ndim]
+            delta, zp = delta.reshape(shape), zp.reshape(shape)
+        alpha = (self.alphas.get(name)
+                 if self.alphas is not None and split_part == 0 else None)
+        if alpha is not None and alpha.shape == w.shape:
+            return fake_quant_adaround(w, delta, zp, bits, alpha,
+                                       sym=self.wq.sym,
+                                       hard=not self.soft_round)
+        return fake_quant(w, delta, zp, bits, sym=self.wq.sym,
+                          ste=self.wq.round_mode.endswith("ste"))
+
+    def quant_act(self, name: str, x: torch.Tensor, split_part: int = 0,
+                  spec: Optional[QuantSpec] = None) -> torch.Tensor:
+        """``x`` fake-quantized under layer ``name``'s act qparams (the
+        ``a0_*`` twins for ``split_part`` 1) at its control's bits, with
+        ``spec`` (default ``aq``); ``x`` itself as ``quant_weight``."""
+        if self.mode != "fake":
+            return x
+        qp, ct = self.layer(name)
+        if qp is None or ct is None:
+            return x
+        delta_l = qp.a_delta if split_part == 0 else qp.a0_delta
+        zp_l = qp.a_zp if split_part == 0 else qp.a0_zp
+        if delta_l is None or not ct.a_on:
+            return x
+        sp = spec or self.aq
+        return fake_quant(x, delta_l[ct.a_idx], zp_l[ct.a_idx],
+                          sp.candidate_bits[ct.a_idx], sym=sp.sym,
+                          ste=sp.round_mode.endswith("ste"))
+
 
 FP_CTX = QuantCtx()
 
@@ -232,3 +382,36 @@ def quantizable_layers(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
 
     return {n: m for n, m in model.named_modules()
             if isinstance(m, (QDense, QConv))}
+
+
+def act_quantizers(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """``{name: module}`` of every bare act quantizer (``QAct``: the
+    attention's q/k/v/softmax) in ``model``."""
+    from ..models.layers import QAct
+
+    return {n: m for n, m in model.named_modules() if isinstance(m, QAct)}
+
+
+@torch.no_grad()
+def capture_acts(model: torch.nn.Module, args: Tuple,
+                 ctx: Optional[QuantCtx] = None,
+                 names: Optional[Sequence[str]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """``{name: input}`` of every quantizable layer and act quantizer (or
+    those in ``names``) in one forward ``model(*args, ctx=ctx)`` (default:
+    FP); a layer called twice keeps its last input."""
+    mods = {**quantizable_layers(model), **act_quantizers(model)}
+    if names is not None:
+        mods = {n: mods[n] for n in names}
+    seen: Dict[str, torch.Tensor] = {}
+
+    def hook(mod, inputs):
+        seen[mod.qname] = inputs[0]
+
+    handles = [m.register_forward_pre_hook(hook) for m in mods.values()]
+    try:
+        model(*args, ctx=FP_CTX if ctx is None else ctx)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen

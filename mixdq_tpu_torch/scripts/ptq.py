@@ -9,7 +9,8 @@ Reads ``calib_data.path`` (``gen_calib_data``), calibrates the UNet with
 the up blocks' channel splits (twin qparams for each concat-shortcut
 conv) over every (timestep, chunk) batch in the JAX script's order, and
 writes ``OUTDIR/qparams.msgpack`` (flax's msgpack format: either package
-reads it) beside ``config.yaml``, ``run.log`` and ``GIT_REVISION``. The
+reads it; with ``quant.softmax.enabled`` it also holds the attention's
+``act_quantizer_q`` / ``_k`` / ``_v`` / ``_softmax`` params) beside ``config.yaml``, ``run.log`` and ``GIT_REVISION``. The
 AdaRound-style reconstruction (``--recon`` / ``--adaround``) is not
 ported yet (ROADMAP Queue A 6) and raises. Runs on the card unless
 ``--device cpu``.
@@ -79,7 +80,7 @@ def main(argv=None):
     seconds = {}
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, device=args.device)
-    wq, aq, _ = specs_from_config(cfg)
+    wq, aq, softmax_aq = specs_from_config(cfg)
     seconds["build"] = time.perf_counter() - t0
 
     data = dict(np.load(cfg.calib_data.path))
@@ -91,7 +92,8 @@ def main(argv=None):
     print(f"calibrating over {len(batches)} batches, {len(names)} layers, "
           f"{len(splits)} channel-split")
     t0 = time.perf_counter()
-    qparams = calibrate(pipe.unet, batches, wq, aq, splits=splits)
+    qparams = calibrate(pipe.unet, batches, wq, aq, softmax_aq=softmax_aq,
+                        splits=splits)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
     seconds["calibrate"] = time.perf_counter() - t0

@@ -4,22 +4,26 @@
     python -m mixdq_tpu_torch.scripts.quant_txt2img --base_path logs/x \\
         [--config_weight_mp w.yaml] [--act_protect protect.yaml|.pt] \\
         [--config_act_mp a.yaml] [--prompt "a cat"] [--n_images 4] \\
-        [--batch_size 2] [--fuse_qkv] [--device cuda]
+        [--batch_size 2] [--backend fake|int8] [--fuse_qkv] [--device cuda]
 
 Reads ``BASE/config.yaml`` and ``BASE/qparams.msgpack`` (``ptq``), sets
 the per-layer controls in the JAX script's order (every layer at the
 config's bits, then the weight bit map, then the act-protect list, then
-the act bit map), deploys the UNet int8 (``--backend int8``:
+the act bit map; every qparams key gets one, the attention's bare
+q/k/v/softmax act quantizers included), then either runs the fake-quant
+simulation (``--backend fake``, the default, as in the JAX script: the
+UNet keeps its fp weights and fake-quantizes each layer under its
+control; the q/k/v/softmax quantizers are on when the config enables
+``quant.softmax``) or deploys the UNet int8 (``--backend int8``:
 ``int8_sec``, every JAX family's ``default_deploy_compute``;
 ``conv_split`` entries for the concat-shortcut convs; BoS-aware as
 ``inference.bos_aware``; fused QKV/KV with ``--fuse_qkv``), drops the
 fp weights the deploy replaces and writes the images as PNGs to
 ``--outdir`` (default
 ``BASE/generated_images``). Batch ``k`` draws its noise from a generator
-seeded ``seed + k``. The fake-quant simulation (``--backend fake``) is
-not ported yet (ROADMAP Queue A 3) and raises. Attention runs the JAX
-script's path (the context's default ``attn_impl='einsum'``). Runs on the
-card unless ``--device cpu``.
+seeded ``seed + k``. Attention runs the JAX script's path (the context's
+default ``attn_impl='einsum'``). Runs on the card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ from ..pipelines.loader import build_pipeline, specs_from_config
 from ..quant.bitmaps import load_bit_map, load_layer_list
 from ..quant.checkpoint import load_qparams
 from ..quant.deploy import deploy_unet_ctx, prune_deployed_weights
-from ..quant.state import (apply_bitwidth_config, protect_layers,
-                           quantizable_layers, uniform_ctrl)
+from ..quant.state import (QuantCtx, apply_bitwidth_config,
+                           protect_layers, quantizable_layers, uniform_ctrl)
 from ..utils.config import load_config
 from ..utils.images import save_images
 from ..utils.logging_utils import setup_experiment
@@ -63,15 +67,28 @@ def build_ctrl(cfg, pipe, qparams, args):
     return ctrl
 
 
+def build_quant_ctx(cfg, pipe, qparams, args) -> QuantCtx:
+    """The fake-quant simulation of the controls (``build_ctrl``) under
+    the config's specs, ``qkv_quant`` when the config has a softmax spec
+    (``scripts/quant_txt2img.py:48-77`` of the JAX package)."""
+    wq, aq, softmax_aq = specs_from_config(cfg)
+    return QuantCtx(
+        qparams=qparams, ctrl=build_ctrl(cfg, pipe, qparams, args),
+        mode="fake", wq=wq, aq=aq, softmax_aq=softmax_aq,
+        bos_aware=cfg.inference.get("bos_aware", True),
+        qkv_quant=softmax_aq is not None)
+
+
 def _sync(pipe):
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
 
 
 def main(argv=None):
-    """Returns ``{'pipe', 'ctx', 'paths', 'seconds'}``: the pipeline with
-    its pruned UNet, the deploy context, the PNG paths and the seconds of
-    the build, the qparams load, the deploy and the generation."""
+    """Returns ``{'pipe', 'ctx', 'paths', 'seconds'}``: the pipeline (its
+    UNet pruned under ``int8``), the context, the PNG paths and the seconds
+    of the build, the qparams load, the context (``'deploy'``: the deploy
+    under ``int8``) and the generation."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--base_path", required=True,
                     help="experiment dir with config.yaml + qparams.msgpack")
@@ -84,17 +101,13 @@ def main(argv=None):
     ap.add_argument("--n_images", type=int, default=4)
     ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--backend", choices=["fake", "int8"], default="int8")
+    ap.add_argument("--backend", choices=["fake", "int8"], default="fake")
     ap.add_argument("--fuse_qkv", action="store_true",
-                    help="fuse attention q/k/v (self) and k/v (cross) "
+                    help="int8: fuse attention q/k/v (self) and k/v (cross) "
                          "projections into one GEMM on shared act codes")
     ap.add_argument("--outdir", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.backend == "fake":
-        raise NotImplementedError(
-            "--backend fake: the fake-quant simulation is not ported yet "
-            "(ROADMAP Queue A 3); --backend int8 deploys the UNet")
 
     cfg = load_config(os.path.join(args.base_path, "config.yaml"))
     outdir = args.outdir or os.path.join(args.base_path, "generated_images")
@@ -110,13 +123,15 @@ def main(argv=None):
     seconds["load_qparams"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    wq, _, _ = specs_from_config(cfg)
-    ctrl = build_ctrl(cfg, pipe, qparams, args)
-    ctx = deploy_unet_ctx(
-        pipe.unet, qparams, ctrl, wq,
-        bos_aware=cfg.inference.get("bos_aware", True),
-        fuse_qkv=args.fuse_qkv, splits=pipe.splits)
-    prune_deployed_weights(pipe.unet, ctx.deploy)
+    if args.backend == "fake":
+        ctx = build_quant_ctx(cfg, pipe, qparams, args)
+    else:
+        ctx = deploy_unet_ctx(
+            pipe.unet, qparams, build_ctrl(cfg, pipe, qparams, args),
+            specs_from_config(cfg)[0],
+            bos_aware=cfg.inference.get("bos_aware", True),
+            fuse_qkv=args.fuse_qkv, splits=pipe.splits)
+        prune_deployed_weights(pipe.unet, ctx.deploy)
     _sync(pipe)
     seconds["deploy"] = time.perf_counter() - t0
 

@@ -874,3 +874,61 @@ def test_profiling_on_card(dev):
         < st["bytes_limit_mb"]
     ms = profiling.host_fingerprint(n=1024, iters=2)
     assert ms > 0 and profiling.host_fingerprint(n=1024) == ms
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "int8_flash_attention",
+                                  "int8qkv_flash_attention"])
+@pytest.mark.parametrize("B,Tq,Tk,heads,d,self_attn", [
+    (1, 1024, 77, 10, 64, False),   # SDXL-Turbo attn2, 32x32
+    (1, 256, 77, 20, 64, False),    # SDXL-Turbo attn2, 16x16
+    (1, 256, 256, 20, 64, True),    # SDXL-Turbo attn1, 16x16
+    (1, 1024, 1024, 10, 64, True),  # SDXL-Turbo attn1, 32x32
+    (2, 256, 77, 20, 64, False),
+])
+def test_explicit_attention_sites(dev, name, B, Tq, Tk, heads, d, self_attn):
+    """The kernels an explicit ``attn_impl`` runs at every SDXL-Turbo
+    site, ragged key counts (77 text tokens) and Tq = 256 included,
+    against their plain versions by ``chip_smoke.flash_err``; the kernel
+    reading all but the last 64 keys fails it."""
+    from mixdq_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    srcs, kw = smoke().attn_case(torch, g, dev, B, Tq, Tk, heads, d,
+                                 torch.bfloat16, not self_attn)
+    got = getattr(attention, name)(*srcs, **kw)
+    want = getattr(attention, name + "_plain")(*srcs, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Tq, heads * d) and got.dtype == torch.bfloat16
+    smoke().flash_err(torch, got, want)
+    q, k, v = srcs
+    bad = getattr(attention, name)(q, k[:, :-64].contiguous(),
+                                   v[:, :-64].contiguous(), **kw)
+    with pytest.raises(AssertionError):
+        smoke().flash_err(torch, bad, want)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash", "int8_flash"])
+def test_fake_graph_equals_eager(dev, impl):
+    """A CUDA graph of one small-sdxl fake-quant step (``fake_quant_ctx``;
+    under an explicit ``attn_impl`` too, whose kernel runs at every site)
+    replays equal bit for bit to the eager step, and the launches counted
+    at capture are ``ctx_kernel_calls``."""
+    import dataclasses
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+
+    unet = pipeline.build_unet("small-sdxl", 0, torch.bfloat16, dev)
+    req = pipeline.example_inputs("small-sdxl", 1, 3, torch.bfloat16, dev)
+    ctx = dataclasses.replace(pipeline.fake_quant_ctx(unet, req),
+                              attn_impl=impl)
+    sample, t, ehs, added = req
+    want = pipeline.unet_step(unet, req, ctx)
+    g = GraphedCall(lambda s: unet(s, t, ehs, added, ctx=ctx), (sample,))
+    got = g(sample)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+    assert g.launches == pipeline.ctx_kernel_calls(unet.config, ctx)
+    assert sum(g.launches.values()) == (0 if impl == "auto" else 8)
+    fp = pipeline.unet_step(unet, req)
+    assert not torch.equal(fp, want)

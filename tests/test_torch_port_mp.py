@@ -193,10 +193,11 @@ def test_bitwidth_config_matches_jax():
 
 def test_deploy_compute_values():
     assert state.QuantCtx().deploy_compute == "int8_sec"
+    assert "int8" in state.DEPLOY_COMPUTE  # the JAX package's default
     for c in state.DEPLOY_COMPUTE:
         state.QuantCtx(deploy_compute=c)
     with pytest.raises(ValueError, match="deploy_compute"):
-        state.QuantCtx(deploy_compute="int8")
+        state.QuantCtx(deploy_compute="int4")
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,7 @@ def flow(tmp_path_factory, restore_logging):
     res = ptq.main(["--config", cfg_path, "--outdir", exp,
                     "--device", "cpu"])
     out = quant_txt2img.main(["--base_path", exp, "--device", "cpu",
+                              "--backend", "int8",
                               "--fuse_qkv", "--n_images", "3",
                               "--batch_size", "2"])
     return dict(tmp=tmp, cfg=cfg, cfg_path=cfg_path, exp=exp, gen=gen,
@@ -162,8 +163,8 @@ def test_act_protect_pt_list(flow, tmp_path):
     assert load_layer_list(pt) == ["up_blocks.0.resnets.0.conv_shortcut",
                                    "conv_in"]
     out = quant_txt2img.main([
-        "--base_path", flow["exp"], "--device", "cpu", "--n_images", "1",
-        "--batch_size", "1", "--act_protect", pt,
+        "--base_path", flow["exp"], "--device", "cpu", "--backend", "int8",
+        "--n_images", "1", "--batch_size", "1", "--act_protect", pt,
         "--outdir", str(tmp_path / "img")])
     deploy = out["ctx"].deploy
     assert deploy["up_blocks.0.resnets.0.conv_shortcut"].kind == "conv_split"
@@ -175,16 +176,16 @@ def test_act_protect_pt_list(flow, tmp_path):
 
 
 def test_options_not_ported_raise(flow, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        quant_txt2img.main(["--base_path", flow["exp"], "--device", "cpu",
-                            "--backend", "fake"])
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        ptq.main(["--config", flow["cfg_path"], "--outdir",
-                  str(tmp_path / "x"), "--device", "cpu", "--recon",
-                  "layer"])
+    """The reconstruction options raise, naming their ROADMAP item; the
+    softmax spec and the fake backend, ported since, do not (the fake
+    flow is held in ``tests/test_torch_port_fake_cli.py``)."""
+    for opt in (["--recon", "layer"], ["--adaround"]):
+        with pytest.raises(NotImplementedError, match="Queue A 6"):
+            ptq.main(["--config", flow["cfg_path"], "--outdir",
+                      str(tmp_path / "x"), "--device", "cpu"] + opt)
     cfg = merge(flow["cfg"], {"quant": {"softmax": {"enabled": True}}})
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        specs_from_config(cfg)
+    sm = specs_from_config(cfg)[2]
+    assert sm.always_zero and not sm.sym and sm.n_bits == 8
     if not torch.cuda.is_available():
         # the CLIs run on the card unless --device cpu is given
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -214,8 +214,10 @@ def test_attn_impl_values():
     from mixdq_tpu_torch.quant.state import QuantCtx
 
     assert QuantCtx().attn_impl == "einsum"  # the JAX package's default
+    for impl in ("einsum", "auto", "flash", "int8_flash", "int8qkv_flash"):
+        assert QuantCtx(attn_impl=impl).attn_impl == impl
     with pytest.raises(ValueError, match="attn_impl"):
-        QuantCtx(attn_impl="flash")
+        QuantCtx(attn_impl="sdpa")
 
 
 def _port_transformer(seed=0):
