@@ -48,10 +48,11 @@ from ..ops.attention import (flash_attention, int8_flash_attention,
 from ..ops.sec_attention import (sec_attention, sec_attention_q,
                                  sec_attention_q_out, sec_attention_qkv,
                                  sec_attention_qkv_out)
+from ..quant.deploy import bos_row
 from ..quant.state import FP_CTX, QuantCtx
 from . import routing
-from .layers import (GroupNorm, LayerNorm, QAct, QDense, bos_row, codes_of,
-                     deploy_linear, layer_compute, name_layers)
+from .layers import (GroupNorm, LayerNorm, QAct, QDense, codes_of,
+                     deploy_linear, layer_compute, name_layers, small_m)
 
 
 def deploy_res_add(residual: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -79,8 +80,13 @@ def ln_fold_args(ln):
 def fused_entry(ctx: QuantCtx, name: Optional[str], kind: str = "linear"):
     """The deploy entry of ``name`` if its norm producer can emit its
     codes (``int8_sec`` compute, act-quantized entry of ``kind``; the JAX
-    package's ``fused_ln_entry`` / ``fused_gn_entry``)."""
+    package's ``fused_ln_entry`` / ``fused_gn_entry``). Under the small-M
+    hybrid a dense consumer may run weight-only, which takes no codes: no
+    producer feeds one then (``mixdq_tpu/models/attention.py:133``,
+    ``:733``)."""
     if name is None or ctx.deploy_compute != "int8_sec":
+        return None
+    if kind == "linear" and ctx.dequant_small_m:
         return None
     dp = ctx.entry(name)
     if (dp is None or dp.kind != kind or dp.scale_inv is None
@@ -89,11 +95,13 @@ def fused_entry(ctx: QuantCtx, name: Optional[str], kind: str = "linear"):
     return dp
 
 
-def geglu_fusable(compute: str, dp_p, dp_c) -> bool:
+def geglu_fusable(compute: str, dp_p, dp_c, small_m: int = 0) -> bool:
     """Whether proj GEMM + gate + the consumer's act-quantize run as one
-    ``geglu_qmatmul``: ``int8_sec`` compute, act-quantized int8 linear
-    entries on both sides, the proj's codes unpacked."""
-    return (compute == "int8_sec" and routing.act_entry(dp_p)
+    ``geglu_qmatmul``: ``int8_sec`` compute, no small-M hybrid,
+    act-quantized int8 linear entries on both sides, the proj's codes
+    unpacked."""
+    return (compute == "int8_sec" and not small_m
+            and routing.act_entry(dp_p)
             and dp_p.w_int is not None and routing.act_entry(dp_c))
 
 
@@ -116,12 +124,17 @@ class Attention(nn.Module):
         self.act_quantizer_softmax = QAct(softmax=True)
 
     def forward(self, hidden_states, encoder_hidden_states=None,
-                ctx: QuantCtx = FP_CTX, residual=None, ln=None):
+                ctx: QuantCtx = FP_CTX, residual=None, ln=None,
+                kv_bank=None):
         """``residual``: when given, returns ``residual + attention``.
         ``ln`` = (LayerNorm module, consumer entry): ``hidden_states`` is
         the raw stream and the LN + act-quantize still has to run. The
         kernel of the site is ``routing.attention_route``'s choice; the
-        deferred LayerNorm materializes where the JAX package's does."""
+        deferred LayerNorm materializes where the JAX package's does.
+        ``kv_bank``: the fused ``to_kv`` output of a cross-attention from
+        the cross-k/v bank (``deploy.precompute_cross_kv``, its BoS row
+        in place), taken where the per-layer product would run
+        (``mixdq_tpu/models/attention.py:286-306``)."""
         is_cross = encoder_hidden_states is not None
         kv_input = encoder_hidden_states if is_cross else hidden_states
         dp_f = (ctx.entry(self.qname + (".to_kv" if is_cross else ".to_qkv"))
@@ -139,7 +152,7 @@ class Attention(nn.Module):
             q_codes=dp_q is not None and dp_q.w_int is not None,
             out_codes=dp_o is not None and dp_o.w_int is not None,
             out_fuse=ctx.out_fuse, int8_flash=ctx.int8_flash,
-            qkv_quant=ctx.qkv_quant)
+            qkv_quant=ctx.qkv_quant, small_m=bool(ctx.dequant_small_m))
         if route.kernel == routing.QKV:
             return self._sec_self(hidden_states, ctx, residual, ln, dp_f)
         if route.kernel == routing.QKV_OUT:
@@ -153,11 +166,16 @@ class Attention(nn.Module):
             ln = None
         if dp_f is not None:
             compute = layer_compute(ctx.deploy_compute, dp_f)
-            y = deploy_linear(kv_input, dp_f, compute, self.dtype)
-            if (is_cross and compute == "int8" and ctx.bos_aware
-                    and kv_input.ndim >= 3):
-                y = torch.cat([bos_row(kv_input.to(self.dtype), dp_f,
-                                       self.dtype), y[..., 1:, :]], -2)
+            if compute == "int8" and small_m(ctx, dp_f, kv_input):
+                compute = "dequant"
+            if is_cross and compute == "int8" and kv_bank is not None:
+                y = kv_bank
+            else:
+                y = deploy_linear(kv_input, dp_f, compute, self.dtype)
+                if (is_cross and compute == "int8" and ctx.bos_aware
+                        and kv_input.ndim >= 3):
+                    y = torch.cat([bos_row(kv_input.to(self.dtype), dp_f,
+                                           self.dtype), y[..., 1:, :]], -2)
             if route.kernel == routing.Q_OUT:
                 return self._sec_cross(hidden_states, y, ctx, residual, ln)
             if is_cross:
@@ -303,7 +321,8 @@ class GEGLU(nn.Module):
         """``consumer_dp``: the ``ff.net.2`` entry; when the fused kernel
         applies, returns that consumer's int8 codes ``[..., inner]``."""
         if consumer_dp is not None and geglu_fusable(
-                ctx.deploy_compute, ctx.entry(self.proj.qname), consumer_dp):
+                ctx.deploy_compute, ctx.entry(self.proj.qname), consumer_dp,
+                ctx.dequant_small_m):
             return self.proj(x, ctx, geglu_out=consumer_dp)
         h, gate = self.proj(x, ctx).chunk(2, -1)
         g = gate.float()
@@ -329,7 +348,8 @@ class FeedForward(nn.Module):
         dp_2 = ctx.entry(self.net[2].qname)
         if dp_2 is not None and (ln is None or residual is x) and \
                 routing.whole_ff(
-                    fusable=geglu_fusable(ctx.deploy_compute, dp_p, dp_2),
+                    fusable=geglu_fusable(ctx.deploy_compute, dp_p, dp_2,
+                                          ctx.dequant_small_m),
                     net2_codes=dp_2.w_int is not None, out_fuse=ctx.out_fuse,
                     M=x.numel() // x.shape[-1], K=x.shape[-1], H=self.inner,
                     C_out=self.dim, ln=ln is not None):
@@ -389,7 +409,9 @@ class BasicTransformerBlock(nn.Module):
         return norm(x), None
 
     def forward(self, hidden_states, encoder_hidden_states,
-                ctx: QuantCtx = FP_CTX):
+                ctx: QuantCtx = FP_CTX, banks=None):
+        """``banks``: the step's shared-input bank outputs by layer name
+        (``UNet2DConditionModel.forward``), or None."""
         base = self.qname
         h, ln1 = self._ln(hidden_states, self.norm1,
                           f"{base}.attn1.to_qkv" if ctx.fuse_qkv else None,
@@ -398,8 +420,10 @@ class BasicTransformerBlock(nn.Module):
                                    ln=ln1)
         h, ln2 = self._ln(hidden_states, self.norm2, f"{base}.attn2.to_q",
                           ctx)
-        hidden_states = self.attn2(h, encoder_hidden_states, ctx,
-                                   residual=hidden_states, ln=ln2)
+        hidden_states = self.attn2(
+            h, encoder_hidden_states, ctx, residual=hidden_states, ln=ln2,
+            kv_bank=None if banks is None else banks.get(
+                f"{base}.attn2.to_kv"))
         h, ln3 = self._ln(hidden_states, self.norm3, f"{base}.ff.net.0.proj",
                           ctx)
         return self.ff(h, ctx, residual=hidden_states, ln=ln3)
@@ -431,7 +455,7 @@ class Transformer2DModel(nn.Module):
         name_layers(self)
 
     def forward(self, hidden_states, encoder_hidden_states,
-                ctx: QuantCtx = FP_CTX):
+                ctx: QuantCtx = FP_CTX, banks=None):
         B, H, W, C = hidden_states.shape
         dp_in = fused_entry(ctx, self.proj_in.qname)
         if dp_in is not None:
@@ -445,6 +469,6 @@ class Transformer2DModel(nn.Module):
             h = self.norm(hidden_states)
         h = self.proj_in(h.reshape(B, H * W, C), ctx)
         for blk in self.transformer_blocks:
-            h = blk(h, encoder_hidden_states, ctx)
+            h = blk(h, encoder_hidden_states, ctx, banks)
         h = self.proj_out(h, ctx).reshape(B, H, W, self.in_channels)
         return deploy_res_add(hidden_states, h)

@@ -31,6 +31,7 @@ from ..ops.qconv import qconv2d, qconv2d_s2
 from ..ops.qmatmul import geglu_qmatmul
 from ..ops.qops import act_clip_range, qlinear, quantize_per_tensor
 from ..ops.wq_matmul import wq4_matmul, wq_matmul
+from ..quant.deploy import bos_row
 from ..quant.state import FP_CTX, QuantCtx
 
 
@@ -96,10 +97,14 @@ def deploy_linear(x: torch.Tensor, dp, compute: str, dtype) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-def bos_row(x: torch.Tensor, dp, dtype) -> torch.Tensor:
-    """FP output of the first (BoS) token through the dequantized weight
-    ``dp.bos_w`` — MixDQ's BoS protection of cross-attention k/v."""
-    return (x[..., :1, :].float() @ dp.bos_w).to(dtype)
+def small_m(ctx: QuantCtx, dp, x: torch.Tensor) -> bool:
+    """Whether the small-M hybrid sends entry ``dp`` on input ``x`` to the
+    weight-only route: ``ctx.dequant_small_m`` set, unpacked codes, an fp
+    input (not codes already), and at most that many GEMM rows
+    (``mixdq_tpu/models/layers.py:256-259``)."""
+    return bool(ctx.dequant_small_m and dp.w_packed is None
+                and x.dtype != torch.int8
+                and x.numel() // x.shape[-1] <= ctx.dequant_small_m)
 
 
 class QDense(nn.Module):
@@ -117,10 +122,14 @@ class QDense(nn.Module):
         return self.weight.shape[0]
 
     def forward(self, x: torch.Tensor, ctx: QuantCtx = FP_CTX,
-                bos_aware: bool = False, geglu_out=None) -> torch.Tensor:
+                bos_aware: bool = False, geglu_out=None,
+                bank: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``geglu_out``: the downstream ``ff.net.2`` deploy entry — runs
         the fused GEGLU kernel and returns that consumer's int8 codes
-        ``[..., features // 2]``."""
+        ``[..., features // 2]``. ``bank``: this layer's product on ``x``
+        from a shared-input bank (``deploy.precompute_linear_bank``,
+        before the bias): only the bias is left to add
+        (``mixdq_tpu/models/layers.py:215-223``)."""
         dp = ctx.entry(self.qname)
         if dp is None:
             if ctx.mode == "fake":
@@ -134,6 +143,9 @@ class QDense(nn.Module):
         pre_codes = x.dtype == torch.int8
         if not pre_codes:
             x = x.to(self.dtype)
+        if (bank is not None and not pre_codes and geglu_out is None
+                and not (bos_aware and ctx.bos_aware)):
+            return bank if self.bias is None else bank + self.bias
         if geglu_out is not None:
             codes = codes_of(x, dp)
             out = geglu_qmatmul(
@@ -143,6 +155,8 @@ class QDense(nn.Module):
                 clip=act_clip_range(geglu_out.a_bits))
             return out.reshape(*codes.shape[:-1], out.shape[-1])
         compute = layer_compute(ctx.deploy_compute, dp)
+        if compute == "int8" and small_m(ctx, dp, x):
+            compute = "dequant"
         y = deploy_linear(x, dp, compute, self.dtype)
         # the weight-only routes quantize no acts: the BoS token needs no
         # protection there
@@ -205,14 +219,21 @@ class QConv(nn.Module):
         added exactly once — in the conv kernel's epilogue on the
         ``int8_sec`` path."""
         dp = ctx.entry(self.qname)
+        compute = ctx.deploy_compute
+        if (dp is not None and compute in ("int8", "int8_sec")
+                and self.kernel_size == (1, 1) and self.strides == (1, 1)
+                and small_m(ctx, dp.part0 if dp.kind == "conv_split"
+                            else dp, x)):
+            # the small-M hybrid: a 1x1 conv is a GEMM over pixels
+            # (mixdq_tpu/models/layers.py:365-372)
+            compute = "dequant"
         if dp is not None and dp.kind == "conv_split":
-            return self._conv_split(x, dp, ctx.deploy_compute, extra_bias,
-                                    residual)
+            return self._conv_split(x, dp, compute, extra_bias, residual)
         if dp is None:
             w, scale = self.weight, None
             if ctx.mode == "fake":
                 x, w = self._fake_operands(x, w, ctx, split)
-        elif dp.act_off or ctx.deploy_compute == "dequant":
+        elif dp.act_off or compute == "dequant":
             # weight-only: the codes as the conv weight, the per-column
             # scale on the output (mixdq_tpu/models/layers.py:458-473)
             w, scale = dp.w_int.to(self.dtype), dp.w_delta().to(self.dtype)

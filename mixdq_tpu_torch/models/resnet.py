@@ -47,9 +47,14 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
         name_layers(self)
 
-    def forward(self, x, temb, ctx: QuantCtx = FP_CTX, split: int = 0):
+    def forward(self, x, temb, ctx: QuantCtx = FP_CTX, split: int = 0,
+                banks=None):
+        """``banks``: the step's shared-input bank outputs by layer name
+        (``time_emb_proj``'s from the time-embedding bank), or None."""
         h = norm_act(x, self.norm1, self.conv1.qname, ctx)
-        t = self.time_emb_proj(F.silu(temb), ctx)
+        t = self.time_emb_proj(
+            F.silu(temb), ctx, bank=None if banks is None else banks.get(
+                self.time_emb_proj.qname))
         h = self.conv1(h, ctx, extra_bias=t)
         h = norm_act(h, self.norm2, self.conv2.qname, ctx)
         residual = x

@@ -202,11 +202,14 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
                     fused_codes: bool = True, q_codes: bool = True,
                     out_codes: bool = True,
                     out_fuse: frozenset = DEFAULT_OUT_FUSE,
-                    int8_flash: str = "off", qkv_quant: bool = False) -> Route:
+                    int8_flash: str = "off", qkv_quant: bool = False,
+                    small_m: bool = False) -> Route:
     """The JAX package's choice for one attention site.
 
     ``mode``: the context's ``'fp'`` / ``'fake'`` / ``'int8'``;
-    ``qkv_quant``: the context's q/k/v act quantizers are on; ``compute``: its
+    ``qkv_quant``: the context's q/k/v act quantizers are on; ``small_m``:
+    its small-M hybrid is on, which turns every ``sec_attention*`` kernel
+    off (``mixdq_tpu/models/attention.py:327``, ``:427``); ``compute``: its
     ``deploy_compute`` (the attention kernels run under ``'int8_sec'``
     only); ``fused``: a fused QKV (self) / KV (cross) deploy entry runs
     the projections; ``codes``: the site's input is int8 codes or a
@@ -219,7 +222,8 @@ def attention_route(*, mode: str, attn_impl: str, fused: bool, cross: bool,
     ``to_qkv`` output (0/C/2C), ``to_q``'s output and the fused ``to_kv``
     output (0 / 0/C), or three projections (0/0/0)."""
     C = heads * head_dim
-    sec = mode == "int8" and compute == "int8_sec" and attn_impl == "auto"
+    sec = (mode == "int8" and compute == "int8_sec" and attn_impl == "auto"
+           and not small_m)
     if fused and not cross:
         offsets = (0, C, 2 * C)
     else:

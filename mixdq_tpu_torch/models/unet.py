@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..quant.state import FP_CTX, QuantCtx
@@ -36,31 +37,32 @@ class _Block(nn.Module):
         if up is not None:
             self.upsamplers = nn.ModuleList([up])
 
-    def down(self, x, temb, ehs, ctx):
+    def down(self, x, temb, ehs, ctx, banks=None):
         skips = []
         attns = getattr(self, "attentions", None)
         for i, res in enumerate(self.resnets):
-            x = res(x, temb, ctx)
+            x = res(x, temb, ctx, banks=banks)
             if attns is not None:
-                x = attns[i](x, ehs, ctx)
+                x = attns[i](x, ehs, ctx, banks)
             skips.append(x)
         if hasattr(self, "downsamplers"):
             x = self.downsamplers[0](x, ctx)
             skips.append(x)
         return x, skips
 
-    def mid(self, x, temb, ehs, ctx):
-        x = self.resnets[0](x, temb, ctx)
-        x = self.attentions[0](x, ehs, ctx)
-        return self.resnets[1](x, temb, ctx)
+    def mid(self, x, temb, ehs, ctx, banks=None):
+        x = self.resnets[0](x, temb, ctx, banks=banks)
+        x = self.attentions[0](x, ehs, ctx, banks)
+        return self.resnets[1](x, temb, ctx, banks=banks)
 
-    def up(self, x, skips, temb, ehs, ctx):
+    def up(self, x, skips, temb, ehs, ctx, banks=None):
         attns = getattr(self, "attentions", None)
         for i, res in enumerate(self.resnets):
             split = x.shape[-1]  # upstream channels, before the concat
-            x = res(torch.cat([x, skips.pop()], -1), temb, ctx, split=split)
+            x = res(torch.cat([x, skips.pop()], -1), temb, ctx, split=split,
+                    banks=banks)
             if attns is not None:
-                x = attns[i](x, ehs, ctx)
+                x = attns[i](x, ehs, ctx, banks)
         if hasattr(self, "upsamplers"):
             x = self.upsamplers[0](x, ctx)
         return x
@@ -170,6 +172,23 @@ class UNet2DConditionModel(nn.Module):
             lecun_normal_(m.weight, m.fan_in(), gen)
         return self
 
+    def banks(self, emb: torch.Tensor, ehs: torch.Tensor, ctx: QuantCtx
+              ) -> Optional[Dict[str, torch.Tensor]]:
+        """The step's shared-input banks (``mixdq_tpu/models/unet.py:
+        277-292``), ``{layer name: output}`` or None: the fused cross-
+        attention k/v projections of ``ehs`` (``ctx.cross_kv``) and the
+        ``time_emb_proj`` products of ``silu(emb)``, the tensor each
+        resnet's projection reads (``ctx.linear_bank``)."""
+        from ..quant.deploy import precompute_cross_kv, precompute_linear_bank
+
+        if ctx.mode != "int8" or not ctx.deploy:
+            return None
+        banks = {}
+        banks.update(precompute_cross_kv(ehs, ctx, self.dtype) or {})
+        banks.update(precompute_linear_bank(F.silu(emb), ctx, self.dtype)
+                     or {})
+        return banks or None
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
@@ -193,16 +212,17 @@ class UNet2DConditionModel(nn.Module):
 
         sample = sample.to(self.dtype)
         ehs = encoder_hidden_states.to(self.dtype)
+        banks = self.banks(emb, ehs, ctx)
         h = self.conv_in(sample, ctx)
         skips = [h]
         for blk in self.down_blocks:
-            h, s = blk.down(h, emb, ehs, ctx)
+            h, s = blk.down(h, emb, ehs, ctx, banks)
             skips.extend(s)
-        h = self.mid_block.mid(h, emb, ehs, ctx)
+        h = self.mid_block.mid(h, emb, ehs, ctx, banks)
         n_layers = cfg.layers_per_block + 1
         for blk in self.up_blocks:
             block_skips = skips[-n_layers:]
             del skips[-n_layers:]
-            h = blk.up(h, block_skips, emb, ehs, ctx)
+            h = blk.up(h, block_skips, emb, ehs, ctx, banks)
         h = norm_act(h, self.conv_norm_out, self.conv_out.qname, ctx)
         return self.conv_out(h, ctx)

@@ -6,7 +6,10 @@
   dense layer and 1x1 conv. Kernel: ``csrc/qmatmul.cu`` (the mainloop of
   ``csrc/igemm_s8.cuh``, shared with ``qconv2d``); plain version:
   ``qmatmul_plain``. Its tile, ring depth and split-K are ``qmm_plan``,
-  a function of the shapes and the card's SM count alone.
+  a function of the shapes and the card's SM count alone. With a leading
+  layer axis (``[L, M, K]`` x ``[L, K, N]``, the shared-input banks of
+  ``quant/deploy.py``) one launch runs every member's per-layer GEMM
+  (``layers_plan``); the plain version loops over the members.
 * ``geglu_qmatmul`` (port of ``geglu_qmatmul``): the proj GEMM over the
   value and gate halves of ``[K, 2H]``, the dequant epilogues (``bias0``
   cast to int32 before the subtraction), the gate ``v * gelu(g)`` and
@@ -142,6 +145,10 @@ def geglu_qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor,
 
 def qmatmul_plain(x_int8, w_int8, scale, bias0, bias=None,
                   out_dtype=torch.bfloat16):
+    if x_int8.ndim == 3:  # the layer axis: one member at a time
+        return torch.stack([qmatmul_plain(x, w, s, b, None, out_dtype)
+                            for x, w, s, b in zip(x_int8, w_int8, scale,
+                                                  bias0)])
     acc = qops.int_gemm(x_int8, w_int8)
     out = (acc.float() - bias0) * scale
     if bias is not None:
@@ -321,9 +328,20 @@ def _qmatmul_lib():
     f = lib.mixdq_qmatmul
     if f.argtypes is None:
         P, I = _build.P, _build.I
-        f.argtypes = [P] * 5 + [I] + [P] * 3 + [I] * 8 + [P]
+        f.argtypes = [P] * 5 + [I] + [P] * 3 + [I] * 9 + [P]
         f.restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def layers_plan(L: int, M: int, K: int, N: int, sms: int) -> QmmPlan:
+    """The plan of a ``qmatmul`` over ``L`` layers: each member's
+    ``qmm_plan`` on ``sms // L`` SMs (the members share the card), its
+    workspace and counters ``L`` times over (member ``l``'s after the
+    earlier members')."""
+    p = qmm_plan(M, K, N, max(1, sms // L))
+    return dataclasses.replace(p, tiles=L * p.tiles, ws_elems=L * p.ws_elems,
+                               counters=L * p.counters)
 
 
 def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
@@ -334,6 +352,12 @@ def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     ``bias0`` are f32 ``[N]``, ``bias`` f32 or bf16 ``[N]`` (read as
     stored).
 
+    With a leading layer axis (the shared-input banks of
+    ``quant/deploy.py``): codes ``[L, M, K]`` x ``[L, K, N]`` with
+    ``scale`` / ``bias0`` ``[L, N]`` and no ``bias`` -> ``[L, M, N]``, one
+    launch whose grid holds every member (``layers_plan``); member ``l``
+    equals ``qmatmul`` of its own operands bit for bit.
+
     The epilogue is ``qops.qlinear``'s: the int32 sum converts to f32
     before ``bias0`` is subtracted. The Pallas ``qmatmul`` subtracts
     ``bias0`` in int32 instead; since ``bias0`` is integer-valued (the
@@ -342,27 +366,37 @@ def qmatmul(x_int8: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     QMATMUL_COUNT.calls += 1
     if not use_kernel(x_int8, w_int8, scale, bias0):
         return qmatmul_plain(x_int8, w_int8, scale, bias0, bias, out_dtype)
-    M, K = x_int8.shape
-    K2, N = w_int8.shape
-    if x_int8.dtype != torch.int8 or w_int8.dtype != torch.int8 or K2 != K:
+    layered = x_int8.ndim == 3
+    L = x_int8.shape[0] if layered else 1
+    M, K = x_int8.shape[-2:]
+    K2, N = w_int8.shape[-2:]
+    lead = (L,) if layered else ()
+    if x_int8.dtype != torch.int8 or w_int8.dtype != torch.int8 or \
+            K2 != K or x_int8.ndim not in (2, 3) or \
+            tuple(w_int8.shape[:-2]) != lead:
         raise ValueError(f"qmatmul: bad operands x {tuple(x_int8.shape)}, "
                          f"w {tuple(w_int8.shape)}")
-    if scale.shape != (N,) or bias0.shape != (N,) or \
+    if scale.shape != lead + (N,) or bias0.shape != lead + (N,) or \
             scale.dtype != torch.float32 or bias0.dtype != torch.float32:
-        raise ValueError("qmatmul: scale/bias0 must be f32 [N]")
+        raise ValueError(f"qmatmul: scale/bias0 must be f32 "
+                         f"{list(lead + (N,))}")
+    if layered and bias is not None:
+        raise ValueError("qmatmul: a layer axis takes no bias")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qmatmul: out_dtype {out_dtype}")
     bias_bf16 = stored_vector("qmatmul", "bias", bias, (N,))
     check_cuda_args("qmatmul", x=x_int8, w=w_int8, scale=scale, bias0=bias0)
     dev = x_int8.device
-    plan = qmm_plan(M, K, N, sm_count(dev.index or 0))
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    sms = sm_count(dev.index or 0)
+    plan = layers_plan(L, M, K, N, sms) if layered else qmm_plan(M, K, N,
+                                                                  sms)
+    out = torch.empty(lead + (M, N), dtype=out_dtype, device=dev)
     ws, counters = igemm_scratch(plan, dev)
     lib = _qmatmul_lib()
     p = _build.ptr
     err = lib.mixdq_qmatmul(
         p(x_int8), p(w_int8), p(scale), p(bias0), p(bias), bias_bf16, p(out),
-        p(ws), p(counters), M, K, N, int(out_dtype == torch.bfloat16),
+        p(ws), p(counters), L, M, K, N, int(out_dtype == torch.bfloat16),
         plan.bm, plan.stages, plan.splits, plan.split_k, _build.stream(dev))
     _build.check(lib, err, "qmatmul")
     QMATMUL_COUNT.launches += 1

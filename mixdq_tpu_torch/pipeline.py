@@ -28,7 +28,8 @@ from .models.layers import layer_compute
 from .models.unet import UNet2DConditionModel
 from .quant.calibrate import calibrate
 from .quant.core import QuantSpec
-from .quant.deploy import DeployEntry, deploy_unet_ctx, unpack_packed_entries
+from .quant.deploy import (DeployEntry, bank_group_sizes, bank_members,
+                           deploy_unet_ctx, unpack_packed_entries)
 from .quant.state import (FP_CTX, QuantCtx, apply_bitwidth_config,
                           protect_layers, quantizable_layers, uniform_ctrl)
 
@@ -194,17 +195,36 @@ def w8a8_layout(cfg) -> Dict[str, DeployEntry]:
     return out
 
 
-def _site_shape(cfg, block: str) -> Tuple[int, int, int]:
-    """(tokens, heads, head_dim) of transformer block ``block`` (a dotted
-    name under ``down_blocks.i``, ``mid_block`` or ``up_blocks.i``)."""
-    parts = block.split(".")
+def _level(cfg, name: str) -> int:
+    """The UNet level of layer or block ``name`` (a dotted name under
+    ``down_blocks.i``, ``mid_block`` or ``up_blocks.i``; 0 for the rest)."""
+    parts = name.split(".")
     n = len(cfg.block_out_channels)
-    level = {"down_blocks": lambda: int(parts[1]), "mid_block": lambda: n - 1,
-             "up_blocks": lambda: n - 1 - int(parts[1])}[parts[0]]()
+    return {"down_blocks": lambda: int(parts[1]), "mid_block": lambda: n - 1,
+            "up_blocks": lambda: n - 1 - int(parts[1])}.get(
+        parts[0], lambda: 0)()
+
+
+def _site_shape(cfg, block: str) -> Tuple[int, int, int]:
+    """(tokens, heads, head_dim) of transformer block ``block``."""
+    level = _level(cfg, block)
     heads = cfg.num_attention_heads[level]
     d = cfg.attention_head_dim or cfg.block_out_channels[level] // heads
     side = cfg.sample_size // 2 ** level
     return side * side, heads, d
+
+
+def _rows(cfg, name: str) -> int:
+    """GEMM rows of layer ``name`` in a step of ``example_inputs`` (B=1):
+    1 for the time and added-condition embeddings and every
+    ``time_emb_proj``, the text tokens for cross-attention k/v, else the
+    pixels (tokens) of the layer's level."""
+    if name.startswith(("time_embedding.", "add_embedding.")) or \
+            name.endswith(".time_emb_proj"):
+        return 1
+    if ".attn2.to_k" in name or ".attn2.to_v" in name:
+        return TEXT_TOKENS
+    return (cfg.sample_size // 2 ** _level(cfg, name)) ** 2
 
 
 def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
@@ -213,7 +233,10 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                           out_fuse: frozenset = routing.DEFAULT_OUT_FUSE,
                           ln_fold: bool = True,
                           int8_flash: str = "off",
-                          qkv_quant: bool = False) -> Dict[str, int]:
+                          qkv_quant: bool = False,
+                          linear_bank: bool = True, cross_kv: bool = False,
+                          fuse_qkv: Optional[bool] = None,
+                          small_m: int = 0) -> Dict[str, int]:
     """Kernel calls of one UNet step of ``example_inputs`` implied by the
     UNet structure and a deploy: ``deploy`` under ``compute`` (default:
     ``w8a8_layout``, the deploy of ``quantize_w8a8``) in ``mode='int8'``,
@@ -236,7 +259,16 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
     ``routing.attention_route`` and its ff site through
     ``routing.whole_ff`` with the inputs its modules give them; a deferred
     LayerNorm counts an ``ln_quantize`` unless a whole-block kernel folds
-    it (``ln_fold``)."""
+    it (``ln_fold``).
+
+    The banks (``QuantCtx.linear_bank`` / ``cross_kv``; ``fuse_qkv``: the
+    context's, by default whether the deploy holds fused entries) count
+    one ``qmatmul`` a group (``deploy.bank_group_sizes``) and none for
+    their members; ``small_m`` (``QuantCtx.dequant_small_m``) sends each
+    act-quantized dense entry and 1x1 conv of at most that many rows
+    (``_rows``) to no kernel, turns the LayerNorm producers, ``proj_in``'s
+    GroupNorm producer, the GEGLU kernels, the ``sec_attention*`` kernels
+    and both banks off."""
     calls = dict.fromkeys(KERNELS, 0)
     shapes = dict(_layer_shapes(cfg))
     blocks = sorted({n[:n.index(".", n.index(".transformer_blocks.") + 20)]
@@ -255,14 +287,31 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
         return calls
     deploy = w8a8_layout(cfg) if deploy is None else deploy
     sec = compute == "int8_sec"
+    int8 = compute in ("int8", "int8_sec")
+    if fuse_qkv is None:
+        fuse_qkv = any(n.endswith((".to_qkv", ".to_kv")) for n in deploy)
+    banked = set()
+    if int8 and not small_m:
+        for on, suffix, K in (
+                (linear_bank, ".time_emb_proj", cfg.time_embed_dim),
+                (cross_kv and fuse_qkv, ".attn2.to_kv",
+                 cfg.cross_attention_dim)):
+            if on:
+                calls["qmatmul"] += len(bank_group_sizes(deploy, suffix, K))
+                banked |= set(bank_members(deploy, suffix, K))
 
     def act(e):
         return routing.act_entry(e)
 
-    def dense(e):
-        if e is None:
+    def narrow(name):
+        return bool(small_m) and _rows(cfg, name) <= small_m
+
+    def dense(e, name=None):
+        if e is None or name in banked:
             return
         c = layer_compute(compute, e)
+        if c == "int8" and e.w_packed is None and narrow(name):
+            return  # the small-M hybrid: weight-only, no kernel
         if c == "int8":
             calls["qmatmul"] += 1
         elif e.w_packed is not None:
@@ -275,7 +324,7 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
             if e.act_off or compute == "dequant":
                 continue
             if tuple(e.w_int.shape[:2]) == (1, 1):
-                calls["qmatmul"] += 1
+                calls["qmatmul"] += not (int8 and narrow(name))
             else:
                 calls["qconv2d_s2" if ".downsamplers." in name
                       else "qconv2d"] += 1
@@ -283,11 +332,12 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                 (".conv1", ".conv2", "conv_out"))
         elif e.kind == "conv_split":
             # a 1x1 product a half, act-quantized unless weight-only
-            calls["qmatmul"] += 0 if e.act_off or compute == "dequant" else 2
+            calls["qmatmul"] += 0 if e.act_off or compute == "dequant" or (
+                int8 and narrow(name)) else 2
         elif e.kind == "linear" and ".transformer_blocks." not in name:
-            dense(e)
+            dense(e, name)
             calls["gn_silu_quantize"] += (sec and name.endswith(".proj_in")
-                                          and act(e))
+                                          and act(e) and not small_m)
     for b in blocks:
         T, heads, d = _site_shape(cfg, b)
         for cross, site in ((False, "attn1"), (True, "attn2")):
@@ -296,7 +346,8 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
             q, o = deploy.get(f"{a}.to_q"), deploy.get(f"{a}.to_out.0")
             # the deferred norm: norm1 before a fused to_qkv, norm2 before
             # to_q (attention.py:BasicTransformerBlock._ln)
-            ln = sec and act(q if cross else f)
+            ln = sec and act(q if cross else f) and not small_m
+            fn = f"{a}.to_kv" if cross else f"{a}.to_qkv"
             r = routing.attention_route(
                 mode=mode, attn_impl=attn_impl, fused=f is not None,
                 cross=cross, heads=heads, head_dim=d, Tq=T,
@@ -305,44 +356,45 @@ def expected_kernel_calls(cfg, attn_impl: str, mode: str = "int8",
                 fused_codes=f is not None and f.w_int is not None,
                 q_codes=q is not None and q.w_int is not None,
                 out_codes=o is not None and o.w_int is not None,
-                out_fuse=out_fuse, int8_flash=int8_flash)
+                out_fuse=out_fuse, int8_flash=int8_flash,
+                small_m=bool(small_m))
             if r.kernel != routing.EINSUM:
                 calls[r.kernel] += 1
             whole = r.kernel in (routing.Q_OUT, routing.QKV_OUT)
             calls["ln_quantize"] += ln and not (ln_fold and whole)
             if r.kernel == routing.Q_OUT:  # to_q and to_out inside
-                dense(f)
+                dense(f, fn)
                 continue
             if r.kernel == routing.QKV_OUT:  # QKV and to_out inside
                 continue
             if r.kernel == routing.QKV:
-                dense(o)
+                dense(o, f"{a}.to_out.0")
                 continue
             if r.kernel == routing.SEC_Q:
-                dense(f)
+                dense(f, fn)
             elif f is not None:
-                dense(f)
-                dense(q if cross else None)
+                dense(f, fn)
+                dense(q if cross else None, f"{a}.to_q")
             else:
                 for m in ("to_q", "to_k", "to_v"):
-                    dense(deploy.get(f"{a}.{m}"))
-            dense(o)
+                    dense(deploy.get(f"{a}.{m}"), f"{a}.{m}")
+            dense(o, f"{a}.to_out.0")
         p, c = deploy.get(f"{b}.ff.net.0.proj"), deploy.get(f"{b}.ff.net.2")
-        ln = sec and act(p)
+        ln = sec and act(p) and not small_m
         C = heads * d
         if c is not None and routing.whole_ff(
-                fusable=geglu_fusable(compute, p, c),
+                fusable=geglu_fusable(compute, p, c, small_m),
                 net2_codes=c.w_int is not None, out_fuse=out_fuse, M=T, K=C,
                 H=4 * C, C_out=C, ln=ln and ln_fold):
             calls["geglu_out_qmatmul"] += 1
             calls["ln_quantize"] += ln and not ln_fold
             continue
         calls["ln_quantize"] += ln
-        if geglu_fusable(compute, p, c):
+        if geglu_fusable(compute, p, c, small_m):
             calls["geglu_qmatmul"] += 1
         else:
-            dense(p)
-        dense(c)
+            dense(p, f"{b}.ff.net.0.proj")
+        dense(c, f"{b}.ff.net.2")
     return calls
 
 
@@ -353,7 +405,9 @@ def ctx_kernel_calls(cfg, ctx: QuantCtx) -> Dict[str, int]:
         cfg, ctx.attn_impl, mode=ctx.mode, deploy=ctx.deploy,
         compute=ctx.deploy_compute, out_fuse=ctx.out_fuse,
         ln_fold=ctx.ln_fold, int8_flash=ctx.int8_flash,
-        qkv_quant=ctx.qkv_quant)
+        qkv_quant=ctx.qkv_quant, linear_bank=ctx.linear_bank,
+        cross_kv=ctx.cross_kv, fuse_qkv=ctx.fuse_qkv,
+        small_m=ctx.dequant_small_m)
 
 
 @torch.inference_mode()

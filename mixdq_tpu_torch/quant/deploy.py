@@ -22,10 +22,23 @@ halves slice alpha on HWIO axis 2). Layers with an
 entry never read their fp weight, which ``prune_deployed_weights`` then
 drops.
 
-Not ported here: device int4 storage
-(``use_int4_storage``, a TPU workaround), the hoisted ``time_emb_proj`` /
-cross-k/v banks (the per-layer path is numerically the same) and
-precomputed BoS outputs.
+Cross-attention k/v entries carry the first (BoS) token's FP output:
+``precompute_bos_outputs`` computes ``bos_out = emb0 @ W_fp`` on the
+unquantized weight before the prune (the reference's
+``bos_pre_computed.pt``; CLIP's causal attention makes the BoS row of
+every prompt the same), ``apply_bos_outputs`` fills it from a dict of
+rows; an entry without one keeps ``bos_w``, the dequantized weight, for
+the per-step fallback (``attach_bos_weights``).
+
+The shared-input banks: every layer of a group reads the same tensor
+(``silu(emb)`` for the ``*.time_emb_proj`` layers, the text embedding
+for the fused ``*.attn2.to_kv`` ones), so ``precompute_linear_bank`` and
+``precompute_cross_kv`` run each (K, N, act bits) group at the top of
+the UNet forward as one act-quantize and one ``qmatmul`` over a layer
+axis; each member's output equals its per-layer path bit for bit.
+
+Not ported here: device int4 storage (``use_int4_storage``, a TPU
+workaround).
 """
 
 from __future__ import annotations
@@ -55,6 +68,9 @@ class DeployEntry:
     zp_shifted: Optional[float] = None
     #: f32 [K, N] dequantized weight for the FP BoS token of cross-attn k/v
     bos_w: Optional[torch.Tensor] = None
+    #: f32 [1, N] precomputed FP output of the BoS token (``bos_w`` then
+    #: goes: an entry needs one or the other)
+    bos_out: Optional[torch.Tensor] = None
     kind: str = "linear"  # linear | conv | conv_split | fused_away
     #: ``conv_split``: input channels of ``part0``; the two halves' entries
     split: int = 0
@@ -261,10 +277,227 @@ def attach_bos_weights(deploy: Dict[str, DeployEntry]
     out = dict(deploy)
     for name, e in deploy.items():
         if ".attn2.to_k" in name or ".attn2.to_v" in name:
-            if e.kind == "linear" and not e.act_off:
+            if e.kind == "linear" and not e.act_off and e.bos_out is None:
                 out[name] = e.replace(
                     bos_w=e.codes().float() * e.w_delta()[None, :])
     return out
+
+
+def _bos_targets(deploy: Dict[str, DeployEntry]):
+    """(name, entry, members) of every cross-attention k/v entry: a fused
+    ``to_kv`` with its members ``to_k`` and ``to_v``, or an unfused
+    ``to_k`` / ``to_v`` (itself); ``fused_away`` entries are skipped."""
+    for name, e in deploy.items():
+        if name.endswith(".attn2.to_kv"):
+            prefix = name[:-len(".to_kv")]
+            yield name, e, (f"{prefix}.to_k", f"{prefix}.to_v")
+        elif ((".attn2.to_k" in name or ".attn2.to_v" in name)
+              and e.kind != "fused_away"):
+            yield name, e, (name,)
+
+
+@torch.no_grad()
+def precompute_bos_outputs(deploy: Dict[str, DeployEntry],
+                           model: torch.nn.Module,
+                           bos_embedding: torch.Tensor
+                           ) -> Dict[str, DeployEntry]:
+    """Every cross-attention k/v entry with ``bos_out = emb0 @ W_fp`` in
+    f32 on the layer's UNQUANTIZED weight (a fused ``to_kv``: its
+    members' weights side by side) and no ``bos_w``
+    (``mixdq_tpu/quant/deploy.py:384-418``). ``bos_embedding``: ``[D]``,
+    the first token of any prompt's text embedding. Run it before
+    ``prune_deployed_weights``, which drops the weights it reads."""
+    layers = quantizable_layers(model)
+    emb = bos_embedding.float().reshape(1, -1)
+    out = dict(deploy)
+    for name, e, members in _bos_targets(deploy):
+        ws = [layers[m].weight for m in members]
+        if any(w is None for w in ws):
+            raise ValueError(f"{name}: the fp weight was pruned; compute "
+                             "the BoS outputs before the prune")
+        w = torch.cat([w.float() for w in ws], 1)
+        out[name] = e.replace(bos_out=emb.to(w.device) @ w, bos_w=None)
+    return out
+
+
+def apply_bos_outputs(deploy: Dict[str, DeployEntry],
+                      bos: Dict[str, Any]) -> Dict[str, DeployEntry]:
+    """``bos_out`` of the cross-attention k/v entries from a dict of BoS
+    rows ``{layer: [1, N]}`` (``mixdq_tpu/quant/deploy.py:422-445``): a
+    fused ``to_kv`` takes its members' rows side by side, and only when
+    both are there; entries without a row stay as they are."""
+    out = dict(deploy)
+    for name, e, members in _bos_targets(deploy):
+        rows = [bos.get(m) for m in members]
+        if any(r is None for r in rows):
+            continue
+        dev = next((t.device for t in (e.scale, e.w_int, e.w_packed)
+                    if t is not None), None)
+        y0 = torch.cat([torch.as_tensor(r, dtype=torch.float32, device=dev)
+                        for r in rows], 1)
+        out[name] = e.replace(bos_out=y0, bos_w=None)
+    return out
+
+
+def bos_row(x: torch.Tensor, dp: DeployEntry, dtype) -> torch.Tensor:
+    """The FP output of the first (BoS) token of ``x`` ``[..., T, K]``
+    through entry ``dp``: its ``bos_out`` broadcast over the batch, else
+    the product with its dequantized weight ``bos_w`` (MixDQ's BoS
+    protection of cross-attention k/v)."""
+    if dp.bos_out is not None:
+        return dp.bos_out.to(dtype).expand(*x.shape[:-2], 1,
+                                           dp.bos_out.shape[-1])
+    return (x[..., :1, :].float() @ dp.bos_w).to(dtype)
+
+
+#: the constants of a bank group: the members' names and entries, their
+#: stacked codes [L, K, N], scales and bias0 [L, N], act-quantize
+#: constants [L, 1] and act clip range
+_BankGroup = Tuple[Tuple[str, ...], Tuple[DeployEntry, ...], torch.Tensor,
+                   torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                   Tuple[float, float]]
+
+
+def _codes_shape(e: DeployEntry) -> Tuple[int, int]:
+    """(K, N) of an entry's int8 codes, packed or not."""
+    if e.w_int is not None:
+        return tuple(e.w_int.shape)
+    return 2 * e.w_packed.shape[0], e.w_packed.shape[1]
+
+
+def _bank_member(e: DeployEntry) -> bool:
+    """An act-quantized, unsplit linear entry with codes: what a bank
+    takes (``mixdq_tpu/quant/deploy.py:508-511``)."""
+    return (e.kind == "linear" and not e.act_off and e.scale_inv is not None
+            and not e.split and (e.w_int is not None
+                                 or e.w_packed is not None))
+
+
+def _bank_groups(ctx: QuantCtx, suffix: str, K: int
+                 ) -> Tuple[_BankGroup, ...]:
+    """The bank groups of ``ctx``'s deploy by (K, N, act bits): every
+    act-quantized, unsplit linear entry named ``*suffix`` whose weight
+    takes ``K`` inputs (packed codes unpacked). Built once a
+    context and kind (``ctx.bank_cache``; rebuilt when an entry changes),
+    so that a step copies nothing from the host and stacks no weights."""
+    entries = bank_members(ctx.deploy, suffix, K)
+    key = (suffix, K)
+    hit = ctx.bank_cache.get(key)
+    if hit is not None and len(hit[0]) == len(entries) and all(
+            a is b for a, b in zip(hit[0], entries.values())):
+        return hit[1]
+    groups: Dict[Tuple[int, int, int], list] = {}
+    for name, e in entries.items():
+        w = e.codes()
+        groups.setdefault((w.shape[0], w.shape[1], e.a_bits), []).append(
+            (name, e, w))
+    built = []
+    for (_, _, a_bits), members in sorted(groups.items()):
+        names, es, ws = zip(*members)
+        dev = ws[0].device
+
+        def col(vals):
+            return torch.tensor(vals, dtype=torch.float32).reshape(
+                -1, 1).to(dev)
+        built.append((names, es, torch.stack(ws).contiguous(),
+                      torch.stack([e.scale for e in es]).contiguous(),
+                      torch.stack([e.bias0 for e in es]).contiguous(),
+                      col([e.scale_inv for e in es]),
+                      col([e.zp_shifted for e in es]),
+                      qops.act_clip_range(a_bits)))
+    built = tuple(built)
+    ctx.bank_cache[key] = (tuple(entries.values()), built)
+    return built
+
+
+def _bank_products(x: torch.Tensor, groups, dtype):
+    """``{name: [..., N]}``: ``x`` ``[..., K]`` act-quantized with each
+    member's constants (one elementwise pass a group), then one
+    ``qmatmul`` over the group's layer axis."""
+    from ..ops.qmatmul import qmatmul
+
+    out = {}
+    x32 = x.float().reshape(-1, x.shape[-1])
+    for names, _, w, scale, bias0, sinv, zp, (lo, hi) in groups:
+        L = len(names)
+        codes = (torch.round(x32[None] * sinv[:, :, None]) + zp[:, :, None]
+                 ).clamp_(lo, hi).to(torch.int8)
+        y = qmatmul(codes, w, scale, bias0, out_dtype=dtype)
+        y = y.reshape(L, *x.shape[:-1], w.shape[-1])
+        for i, n in enumerate(names):
+            out[n] = y[i]
+    return out
+
+
+def bank_ok(ctx: QuantCtx) -> bool:
+    """Whether a bank may run under ``ctx``: int8 mode with a deploy,
+    ``deploy_compute`` ``int8`` or ``int8_sec``, no small-M hybrid
+    (``mixdq_tpu/quant/deploy.py:494-496``, ``:582-584``)."""
+    return (ctx.mode == "int8" and bool(ctx.deploy)
+            and not ctx.dequant_small_m
+            and ctx.deploy_compute in ("int8", "int8_sec"))
+
+
+def precompute_cross_kv(ehs: torch.Tensor, ctx: QuantCtx, dtype
+                        ) -> Optional[Dict[str, torch.Tensor]]:
+    """``{fused to_kv name: [B, T, 2C]}``: every act-quantized fused
+    ``*.attn2.to_kv`` projection of the text embedding ``ehs`` ``[B, T,
+    K]`` at once, one ``qmatmul`` over a layer axis per (K, N, act bits)
+    group, with each member's BoS row (``bos_out``, else the dequantized
+    fallback) as the per-layer path gives it
+    (``mixdq_tpu/quant/deploy.py:455-559``). None where it does not apply:
+    ``ctx.cross_kv`` off, not ``bank_ok``, no fused QKV/KV, or no
+    entry."""
+    if not (ctx.cross_kv and bank_ok(ctx) and ctx.fuse_qkv) or \
+            ehs.ndim != 3:
+        return None
+    groups = _bank_groups(ctx, ".attn2.to_kv", ehs.shape[-1])
+    if not groups:
+        return None
+    bank = _bank_products(ehs.to(dtype), groups, dtype)
+    if ctx.bos_aware:
+        for names, es, *_ in groups:
+            for n, e in zip(names, es):
+                bank[n] = torch.cat([bos_row(ehs.to(dtype), e, dtype),
+                                     bank[n][..., 1:, :]], -2)
+    return bank
+
+
+def precompute_linear_bank(x: torch.Tensor, ctx: QuantCtx, dtype,
+                           suffix: str = ".time_emb_proj"
+                           ) -> Optional[Dict[str, torch.Tensor]]:
+    """``{name: [B, N]}`` (before the bias): every act-quantized linear
+    entry named ``*suffix`` applied to the shared input ``x`` ``[B, K]``,
+    one ``qmatmul`` over a layer axis per (K, N, act bits) group
+    (``mixdq_tpu/quant/deploy.py:562-631``). None where it does not
+    apply: ``ctx.linear_bank`` off, not ``bank_ok``, or no entry."""
+    if not (ctx.linear_bank and bank_ok(ctx)) or x.ndim != 2:
+        return None
+    groups = _bank_groups(ctx, suffix, x.shape[-1])
+    if not groups:
+        return None
+    return _bank_products(x.to(dtype), groups, dtype)
+
+
+def bank_members(deploy: Dict[str, DeployEntry], suffix: str, K: int
+                 ) -> Dict[str, DeployEntry]:
+    """The entries named ``*suffix`` that a bank on an input of ``K``
+    features takes (the gates of ``_bank_groups``)."""
+    return {n: e for n, e in sorted(deploy.items())
+            if n.endswith(suffix) and _bank_member(e)
+            and _codes_shape(e)[0] == K}
+
+
+def bank_group_sizes(deploy: Dict[str, DeployEntry], suffix: str, K: int
+                     ) -> Tuple[Tuple[int, int, int], ...]:
+    """(N, act bits, layers) of each group of ``bank_members``, shapes
+    only (``pipeline.expected_kernel_calls`` counts one ``qmatmul`` a
+    group)."""
+    groups: Dict[Tuple[int, int], int] = {}
+    for e in bank_members(deploy, suffix, K).values():
+        g = (_codes_shape(e)[1], e.a_bits)
+        groups[g] = groups.get(g, 0) + 1
+    return tuple((n, a, c) for (n, a), c in sorted(groups.items()))
 
 
 def prune_deployed_weights(model: torch.nn.Module,

@@ -252,6 +252,22 @@ class QuantCtx:
       runs QK^T in int8 (``'qk'``: ``int8_flash_attention``), QK^T and PV
       in int8 (``'qkv'``: ``int8qkv_flash_attention``) or in bf16
       (``'off'``): ``MIXDQ_INT8_FLASH`` ``"qk"`` / ``"1"`` / ``"0"``.
+    * ``linear_bank``: every act-quantized ``*.time_emb_proj`` entry, all
+      reading the same ``silu(emb)``, runs at the top of the UNet forward
+      as one ``qmatmul`` over a layer axis per (K, N, act bits) group
+      (``deploy.precompute_linear_bank``): ``MIXDQ_LINEAR_BANK``, on by
+      default as there (``"0"`` turns it off).
+    * ``cross_kv``: every fused cross-attention ``*.attn2.to_kv`` entry,
+      all reading the same text embedding, likewise, with its BoS row
+      (``deploy.precompute_cross_kv``): ``MIXDQ_CROSS_KV``, off by
+      default as there (``"1"`` turns it on).
+    * ``dequant_small_m``: the small-M hybrid. A dense layer or 1x1 conv
+      whose GEMM has at most this many rows (batch x tokens or pixels)
+      runs weight-only (``'dequant'``) instead of act-quantized int8;
+      then no LayerNorm producer, no GroupNorm producer before
+      ``proj_in``, no GEGLU kernel and no ``sec_attention*`` kernel runs,
+      and neither bank (``mixdq_tpu/quant/state.py:276-287``); 0, the
+      default, turns it off.
 
     ``deploy_compute`` (int8 mode): ``'int8_sec'`` (the port's default;
     the JAX package's default is ``'int8'``): every spatial conv on the
@@ -282,11 +298,18 @@ class QuantCtx:
     out_fuse: frozenset = DEFAULT_OUT_FUSE
     ln_fold: bool = True
     int8_flash: str = "off"
+    linear_bank: bool = True
+    cross_kv: bool = False
+    dequant_small_m: int = 0
     wq: QuantSpec = _WQ_DEFAULT
     aq: QuantSpec = _AQ_DEFAULT
     softmax_aq: Optional[QuantSpec] = None
     qkv_quant: bool = False
     soft_round: bool = False
+    #: the banks' stacked constants, built at a step's first use
+    #: (``deploy._bank_groups``); a replaced context starts empty
+    bank_cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                         compare=False, repr=False)
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -308,6 +331,14 @@ class QuantCtx:
         if self.int8_flash not in INT8_FLASH:
             raise ValueError(f"int8_flash {self.int8_flash!r}: one of "
                              f"{INT8_FLASH}")
+        for f in ("linear_bank", "cross_kv"):
+            if not isinstance(getattr(self, f), bool):
+                raise ValueError(f"{f} {getattr(self, f)!r}: a bool")
+        if not isinstance(self.dequant_small_m, int) or \
+                isinstance(self.dequant_small_m, bool) or \
+                self.dequant_small_m < 0:
+            raise ValueError(f"dequant_small_m {self.dequant_small_m!r}: "
+                             "an int >= 0")
 
     def entry(self, name: str):
         """The deploy entry of layer ``name`` in int8 mode, else None."""

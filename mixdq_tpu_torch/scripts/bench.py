@@ -5,6 +5,7 @@
         [--batch 1] [--iters 10] [--inner 8] [--rounds 3] \\
         [--backend int8_fq_sec|dequant] [--w-bits 8] \\
         [--mp-w W.yaml] [--mp-a A.yaml] [--mp-protect P.yaml] [--attn auto]
+        [--small_m N]
 
 Prints ONE JSON line on stdout, ``{"metric", "value", "unit",
 "vs_baseline", "bf16_ms", "host_fingerprint_ms"}``: ``value`` the
@@ -23,7 +24,9 @@ divided by ``iters * inner``. The quantized deploy: calibrated on the
 bench's one request, every layer W``--w-bits``A8, then the bit maps and
 the act-protect list where given (``pipeline.quantize_mixed``):
 ``int8_fq_sec`` runs ``int8_sec`` with fused QKV/KV projections,
-``dequant`` the weight-only compute. Each variant's memory (static and
+``dequant`` the weight-only compute; ``--small_m N`` sets the small-M
+hybrid (``QuantCtx.dequant_small_m``) of an ``int8_fq_sec`` deploy, as
+the root ``bench.py``'s ``MIXDQ_BENCH_SMALLM`` does. Each variant's memory (static and
 the peak of one eager step, ``utils.profiling.measure_memory``) and the
 device's after capture go to stderr. It needs a CUDA device.
 """
@@ -77,6 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--mp-a", help="per-layer act bit map (flat YAML)")
     p.add_argument("--mp-protect", help="act-protect layer list (flat YAML)")
     p.add_argument("--attn", default="auto", choices=("auto", "einsum"))
+    p.add_argument("--small_m", type=int, default=0, metavar="N",
+                   help="int8_fq_sec: dense layers and 1x1 convs of at most "
+                        "N GEMM rows run weight-only (0: off)")
     return p.parse_args(argv)
 
 
@@ -104,7 +110,9 @@ def main(argv=None) -> int:
     ctx = pipeline.quantize_mixed(unet, inputs, wmap, amap, protect,
                                   deploy_compute=COMPUTE[args.backend],
                                   w_bits=args.w_bits)
-    ctx = dataclasses.replace(ctx, attn_impl=args.attn)
+    ctx = dataclasses.replace(
+        ctx, attn_impl=args.attn, dequant_small_m=(
+            args.small_m if ctx.deploy_compute == "int8_sec" else 0))
     fp_ctx = dataclasses.replace(FP_CTX, attn_impl=args.attn)
     log(f"deploy: {len(ctx.deploy)} entries, {time.time() - t0:.1f}s")
 

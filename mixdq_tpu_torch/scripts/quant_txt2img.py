@@ -17,8 +17,11 @@ control; the q/k/v/softmax quantizers are on when the config enables
 ``quant.softmax``) or deploys the UNet int8 (``--backend int8``:
 ``int8_sec``, every JAX family's ``default_deploy_compute``;
 ``conv_split`` entries for the concat-shortcut convs; BoS-aware as
-``inference.bos_aware``; fused QKV/KV with ``--fuse_qkv``), drops the
-fp weights the deploy replaces and writes the images as PNGs to
+``inference.bos_aware``, the BoS rows of every cross-attention k/v entry
+then computed once on the unquantized weights from the empty prompt's
+first text token, as the JAX script does: ``precompute_bos_outputs``;
+fused QKV/KV with ``--fuse_qkv``), drops the fp weights the deploy
+replaces and writes the images as PNGs to
 ``--outdir`` (default
 ``BASE/generated_images``). Batch ``k`` draws its noise from a generator
 seeded ``seed + k``. Attention runs the JAX script's path (the context's
@@ -29,6 +32,7 @@ cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -37,7 +41,8 @@ import torch
 from ..pipelines.loader import build_pipeline, specs_from_config
 from ..quant.bitmaps import load_bit_map, load_layer_list
 from ..quant.checkpoint import load_qparams
-from ..quant.deploy import deploy_unet_ctx, prune_deployed_weights
+from ..quant.deploy import (deploy_unet_ctx, precompute_bos_outputs,
+                            prune_deployed_weights)
 from ..quant.state import (QuantCtx, apply_bitwidth_config,
                            protect_layers, quantizable_layers, uniform_ctrl)
 from ..utils.config import load_config
@@ -126,11 +131,18 @@ def main(argv=None):
     if args.backend == "fake":
         ctx = build_quant_ctx(cfg, pipe, qparams, args)
     else:
+        bos_aware = cfg.inference.get("bos_aware", True)
         ctx = deploy_unet_ctx(
             pipe.unet, qparams, build_ctrl(cfg, pipe, qparams, args),
-            specs_from_config(cfg)[0],
-            bos_aware=cfg.inference.get("bos_aware", True),
+            specs_from_config(cfg)[0], bos_aware=bos_aware,
             fuse_qkv=args.fuse_qkv, splits=pipe.splits)
+        if bos_aware:
+            # the BoS token's text embedding is the same for every prompt
+            # (causal attention): its k/v rows once, on the fp weights,
+            # before the prune (scripts/quant_txt2img.py:117-125)
+            embeds, _ = pipe.encode_prompt(pipe.tokens([""]))
+            ctx = dataclasses.replace(ctx, deploy=precompute_bos_outputs(
+                ctx.deploy, pipe.unet, embeds[0, 0]))
         prune_deployed_weights(pipe.unet, ctx.deploy)
     _sync(pipe)
     seconds["deploy"] = time.perf_counter() - t0
