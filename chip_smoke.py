@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: W8A8 and mixed-precision
 SDXL-Turbo (512 px) and W8A8 SDXL (1024 px) UNet steps through the
 hand-written kernels, eager and captured in CUDA graphs, the kernel
-benchmark, and the serving path (prompts to images) at full SDXL-Turbo
-width, one CUDA graph a batch.
+benchmark, the serving path (prompts to images) at full SDXL-Turbo
+width, one CUDA graph a batch, and the port's CLIs on the PTQ flow's
+files.
 
     python3 chip_smoke.py
 
@@ -177,6 +178,22 @@ Phases (none catches its own failure; any failure exits non-zero):
    ``ELECTED_SQNR_DB``, failed by conv_out's scale negated; graphed,
    launches); ``quant_error --target weight`` (SQNR rising with the bits,
    failed by a delta 32 times too large) and ``--target arch``.
+13. The evaluation half of the search and the root CLIs on phase 10's
+   files (``phase_eval_clis``), each through its ``main(argv)``:
+   ``evaluate --matrix w8_int8,w8_sec,w4_sec,mp_sec`` (4 prompts at
+   batch 2; a random ViT-L/14 CLIP vision tower and Inception3 written
+   as HF / torchvision state dicts and read by ``utils/torch_convert.py``;
+   every report key in the JAX order and finite, each entry's launches
+   its ``ctx_kernel_calls`` x 2, |FID(FP, FP)| within ``FID_SELF_REL`` of
+   its scale, a planted fault's FID, ``conv_out``'s scale negated, above
+   the sound entry's); ``serve_bench --steps 30 --batch_size 4`` (the
+   JAX keys; both engines' launches at capture); ``memory_compare`` at B
+   = 1 under ``int8_sec`` (static saving >= ``MEM_STATIC_SAVING``, failed
+   by a deploy whose fp weights are not pruned) and ``dequant --pack_w4
+   --w_bits 4``; ``batch_sweep --batches 1,2,4,8`` (graph launches, times
+   logged); ``txt2img`` (PNGs read back equal to its images) and ``serve
+   --backend int8`` (PNGs, launches at capture, ms a batch). Each gate
+   has a planted fault that must fail it.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line; every line but the
@@ -448,6 +465,35 @@ ELECTED_SQNR_DB = 3.0
 
 # qmatmul over a layer axis (L, M, K, N) in phase 1
 BANK_QMATMULS = ((5, 1, 1280, 640), (60, 77, 2048, 2560))
+
+# phase 13: evaluate's matrix, prompts and batch; its UNet calls per
+# entry (2 batches of one step)
+EVAL_MATRIX = ("w8_int8", "w8_sec", "w4_sec", "mp_sec")
+EVAL_PROMPTS, EVAL_BATCH = 4, 2
+EVAL_UNET_CALLS = 2
+EVAL_SEED = 13
+# the report's keys after an entry's fields (the JAX script's order)
+EVAL_KEYS = ("n_prompts", "ssim_mean", "pixel_mse_mean",
+             "latent_sqnr_db_mean", "clip_fid", "clip_cosine_mean",
+             "inception_fid")
+# |FID(FP, FP)| against the distance's scale tr C + tr C: four images in
+# 2048 dimensions (rank 3) in f32, the square roots' clipped null
+# eigenvalues leave about 1.5% of the scale (-0.93 of 63.27 on the card;
+# the planted fault reads 5.8 times its scale)
+FID_SELF_REL = 0.05
+# memory_compare's W8A8 static saving: bf16 -> int8 codes halves the
+# UNet's 2.57 B weights (5.14 GB -> 2.57 GB, plus f32 scales and biases,
+# the time-embedding bank and the BoS rows: ~1.9x); the planted fault,
+# the fp weights not pruned, reads ~0.67x
+MEM_STATIC_SAVING = 1.7
+SERVE_BENCH_KEYS = ("family", "steps", "batch_size", "deploy_compute",
+                    "quantize_vae", "fp_imgs_per_sec", "int8_imgs_per_sec",
+                    "speedup", "ssim_vs_fp", "fp_batch_ms",
+                    "host_fingerprint_ms")
+SERVE_BENCH_STEPS, SERVE_BENCH_BATCH = 30, 4
+SWEEP_BATCHES = (1, 2, 4, 8)
+SWEEP_KEYS = ("B", "bf16_ms", "int8_ms", "speedup", "ms_per_img",
+              "host_fingerprint_ms")
 
 # every function of the JAX package that reaches pl.pallas_call
 TPU_KERNELS = [
@@ -4073,6 +4119,445 @@ def phase_search(torch, dev, card, exp, tmp):
     return launches
 
 
+def inception_state_dict(torch, seed):
+    """A torchvision-named ``Inception3`` state dict at full width, random
+    from ``seed``: every conv of ``InceptionV3Features`` as OIHW
+    (He-scaled) with its BatchNorm's weight, bias, running statistics and
+    ``num_batches_tracked``, plus the ``fc`` head and an ``AuxLogits``
+    conv, which the reader skips."""
+    from mixdq_tpu_torch.models.inception import InceptionV3Features
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, p in InceptionV3Features(device="meta").named_parameters():
+        if not name.endswith(".conv.weight"):
+            continue
+        kh, kw, ci, co = p.shape
+        pre = name[:-len(".conv.weight")]
+        sd[pre + ".conv.weight"] = torch.randn(
+            co, ci, kh, kw, generator=g) * (2.0 / (kh * kw * ci)) ** 0.5
+        sd[pre + ".bn.weight"] = torch.rand(co, generator=g) + 0.5
+        sd[pre + ".bn.bias"] = torch.randn(co, generator=g) * 0.1
+        sd[pre + ".bn.running_mean"] = torch.randn(co, generator=g) * 0.1
+        sd[pre + ".bn.running_var"] = torch.rand(co, generator=g) + 0.5
+        sd[pre + ".bn.num_batches_tracked"] = torch.tensor(1)
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    sd["AuxLogits.conv0.conv.weight"] = torch.randn(128, 768, 1, 1,
+                                                    generator=g) * 0.05
+    return sd
+
+
+def clip_vision_state_dict(torch, dev, seed):
+    """An HF ``CLIPVisionModelWithProjection`` state dict of ViT-L/14
+    (``CLIPVisionConfig()``: 24 layers of 1024, projection 768), random
+    from ``seed`` (drawn on the card, returned on the CPU): dense and
+    embedding weights N(0, 0.02), biases 0, norm scales 1."""
+    from mixdq_tpu_torch.models.configs import CLIPVisionConfig
+
+    cfg = CLIPVisionConfig()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c, i, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+    n_pos = (cfg.image_size // p) ** 2 + 1
+
+    def r(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.02).cpu()
+    pre = "vision_model."
+    sd = {pre + "embeddings.class_embedding": r(c),
+          pre + "embeddings.patch_embedding.weight": r(c, 3, p, p),
+          pre + "embeddings.position_embedding.weight": r(n_pos, c),
+          pre + "embeddings.position_ids": torch.arange(n_pos)[None],
+          "visual_projection.weight": r(cfg.projection_dim, c)}
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        sd[f"{pre}{ln}.weight"], sd[f"{pre}{ln}.bias"] = (torch.ones(c),
+                                                          torch.zeros(c))
+    for li in range(cfg.num_layers):
+        lp = f"{pre}encoder.layers.{li}."
+        for proj in ("q", "k", "v", "out"):
+            sd[lp + f"self_attn.{proj}_proj.weight"] = r(c, c)
+            sd[lp + f"self_attn.{proj}_proj.bias"] = torch.zeros(c)
+        sd[lp + "mlp.fc1.weight"], sd[lp + "mlp.fc1.bias"] = (
+            r(i, c), torch.zeros(i))
+        sd[lp + "mlp.fc2.weight"], sd[lp + "mlp.fc2.bias"] = (
+            r(c, i), torch.zeros(c))
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[lp + ln + ".weight"], sd[lp + ln + ".bias"] = (
+                torch.ones(c), torch.zeros(c))
+    return sd
+
+
+def read_png(path):
+    """An 8-bit RGB PNG of unfiltered scanlines (``utils/images.py``'s)
+    as uint8 ``[H, W, 3]``."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        if kind == b"IHDR":
+            w, h = struct.unpack(">II", data[pos + 8:pos + 16])
+        elif kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def fid_scale(feats):
+    """tr C of ``[N, D]`` features: a FID's scale."""
+    import numpy as np
+
+    return float(np.trace(np.cov(np.asarray(feats, np.float64).T)))
+
+
+def counted_since_reset(label, want):
+    """The launch counts read now (set to 0 just before the CLI ran) must
+    be ``want``: every launch of the run accounted for."""
+    from mixdq_tpu_torch import ops
+
+    got = ops.launch_counts()
+    if got != want or ops.call_counts() != got:
+        raise AssertionError(f"{label}: launches since the reset {got}, "
+                             f"calls {ops.call_counts()}, expected {want}")
+
+
+def times_calls(calls, n):
+    """``calls`` (launches by kernel) ``n`` times over."""
+    return {k: v * n for k, v in calls.items()}
+
+
+def report_ok(report, name):
+    """Every key of the JAX script's report, in its order, the numbers
+    finite."""
+    fields = ["backend", "deploy_compute", "fuse_qkv", "w_bits"] + (
+        ["config_weight_mp", "config_act_mp", "act_protect"]
+        if name == "mp_sec" else [])
+    return list(report) == fields + list(EVAL_KEYS) and all(
+        math.isfinite(report[k]) for k in EVAL_KEYS)
+
+
+def phase_evaluate(torch, exp, tmp, card):
+    """Phase 13a: ``evaluate --matrix w8_int8,w8_sec,w4_sec,mp_sec`` on
+    phase 10's files (``configs/mp/sdxl_turbo`` for ``mp_sec``), 4
+    prompts at batch 2, with a random ViT-L/14 CLIP vision tower and a
+    random Inception3 written as public state dicts (HF and torchvision
+    names) and read by ``utils/torch_convert.py``. Gates: every report's
+    keys in the JAX order, finite (failed by a NaN planted in a copy);
+    each entry's launches = its ``ctx_kernel_calls`` x 2 UNet calls
+    (counted by ``evaluate`` around the entry's generation, each context
+    read through a patched ``evaluate.matrix_ctx``; failed by the
+    w8_int8 entry's counts against w8_sec's); |FID(FP, FP)| within
+    ``FID_SELF_REL`` of its scale, and the FID of a planted fault (a
+    second run of w8_sec with ``conv_out``'s scale negated) above the
+    sound w8_sec's and outside that limit. Logs the reports and the
+    seconds. Returns {path: launches of one UNet call}."""
+    import numpy as np
+
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.models.configs import get_family
+    from mixdq_tpu_torch.scripts import evaluate
+    from mixdq_tpu_torch.utils.fid import fid_from_features
+
+    t0 = time.time()
+    paths = {"inception": os.path.join(tmp, "inception3.pt"),
+             "clip": os.path.join(tmp, "clip_vit_l14.pt")}
+    torch.save(inception_state_dict(torch, EVAL_SEED), paths["inception"])
+    torch.save(clip_vision_state_dict(torch, torch.device("cuda"),
+                                      EVAL_SEED + 1), paths["clip"])
+    t_write = time.time() - t0
+    log(f"evaluate: random towers written ({t_write:.1f}s): Inception3 "
+        f"{os.path.getsize(paths['inception'])} bytes, CLIP ViT-L/14 "
+        f"{os.path.getsize(paths['clip'])} bytes")
+    cfg_unet = get_family("sdxl-turbo").unet
+    expect = {}
+    matrix_ctx = evaluate.matrix_ctx
+
+    def record(name, *args):
+        fields, ctx = matrix_ctx(name, *args)
+        expect[name] = pipeline.ctx_kernel_calls(cfg_unet, ctx)
+        return fields, ctx
+
+    def faulted(name, *args):
+        fields, ctx = matrix_ctx(name, *args)
+        return fields, negated_scale_ctx(ctx, "conv_out")
+    final = os.path.join(MP_DIR, "final_config")
+    argv = ["--base_path", exp, "--n_prompts", str(EVAL_PROMPTS),
+            "--batch_size", str(EVAL_BATCH),
+            "--config_weight_mp", os.path.join(final, "weight", "5.04.yaml"),
+            "--config_act_mp", os.path.join(final, "act", "7.43.yaml"),
+            "--act_protect", os.path.join(MP_DIR, "act_protect.yaml"),
+            "--clip_vision_ckpt", paths["clip"],
+            "--inception_ckpt", paths["inception"]]
+    ops.reset_counts()
+    with patched(evaluate, "matrix_ctx", record):
+        ev = evaluate.main(argv + ["--matrix", ",".join(EVAL_MATRIX)])
+    counted_since_reset("evaluate", {
+        k: sum(ev["entries"][n]["launches"][k] for n in EVAL_MATRIX)
+        for k in ev["entries"][EVAL_MATRIX[0]]["launches"]})
+    launches = {}
+    for name in EVAL_MATRIX:
+        report, res = ev["reports"][name], ev["entries"][name]
+        want = times_calls(expect[name], EVAL_UNET_CALLS)
+        log(f"evaluate {name}: " + json.dumps(report) + "; seconds "
+            + json.dumps({k: round(v, 2) for k, v in res["seconds"].items()})
+            + "; launches " + json.dumps(
+                {k: v for k, v in res["launches"].items() if v}))
+        if not report_ok(report, name) or res["launches"] != want:
+            raise AssertionError(f"evaluate {name}: report {report}, "
+                                 f"launches {res['launches']}, expected "
+                                 f"{want}")
+        launches[f"evaluate {name}"] = {
+            k: v // EVAL_UNET_CALLS for k, v in res["launches"].items()}
+    bad = dict(ev["reports"]["w8_sec"], inception_fid=math.nan)
+    wrong = times_calls(expect["w8_int8"], EVAL_UNET_CALLS)
+    if report_ok(bad, "w8_sec") or \
+            ev["entries"]["w8_sec"]["launches"] == wrong:
+        raise AssertionError("evaluate: the planted report or launch fault "
+                             "passed its gate")
+    sec = ev["seconds"]
+    log("evaluate seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in sec.items()}))
+    with patched(evaluate, "matrix_ctx", faulted):
+        bad_ev = evaluate.main(argv + ["--matrix", "w8_sec"])
+    fp = ev["fp"]["features"]["inception"]
+    scale = 2 * fid_scale(fp)
+    self_fid = fid_from_features(fp, fp)
+    sound = ev["reports"]["w8_sec"]["inception_fid"]
+    fault = bad_ev["reports"]["w8_sec"]["inception_fid"]
+    fault_scale = fid_scale(fp) + fid_scale(
+        bad_ev["entries"]["w8_sec"]["features"]["inception"])
+    log(f"evaluate FID: FP vs FP {self_fid:.4f} (scale tr C + tr C "
+        f"{scale:.4f}, limit {FID_SELF_REL} of it); w8_sec "
+        f"{sound:.4f}; the planted fault (conv_out's scale negated) "
+        f"{fault:.4f} (its scale {fault_scale:.4f}); clip_fid w8_sec "
+        f"{ev['reports']['w8_sec']['clip_fid']:.6f}, the fault's "
+        f"{bad_ev['reports']['w8_sec']['clip_fid']:.6f}; fp images equal "
+        f"across the two runs "
+        f"{np.array_equal(ev['fp']['images'], bad_ev['fp']['images'])}")
+    if abs(self_fid) > FID_SELF_REL * scale or not fault > sound or \
+            abs(fault) <= FID_SELF_REL * fault_scale:
+        raise AssertionError(f"evaluate FID: self {self_fid} (scale "
+                             f"{scale}), w8_sec {sound}, fault {fault}")
+    log(f"phase 13a: evaluate ok ({time.time() - t0:.1f}s; {card})")
+    return launches
+
+
+def phase_serve_bench(torch, exp, card):
+    """Phase 13b: ``serve_bench --steps 30 --batch_size 4`` on phase 10's
+    files: the JSON line's keys (the JAX script's), each engine's
+    launches at capture = its path's launches x 30 steps (bf16 einsum:
+    none; the W8A8 ``int8_sec`` deploy: ``ctx_kernel_calls``; failed by
+    the counts of the same deploy without the time-embedding bank); the
+    counts set to 0 just before the CLI and read just after must be the
+    warm-up calls' and captures' (``counted_since_reset``). Returns
+    {path: launches of one UNet step}."""
+    import dataclasses
+
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.models.configs import get_family
+    from mixdq_tpu_torch.pipelines import graphed
+    from mixdq_tpu_torch.scripts import serve_bench
+
+    t0 = time.time()
+    ops.reset_counts()
+    out = serve_bench.main(["--base_path", exp, "--steps",
+                            str(SERVE_BENCH_STEPS), "--batch_size",
+                            str(SERVE_BENCH_BATCH), "--rounds", "2"])
+    cfg_unet = get_family("sdxl-turbo").unet
+    res, ctx = out["result"], out["ctx"]
+
+    want_fp = times_calls(pipeline.expected_kernel_calls(
+        cfg_unet, "einsum", mode="fp"), SERVE_BENCH_STEPS)
+    want_q = times_calls(pipeline.ctx_kernel_calls(cfg_unet, ctx),
+                         SERVE_BENCH_STEPS)
+    wrong = times_calls(pipeline.ctx_kernel_calls(
+        cfg_unet, dataclasses.replace(ctx, linear_bank=False)),
+        SERVE_BENCH_STEPS)
+    got_fp, got_q = (out["engines"][k].launches for k in ("fp", "int8"))
+    log("serve_bench: " + json.dumps(res) + "; rounds (fp, int8 ms) "
+        + json.dumps([[round(a, 1), round(b, 1)] for a, b in out["rounds"]])
+        + "; int8 engine launches at capture "
+        + json.dumps({k: v for k, v in got_q.items() if v}))
+    # each engine's warm-up calls and capture launch; its replays count
+    # nothing
+    counted_since_reset("serve_bench", times_calls(
+        want_q, graphed.WARMUP + 1))
+    if tuple(res) != SERVE_BENCH_KEYS or got_fp != want_fp or \
+            got_q != want_q or got_q == wrong:
+        raise AssertionError(f"serve_bench: keys {list(res)}, launches fp "
+                             f"{got_fp} (expected {want_fp}), int8 {got_q} "
+                             f"(expected {want_q})")
+    log(f"phase 13b: serve_bench ok ({time.time() - t0:.1f}s; ssim_vs_fp "
+        f"{res['ssim_vs_fp']}; {card})")
+    return {"serve_bench int8": {k: v // SERVE_BENCH_STEPS
+                                 for k, v in got_q.items()}}
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block (a CLI's
+    inspection point or planted fault)."""
+    keep = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, keep)
+
+
+def phase_memory_compare(torch, card):
+    """Phase 13c: ``memory_compare --batch 1 --json`` under ``--compute
+    int8_sec`` (gate: the static saving >= ``MEM_STATIC_SAVING``, failed
+    by the deploy with its fp weights not pruned) and under ``--compute
+    dequant --pack_w4 --w_bits 4`` (logged)."""
+    from mixdq_tpu_torch.scripts import memory_compare
+
+    t0 = time.time()
+    w8 = memory_compare.main(["--batch", "1", "--compute", "int8_sec",
+                              "--json"])
+    w4 = memory_compare.main(["--batch", "1", "--compute", "dequant",
+                              "--pack_w4", "--w_bits", "4", "--json"])
+    # the planted fault: deploys that keep the fp weights they replace
+    with patched(memory_compare, "prune_deployed_weights",
+                 lambda model, deploy: None):
+        bad, _, _ = memory_compare.unet_mem("sdxl-turbo", 1,
+                                            quant="int8_sec")
+    s0 = w8["bf16"][0]
+    log("memory_compare (MB, static / dynamic / peak at B = 1): bf16 "
+        + json.dumps([round(v, 1) for v in w8["bf16"]]) + f", {w8['config']} "
+        + json.dumps([round(v, 1) for v in w8["quant"]]) + f", {w4['config']} "
+        + json.dumps([round(v, 1) for v in w4["quant"]]) + " (its bf16 run "
+        + json.dumps([round(v, 1) for v in w4["bf16"]]) + "); static saving "
+        f"{w8['static_saving']:.3f}x / {w4['static_saving']:.3f}x, peak "
+        f"saving {w8['peak_saving']:.3f}x / {w4['peak_saving']:.3f}x; the "
+        f"planted fault (not pruned) static {bad:.1f} MB, saving "
+        f"{s0 / bad:.3f}x (gate {MEM_STATIC_SAVING}x)")
+    if w8["static_saving"] < MEM_STATIC_SAVING or \
+            s0 / bad >= MEM_STATIC_SAVING:
+        raise AssertionError(f"memory_compare: static saving "
+                             f"{w8['static_saving']}, fault {s0 / bad}")
+    log(f"phase 13c: memory_compare ok ({time.time() - t0:.1f}s; {card})")
+
+
+def phase_batch_sweep(torch, card):
+    """Phase 13d: ``batch_sweep --batches 1,2,4,8`` (2 rounds, 2 replays
+    of 2 chained steps): one JSON line a B with the JAX keys, each graph's
+    launches at capture = its path's launches x 2 (bf16 ``'auto'``: none
+    at 512 px; the W8A8 ``int8_sec`` ``'auto'`` deploy:
+    ``ctx_kernel_calls``), and the counts since the reset just before the
+    CLI its graphs' warm-ups and captures. Times logged, not gated.
+    Returns {path: launches of one step}."""
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.models.configs import get_family
+    from mixdq_tpu_torch.pipelines import graphed
+    from mixdq_tpu_torch.scripts import batch_sweep
+
+    t0 = time.time()
+    inner = 2
+    ops.reset_counts()
+    out = batch_sweep.main(["--batches", ",".join(map(str, SWEEP_BATCHES)),
+                            "--rounds", "2", "--iters", "2", "--inner",
+                            str(inner)])
+    cfg_unet = get_family("sdxl-turbo").unet
+    want_q = times_calls(pipeline.ctx_kernel_calls(cfg_unet, out["ctx"]),
+                         inner)
+    want_fp = times_calls(pipeline.expected_kernel_calls(
+        cfg_unet, "auto", mode="fp"), inner)
+    # the calibration (FP) launches none; each graph its warm-up calls
+    # and capture
+    counted_since_reset("batch_sweep", times_calls(
+        want_q, len(SWEEP_BATCHES) * (graphed.WARMUP + 1)))
+    for row in out["rows"]:
+        log("batch_sweep: " + json.dumps(row))
+        g = out["graphs"][row["B"]]
+        if tuple(row) != SWEEP_KEYS or g["int8"].launches != want_q or \
+                g["bf16"].launches != want_fp:
+            raise AssertionError(f"batch_sweep B={row['B']}: {row}, "
+                                 f"launches {g['int8'].launches}, expected "
+                                 f"{want_q}")
+    log(f"phase 13d: batch_sweep ok ({time.time() - t0:.1f}s; {card})")
+    return {"batch_sweep int8": {k: v // inner for k, v in want_q.items()}}
+
+
+def phase_txt2img_serve(torch, exp, tmp, card):
+    """Phase 13e: ``txt2img`` (2 images at batch 2 from phase 10's config)
+    and ``serve --backend int8`` (2 batches of 2): the PNGs read back and
+    counted, txt2img's equal to the images it generated, the serving
+    engine's launches at capture = ``ctx_kernel_calls`` of its deploy
+    (one step), and the counts since the reset just before ``serve`` its
+    warm-ups' and capture's; per-batch ms logged. Returns {path: launches
+    of one step}."""
+    import numpy as np
+
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.models.configs import get_family
+    from mixdq_tpu_torch.pipelines import graphed
+    from mixdq_tpu_torch.scripts import serve, txt2img
+
+    t0 = time.time()
+    fp = txt2img.main(["--config", os.path.join(exp, "config.yaml"),
+                       "--outdir", os.path.join(tmp, "fp_images"),
+                       "--n_images", "2", "--batch_size", "2"])
+    got = np.stack([read_png(p) for p in fp["paths"]])
+    want = (np.concatenate(fp["images"]) * 255).astype(np.uint8)
+    if len(fp["paths"]) != 2 or not np.array_equal(got, want):
+        raise AssertionError(f"txt2img: {len(fp['paths'])} PNGs, equal "
+                             f"{np.array_equal(got, want)}")
+    del fp
+    gc_cuda(torch)
+    ops.reset_counts()
+    srv = serve.main(["--base_path", exp, "--backend", "int8",
+                      "--batch_size", "2", "--n_batches", "2",
+                      "--outdir", os.path.join(tmp, "serve_out")])
+    eng = srv["engine"]
+    want_calls = pipeline.ctx_kernel_calls(get_family("sdxl-turbo").unet,
+                                           eng.ctx)
+    counted_since_reset("serve", times_calls(want_calls,
+                                             graphed.WARMUP + 1))
+    shapes = {read_png(p).shape for p in srv["paths"]}
+    log(f"serve --backend int8: {len(srv['paths'])} PNGs {shapes}, "
+        f"compiled (captured) in {srv['compile_s']:.2f}s, batch ms "
+        + json.dumps([round(v, 2) for v in srv["batch_ms"]])
+        + f" (B = 2, deploy_compute {eng.ctx.deploy_compute}, attention "
+        f"{eng.ctx.attn_impl})")
+    if len(srv["paths"]) != 4 or shapes != {(512, 512, 3)} or \
+            eng.launches != want_calls:
+        raise AssertionError(f"serve: {len(srv['paths'])} PNGs {shapes}, "
+                             f"launches {eng.launches}, expected "
+                             f"{want_calls}")
+    log(f"phase 13e: txt2img and serve ok ({time.time() - t0:.1f}s; {card})")
+    return {"serve int8": dict(eng.launches)}
+
+
+def phase_eval_clis(torch, dev, card, exp, tmp):
+    """Phase 13: the search's evaluation half and the root CLIs on phase
+    10's files, each through its ``main(argv)`` (``phase_evaluate``,
+    ``phase_serve_bench``, ``phase_memory_compare``,
+    ``phase_batch_sweep``, ``phase_txt2img_serve``). Returns {path:
+    launches of one UNet step}."""
+    t0 = time.time()
+    launches = phase_evaluate(torch, exp, tmp, card)
+    gc_cuda(torch)
+    launches.update(phase_serve_bench(torch, exp, card))
+    gc_cuda(torch)
+    phase_memory_compare(torch, card)
+    gc_cuda(torch)
+    launches.update(phase_batch_sweep(torch, card))
+    gc_cuda(torch)
+    launches.update(phase_txt2img_serve(torch, exp, tmp, card))
+    gc_cuda(torch)
+    log(f"phase 13: {time.time() - t0:.1f}s")
+    return launches
+
+
 def gc_cuda(torch):
     import gc
 
@@ -4190,12 +4675,18 @@ def main():
         search_launches = phase_search(torch, dev, card, exp, tmp)
         log(f"phase 12: BoS outputs, banks, small-M, the search, the ILP, "
             f"the elected map and quant_error ok ({time.time() - t0:.1f}s)")
+        gc_cuda(torch)
+        eval_launches = phase_eval_clis(torch, dev, card, exp, tmp)
+        log("phase 13: evaluate (FID, CLIP towers), serve_bench, "
+            "memory_compare, batch_sweep, txt2img and serve ok")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     per_step.update(fake_launches)
     totals.update(fake_launches)
     per_step.update(search_launches)
     totals.update(search_launches)
+    per_step.update(eval_launches)
+    totals.update(eval_launches)
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",

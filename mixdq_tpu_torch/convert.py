@@ -6,10 +6,13 @@ Flax module paths map to the port's module names through
 ``down_blocks.0.resnets.1.conv1``; the VAE's ``up_blocks_0_resnets_1``
 stays as it is). Leaves: ``kernel`` (HWIO or ``[K, N]``, kept as is),
 norm ``scale`` and ``nn.Embed``'s ``embedding`` -> ``weight``; ``bias``
--> ``bias``; the raw params of a module (CLIP's ``position_embedding``)
-keep their names. The same function carries the UNet's, the CLIP
-towers' and the VAE's params (``quant_conv`` / ``post_quant_conv``
-included).
+-> ``bias``; the raw params of a module (CLIP's ``position_embedding``
+and the image tower's ``class_embedding``) keep their names. The same
+function carries the UNet's, the CLIP towers' and the VAE's params
+(``quant_conv`` / ``post_quant_conv`` included), and those of the
+evaluation towers (``CLIPVisionModel``, ``InceptionV3Features``: their
+flax names are HF's and torchvision's, which ``canonical_name`` leaves as
+they are but for ``layers_i``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .quant.state import LayerQParams, canonical_name
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
 #: params a module holds directly (``self.param``), not through a layer
-_RAW = ("position_embedding",)
+_RAW = ("position_embedding", "class_embedding")
 
 
 def _flatten(tree: Dict[str, Any], path: Tuple[str, ...] = ()):

@@ -1,6 +1,7 @@
-"""CLIP text encoders (port of ``mixdq_tpu/models/clip.py:25-117``): the
-ViT-L/14 text tower, and OpenCLIP bigG with its pooled projection, which
-SDXL adds.
+"""CLIP text encoders and the CLIP image tower (port of
+``mixdq_tpu/models/clip.py``): the ViT-L/14 text tower, OpenCLIP bigG with
+its pooled projection, which SDXL adds, and ``CLIPVisionModel``, the
+feature extractor of CLIP-score and CLIP-FID (``scripts/evaluate.py``).
 
 The text towers stay FP on every path, as in the JAX package: their
 products are plain ``x @ w`` on ``[K, N]`` weights (``Dense``), not
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .configs import CLIPTextConfig
+from .configs import CLIPTextConfig, CLIPVisionConfig
 from .layers import LayerNorm, lecun_normal_, name_layers
 
 
@@ -152,3 +153,98 @@ class CLIPTextModel(nn.Module):
             pooled = self.text_projection(pooled)
         return last, penultimate, pooled
 
+
+#: CLIP normalization (HF ``CLIPImageProcessor`` defaults)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[B, size, size, C]``, bilinear with
+    antialiasing as ``jax.image.resize(..., "bilinear")`` (which
+    antialiases when it downsamples; without ``antialias=True``
+    ``F.interpolate`` differs from it by up to 0.54 at 512 -> 299)."""
+    x = F.interpolate(images.permute(0, 3, 1, 2), size=(size, size),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1)
+
+
+def preprocess_images(images: torch.Tensor, image_size: int = 224
+                      ) -> torch.Tensor:
+    """``[B, H, W, 3]`` images in [0, 1] -> CLIP-normalized ``[B, S, S,
+    3]``."""
+    if tuple(images.shape[1:3]) != (image_size, image_size):
+        images = resize_bilinear(images, image_size)
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images.dtype,
+                        device=images.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=images.dtype,
+                       device=images.device)
+    return (images - mean) / std
+
+
+class PatchEmbedding(nn.Module):
+    """Stride-``patch`` conv without bias on an HWIO ``[p, p, 3, C]``
+    weight (flax ``nn.Conv``'s layout): NHWC pixels -> ``[B, P, C]``
+    patches in row-major order."""
+
+    def __init__(self, patch: int, channels: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.patch, self.dtype = patch, dtype
+        self.weight = nn.Parameter(torch.empty(patch, patch, 3, channels,
+                                               dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                     self.weight.permute(3, 2, 0, 1), stride=self.patch)
+        return y.flatten(2).transpose(1, 2)
+
+
+class CLIPVisionModel(nn.Module):
+    """CLIP ViT image tower (HF ``vision_model.*`` naming; the module is
+    ``pre_layrnorm``, HF's spelling, so converted checkpoints map one to
+    one). ``forward(pixel_values [B, S, S, 3] CLIP-normalized, NHWC) ->
+    (last_hidden_state, pooled)``: ``pooled`` the post-LN CLS row through
+    ``visual_projection`` (no bias) when ``cfg.projection_dim`` is set.
+    The encoder layers are the text towers' with a zero mask."""
+
+    def __init__(self, cfg: CLIPVisionConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.cfg, self.dtype = cfg, dtype
+        c = cfg.hidden_size
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.patch_embedding = PatchEmbedding(cfg.patch_size, c, **kw)
+        # raw f32 params, cast at use (the flax params' default dtype)
+        self.class_embedding = nn.Parameter(torch.empty(c, device=device))
+        self.position_embedding = nn.Parameter(torch.empty(n_pos, c,
+                                                           device=device))
+        self.pre_layrnorm = LayerNorm(c, 1e-5, **kw)
+        text_like = CLIPTextConfig(
+            hidden_size=c, num_heads=cfg.num_heads,
+            intermediate_size=cfg.intermediate_size,
+            hidden_act=cfg.hidden_act)
+        self.layers = nn.ModuleList(CLIPEncoderLayer(text_like, **kw)
+                                    for _ in range(cfg.num_layers))
+        self.post_layernorm = LayerNorm(c, 1e-5, **kw)
+        self.visual_projection = (
+            Dense(c, cfg.projection_dim, use_bias=False, **kw)
+            if cfg.projection_dim is not None else None)
+        name_layers(self)
+
+    def forward(self, pixel_values: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        patches = self.patch_embedding(pixel_values)
+        B, _, C = patches.shape
+        cls = self.class_embedding.to(self.dtype).expand(B, 1, C)
+        x = torch.cat([cls, patches], 1) + self.position_embedding[None].to(
+            self.dtype)
+        x = self.pre_layrnorm(x)
+        zero_mask = torch.zeros(x.shape[1], x.shape[1], device=x.device)
+        for layer in self.layers:
+            x = layer(x, zero_mask)
+        pooled = self.post_layernorm(x[:, 0])
+        if self.visual_projection is not None:
+            pooled = self.visual_projection(pooled)
+        return x, pooled

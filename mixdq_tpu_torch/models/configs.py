@@ -51,6 +51,21 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT image tower (HF ``vision_model.*``). Defaults: ViT-L/14
+    (openai/clip-vit-large-patch14, the standard CLIP-score backbone)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    projection_dim: Optional[int] = 768
+    hidden_act: str = "quick_gelu"
+
+
+@dataclasses.dataclass(frozen=True)
 class VAEConfig:
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
@@ -70,6 +85,9 @@ class ModelFamilyConfig:
     is_sdxl: bool = True
     default_steps: int = 1
     guidance_scale: float = 0.0
+    #: the int8 deploy compute a CLI takes when none is asked for (the JAX
+    #: family's ``default_deploy_compute``)
+    default_deploy_compute: str = "int8_sec"
 
     @property
     def pooled_dim(self) -> int:
