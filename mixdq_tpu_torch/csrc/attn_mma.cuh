@@ -51,22 +51,6 @@ struct HeadPanels {
   int8_t* out;
 };
 
-// The warp's q rows ra and rb (ra + 8) as mma A fragments; rows >= nq
-// read as zero.
-template <int D>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
-                                             const bf16* q, int ldq, int ra,
-                                             int rb, int nq, int t) {
-  const bool oka = ra < nq, okb = rb < nq;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = oka ? ld32(q + static_cast<size_t>(ra) * ldq + c) : 0u;
-    qf[kk][1] = okb ? ld32(q + static_cast<size_t>(rb) * ldq + c) : 0u;
-    qf[kk][2] = oka ? ld32(q + static_cast<size_t>(ra) * ldq + c + 8) : 0u;
-    qf[kk][3] = okb ? ld32(q + static_cast<size_t>(rb) * ldq + c + 8) : 0u;
-  }
-}
 
 // The key ring of the bf16 attention kernels (flash_attention.cu's bf16
 // path, sec_attention.cu's attention stage): a group of 4 warps (128
@@ -79,33 +63,63 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
 constexpr int KCH = 32;          // keys per ring stage
 constexpr int GROUP_THREADS = 128;  // threads that fill and read one ring
 
+//
+// A head dim that is no multiple of 16 (40, 80 is one) is padded to DP,
+// the next multiple of the mma's 16-deep step: the copies zero-fill
+// columns [D, DP) of every k and v row in every stage, and the q
+// fragments read those columns as zero, so they add nothing to QK^T; PV
+// computes DP output columns, of which the caller writes D.
 template <int D>
 struct KvStage {
-  static constexpr int LD = D + 8;                 // padded row, bf16
+  static constexpr int DP = (D + 15) / 16 * 16;   // padded depth, bf16
+  static constexpr int LD = DP + 8;                // padded row, bf16
   static constexpr int V = KCH * LD * 2;           // bytes before v rows
   static constexpr int BYTES = 2 * V;             // k rows, then v rows
 };
 
+// The warp's q rows ra and rb (ra + 8) as mma A fragments over the
+// padded depth; rows >= nq and columns >= D read as zero.
+template <int D>
+__device__ __forceinline__ void load_q_frags(
+    uint32_t (&qf)[KvStage<D>::DP / 16][4], const bf16* q, int ldq, int ra,
+    int rb, int nq, int t) {
+  const bool oka = ra < nq, okb = rb < nq;
+#pragma unroll
+  for (int kk = 0; kk < KvStage<D>::DP / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    const bool hi = kk * 16 + 8 < D;  // columns c + 8 exist
+    qf[kk][0] = oka ? ld32(q + static_cast<size_t>(ra) * ldq + c) : 0u;
+    qf[kk][1] = okb ? ld32(q + static_cast<size_t>(rb) * ldq + c) : 0u;
+    qf[kk][2] =
+        oka && hi ? ld32(q + static_cast<size_t>(ra) * ldq + c + 8) : 0u;
+    qf[kk][3] =
+        okb && hi ? ld32(q + static_cast<size_t>(rb) * ldq + c + 8) : 0u;
+  }
+}
+
 // Keys [c0, c0 + KCH) of k (and of v when with_v) into the ring stage at
 // shared address st, thread gtid of the group's 128 taking its share of
-// the 16-byte copies; keys >= Tk read as zero. The caller commits.
+// the 16-byte copies over the padded depth; keys >= Tk and columns >= D
+// read as zero. The caller commits.
 template <int D>
 __device__ __forceinline__ void copy_kv_chunk(uint32_t st,
                                               const HeadPanels<bf16>& h,
                                               int ldk, int ldv, int Tk,
                                               int c0, bool with_v,
                                               int gtid) {
-  constexpr int CPR = D / 8, N = KCH * CPR, LD = KvStage<D>::LD;
+  constexpr int CPR = KvStage<D>::DP / 8, N = KCH * CPR;
+  constexpr int LD = KvStage<D>::LD;
 #pragma unroll
   for (int it = 0; it < (N + GROUP_THREADS - 1) / GROUP_THREADS; ++it) {
     const int i = gtid + it * GROUP_THREADS;
     if (N % GROUP_THREADS == 0 || i < N) {
       const int key = i / CPR, c = (i % CPR) * 8;
-      const bool ok = c0 + key < Tk;
-      const size_t j = ok ? c0 + key : 0;
-      cp_async16(st + (key * LD + c) * 2, h.k + j * ldk + c, ok);
+      const bool ok = c0 + key < Tk && (D % 16 == 0 || c < D);
+      const size_t j = c0 + key < Tk ? c0 + key : 0;
+      const int cs = D % 16 == 0 || c < D ? c : 0;  // a mapped source
+      cp_async16(st + (key * LD + c) * 2, h.k + j * ldk + cs, ok);
       if (with_v)
-        cp_async16(st + ((KCH + key) * LD + c) * 2, h.v + j * ldv + c, ok);
+        cp_async16(st + ((KCH + key) * LD + c) * 2, h.v + j * ldv + cs, ok);
     }
   }
 }
@@ -113,24 +127,23 @@ __device__ __forceinline__ void copy_kv_chunk(uint32_t st,
 // The warp's 16 x KCH logits of one stage (unscaled): A = q fragments,
 // B = k rows by ldmatrix.x4 (two key tiles of 8 per load).
 template <int D>
-__device__ __forceinline__ void ring_logits(uint32_t st,
-                                            const uint32_t (&qf)[D / 16][4],
-                                            float (&s)[KCH / 8][4],
-                                            int lane) {
-  constexpr int LD = KvStage<D>::LD;
+__device__ __forceinline__ void ring_logits(
+    uint32_t st, const uint32_t (&qf)[KvStage<D>::DP / 16][4],
+    float (&s)[KCH / 8][4], int lane) {
+  constexpr int LD = KvStage<D>::LD, DP = KvStage<D>::DP;
   const uint32_t kb =
       st + (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8) * 2;
 #pragma unroll
   for (int nt = 0; nt < KCH / 8; nt += 2) {
     // the key pair's fragments at every depth first, then the products
-    uint32_t b[D / 16][4];
+    uint32_t b[DP / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
       ldsm_x4(b[kk], kb + (nt * 8 * LD + kk * 16) * 2);
 #pragma unroll
     for (int r = 0; r < 4; ++r) s[nt][r] = s[nt + 1][r] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       mma_bf16(s[nt], qf[kk], b[kk][0], b[kk][1]);
       mma_bf16(s[nt + 1], qf[kk], b[kk][2], b[kk][3]);
     }
@@ -141,12 +154,14 @@ __device__ __forceinline__ void ring_logits(uint32_t st,
 // to bf16 as the A fragments (the TPU's p.astype(v.dtype)); v's B
 // fragments by ldmatrix.x4.trans (two column tiles of 8 per load) from
 // the stage's KCH row-major v rows at shared address vr, rows of
-// KvStage<D>::LD bf16. The keys go in ascending 16-key mma steps.
+// KvStage<D>::LD bf16, over the padded depth. The keys go in ascending
+// 16-key mma steps.
 template <int D>
 __device__ __forceinline__ void ring_pv(uint32_t vr,
                                         const float (&p)[KCH / 8][4],
-                                        float (&o)[D / 8][4], int lane) {
-  constexpr int LD = KvStage<D>::LD;
+                                        float (&o)[KvStage<D>::DP / 8][4],
+                                        int lane) {
+  constexpr int LD = KvStage<D>::LD, DP = KvStage<D>::DP;
   const uint32_t vb =
       vr + (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) * 2;
 #pragma unroll
@@ -155,12 +170,12 @@ __device__ __forceinline__ void ring_pv(uint32_t vr,
                             pack_bf16(p[2 * kb][2], p[2 * kb][3]),
                             pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]),
                             pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3])};
-    uint32_t b[D / 16][4];
+    uint32_t b[DP / 16][4];
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp)
+    for (int dp = 0; dp < DP / 16; ++dp)
       ldsm_x4_trans(b[dp], vb + (kb * 16 * LD + dp * 16) * 2);
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < DP / 16; ++dp) {
       mma_bf16(o[2 * dp], pa, b[dp][0], b[dp][1]);
       mma_bf16(o[2 * dp + 1], pa, b[dp][2], b[dp][3]);
     }

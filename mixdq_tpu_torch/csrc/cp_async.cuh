@@ -33,6 +33,14 @@ __device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src) {
                "l"(src));
 }
 
+// 8 bytes, zero-filled where not `valid` (cp.async.ca: the .cg form
+// takes 16 only).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
 // 4 bytes, the same way (cp.async.ca: the .cg form takes 16 only).
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {

@@ -1,6 +1,7 @@
 // Flash attention of the attn_impl="auto" path at Tq * Tk >= 2^22 (the
-// self-attentions of SDXL 1024's 64x64 level, in the W8A8 and the bf16
-// UNet).
+// self-attentions of SDXL 1024's 64x64 level, 10 heads of 64, and of
+// SD1.5 512's, 8 heads of 40; in the W8A8 and the bf16 UNet), and of
+// every site under attn_impl="flash" (SD1.5: heads of 40 / 80 / 160).
 //
 // Replaces mixdq_tpu/ops/pallas_attention.py:flash_attention (pallas_call
 // at :106; mha :135 feeds it head-major copies). Per head, over key
@@ -47,6 +48,15 @@
 // registers) it spilled, so the spill-free 4 was chosen. At d = 128 the
 // ring is 68 KB and 2 blocks fit on an SM.
 //
+// Head dims 40, 80 and 160 (SD1.5's 8 heads at 320 / 640 / 1280
+// channels; the TPU kernel zero-pads any d to 128 lanes): the ring pads
+// d to the next multiple of the mma's 16-deep step (40 -> 48), zeroing
+// the pad in every stage (attn_mma.cuh:KvStage), so QK^T and PV run
+// whole m16n8k16 steps and the output writes d columns. At SD1.5 512's
+// flash site (B=1, T=4096, 8 heads of 40) the grid is 512 blocks, one
+// wave at 4 blocks an SM; the function needs 4 T^2 d heads = 21.5 GFLOP,
+// ~0.022 ms at the dense peak, and the padded kernel does 6 T^2 48 heads.
+//
 // int8_flash_attention and int8qkv_flash_attention run on the same key
 // ring (ChunkCursor, attn_mma.cuh): int8_flash.cu.
 
@@ -84,9 +94,11 @@ template <int D>
 struct FlashRing {
   static constexpr int BYTES = STAGES * KvStage<D>::BYTES;
   // blocks per SM the kernel is built for, as many as its registers
-  // allow without spills (<= 96 a thread at d <= 32, <= 128 at d = 64,
-  // <= 255 at d = 128); shared memory would allow 6 / 6 / 3
-  static constexpr int MIN_BLOCKS = D <= 32 ? 5 : D == 64 ? 4 : 2;
+  // allow without spills (<= 96 a thread at d <= 32, <= 128 at d = 40
+  // and 64, <= 168 at d = 80, <= 255 at d = 128 and 160); shared memory
+  // would allow 6 / 8 / 6 / 5 / 3 / 2
+  static constexpr int MIN_BLOCKS =
+      D <= 32 ? 5 : D <= 64 ? 4 : D <= 80 ? 3 : 2;
 };
 
 // Block-wide: the cursor's chunk into the ring stage at shared address
@@ -121,7 +133,8 @@ __device__ void flash_bf16(uint32_t ring, const HeadPanels<bf16>& h, bf16* out,
     issue_chunk<D>(ring + i * STAGE, h, ldk, ldv, Tk, fill);
     fill.next(Tk, bk);
   }
-  uint32_t qf[D / 16][4];
+  constexpr int DP = KvStage<D>::DP;  // d padded to the mma's depth
+  uint32_t qf[DP / 16][4];
   load_q_frags<D>(qf, h.q, ldq, ra, rb, nq, t);
 
   // The next stage once its copies have landed; the stage consumed before
@@ -139,7 +152,7 @@ __device__ void flash_bf16(uint32_t ring, const HeadPanels<bf16>& h, bf16* out,
   };
 
   float s[KCH / 8][4];
-  float o[D / 8][4] = {};
+  float o[DP / 8][4] = {};
   // running max of rows ra / rb (the same in the row's four threads) and
   // this thread's share of their running sums
   float ma = MASKED, mb = MASKED, la = 0.f, lb = 0.f;
@@ -166,7 +179,7 @@ __device__ void flash_bf16(uint32_t ring, const HeadPanels<bf16>& h, bf16* out,
     la = __fmul_rn(la, aa);
     lb = __fmul_rn(lb, ab);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DP / 8; ++dt) {
       o[dt][0] = __fmul_rn(o[dt][0], aa);
       o[dt][1] = __fmul_rn(o[dt][1], aa);
       o[dt][2] = __fmul_rn(o[dt][2], ab);
@@ -290,8 +303,11 @@ static int flash(const void* q, const void* k, const void* v, void* out,
   switch (d) {
     case 16: return launch_flash<16>(a, stream);
     case 32: return launch_flash<32>(a, stream);
+    case 40: return launch_flash<40>(a, stream);
     case 64: return launch_flash<64>(a, stream);
+    case 80: return launch_flash<80>(a, stream);
     case 128: return launch_flash<128>(a, stream);
+    case 160: return launch_flash<160>(a, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,9 +39,11 @@
 // pass, then the same chunks of k codes and v for the p pass), so three
 // chunks stay in flight across the switch between passes and between key
 // blocks, with one __syncthreads a stage. A stage holds k rows of DP
-// bytes (d padded to the 32-deep step at d = 16; the pad zeroed once) +
-// 16 bytes against bank conflicts, then the v rows; keys >= Tk are
-// zero-filled by the copy. The int8 QK^T runs twice (the max pass and the
+// bytes (d padded to the 32-deep step: 16 -> 32, 40 -> 64, 80 -> 96) +
+// 16 bytes against bank conflicts, then the v rows (d padded to 16: 40
+// -> 48); keys >= Tk and the pads are zero-filled by the copy, which
+// takes 8-byte cp.async where a head's code panel starts on 8 bytes only
+// (d = 40). The int8 QK^T runs twice (the max pass and the
 // p pass recompute the same integer logits, the cheaper product) on k
 // fragments from ldmatrix.x4 (attn_mma.cuh:ring_logits_s8). The max pass
 // keeps the integer max (and min) and scales it once a block: f32(s) * ls
@@ -75,7 +77,11 @@
 // spill-free), 660 slots on 132 SMs, one wave (B=2: 1280 blocks, 1.94
 // waves); int8qkv_flash's s32 PV accumulators take 128 registers, 4
 // blocks an SM, 528 slots, 1.21 waves (built for 5 it spilled 48 bytes
-// and was no faster). d <= 32: 5 blocks; d = 128: 2. 128-row blocks of 8
+// and was no faster). d <= 32: 5 blocks; d = 40: 4 (int8_flash
+// spilled 8 bytes built for 5); d = 80: 4 (int8_flash) / 3
+// (int8qkv_flash); d = 128 and 160: 2. SD1.5 512
+// (T=4096, 8 heads of 40: 512 blocks) runs them at its five 64x64 self
+// sites under int8_flash "qk" / "qkv". 128-row blocks of 8
 // warps sharing one ring (half the L2 reads) ran 20-28% slower at the
 // main shape, and 6 stages no faster than 4 (PERF.md §6). f32 v
 // under int8_flash (no step runs it at bf16) keeps the scalar path,
@@ -100,15 +106,22 @@ constexpr int F32_ROWS = 64, F32_THREADS = 128;
 
 template <int D, bool V8>
 struct I8Stage {
-  static constexpr int DP = D < 32 ? 32 : D;  // k row depth, codes
+  // k row depth in codes: d padded to the m16n8k32 step (16 -> 32,
+  // 40 -> 64, 80 -> 96); PV's depth: d padded to 16 (40 -> 48), the
+  // column groups of ring_pv_s8 and of the bf16 ring_pv
+  static constexpr int DP = (D + 31) / 32 * 32;
+  static constexpr int DV = KvStage<D>::DP;
   static constexpr int LDK = DP + 16;         // k (and v code) row, bytes
   static constexpr int LDV = V8 ? LDK : KvStage<D>::LD * 2;  // v row
   static constexpr int V = KCH * LDK;         // bytes before the v rows
   static constexpr int BYTES = V + KCH * LDV;
   static constexpr int RING = I8_STAGES * BYTES;
   // blocks per SM the kernel is built for, as many as its registers
-  // allow without spills
-  static constexpr int MIN_BLOCKS = D <= 32 ? 5 : D == 64 ? (V8 ? 4 : 5) : 2;
+  // allow without spills (int8_flash at d = 40 spilled 8 bytes built for
+  // 5)
+  static constexpr int MIN_BLOCKS =
+      D <= 32 ? 5 : D == 40 ? 4 : D == 64 ? (V8 ? 4 : 5)
+      : D == 80 ? (V8 ? 3 : 4) : 2;
 };
 
 struct I8Args {
@@ -124,19 +137,24 @@ struct I8Args {
 };
 
 // Block-wide: keys [c0, c0 + KCH) of a panel (key j's ROW bytes at src +
-// j * ld bytes) into KCH shared rows of LD bytes at dst, 16-byte copies;
-// keys >= Tk zero-filled. The caller commits.
-template <int ROW, int LD>
+// j * ld bytes) into the first PAD bytes of KCH shared rows of LD bytes
+// at dst, by 16-byte copies, or 8-byte ones where ROW is no multiple of
+// 16 (int8 codes at d = 40: a head's panel starts on 8 bytes only); keys
+// >= Tk and the pad [ROW, PAD) zero-filled. The caller commits.
+template <int ROW, int PAD, int LD>
 __device__ __forceinline__ void copy_rows(uint32_t dst, const char* src,
                                           size_t ld, int Tk, int c0) {
-  constexpr int PER = ROW / 16, N = KCH * PER;
+  constexpr int G = ROW % 16 ? 8 : 16, PER = PAD / G, N = KCH * PER;
+  static_assert(ROW % G == 0 && PAD % G == 0, "whole copies a row");
 #pragma unroll
   for (int it = 0; it < (N + I8_THREADS - 1) / I8_THREADS; ++it) {
     const int i = threadIdx.x + it * I8_THREADS;
     if (N % I8_THREADS == 0 || i < N) {
-      const int key = i / PER, c = (i % PER) * 16;
-      const bool ok = c0 + key < Tk;
-      cp_async16(dst + key * LD + c, src + (ok ? c0 + key : 0) * ld + c, ok);
+      const int key = i / PER, c = (i % PER) * G;
+      const bool live = c0 + key < Tk, ok = live && (PAD == ROW || c < ROW);
+      const char* s = src + (live ? c0 + key : 0) * ld + (ok ? c : 0);
+      if constexpr (G == 16) cp_async16(dst + key * LD + c, s, ok);
+      else cp_async8(dst + key * LD + c, s, ok);
     }
   }
 }
@@ -150,11 +168,12 @@ __device__ __forceinline__ void issue_i8_chunk(uint32_t st, const int8_t* k,
                                                int Tk,
                                                const ChunkCursor& cur) {
   using S = I8Stage<D, V8>;
+  constexpr int TB = static_cast<int>(sizeof(TV));
   if (cur.j0 < Tk) {
-    copy_rows<D, S::LDK>(st, reinterpret_cast<const char*>(k), ld, Tk,
-                         cur.c0);
+    copy_rows<D, S::DP, S::LDK>(st, reinterpret_cast<const char*>(k), ld,
+                                Tk, cur.c0);
     if (cur.pass)
-      copy_rows<D * static_cast<int>(sizeof(TV)), S::LDV>(
+      copy_rows<D * TB, S::DV * TB, S::LDV>(
           st + S::V, reinterpret_cast<const char*>(v), ldv * sizeof(TV), Tk,
           cur.c0);
   }
@@ -196,12 +215,12 @@ static_assert(slots_agree(), "p and v fragments name other keys");
 // and matrix m gives each lane keys 8m + 2t, 8m + 2t + 1 at columns 2g,
 // 2g + 1 of the 16-column group. pv[2G] holds the group's even columns,
 // pv[2G + 1] its odd ones.
-template <int D, int LDV>
+template <int DV, int LDV>
 __device__ __forceinline__ void ring_pv_s8(uint32_t vr, const int (&pa)[4],
-                                           int (&pv)[D / 8][4], int lane) {
+                                           int (&pv)[DV / 8][4], int lane) {
   const uint32_t vb = vr + lane * LDV;
 #pragma unroll
-  for (int G = 0; G < D / 16; ++G) {
+  for (int G = 0; G < DV / 16; ++G) {
     uint32_t r[4];
     ldsm_x4_trans(r, vb + G * 16);
     // k slots 4t..4t+3 = keys 2t, 2t+1, 8+2t, 9+2t (then + 16)
@@ -242,19 +261,11 @@ __device__ void int8_flash_ring(uint32_t ring, const int8_t* q,
                                 int ld, int ldv, int nq, int Tk, int bk,
                                 float ls, float vs) {
   using S = I8Stage<D, V8>;
-  constexpr int DP = S::DP;
+  constexpr int DP = S::DP, DV = S::DV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int ra = warp * 16 + g, rb = ra + 8;  // this thread's rows
 
-  if constexpr (DP > D) {  // the k rows' pad codes, never copied: zero
-    for (int i = threadIdx.x; i < I8_STAGES * KCH; i += I8_THREADS) {
-      const uint32_t a = ring + (i / KCH) * S::BYTES + (i % KCH) * S::LDK + D;
-      for (int c = 0; c < DP - D; c += 16)
-        asm volatile("st.shared.v4.u32 [%0], {%1,%1,%1,%1};\n" ::"r"(a + c),
-                     "r"(0));
-    }
-  }
   ChunkCursor fill{0, 0, 0};
 #pragma unroll
   for (int i = 0; i < I8_STAGES - 1; ++i) {
@@ -289,7 +300,7 @@ __device__ void int8_flash_ring(uint32_t ring, const int8_t* q,
 
   int s32[KCH / 8][4];
   float p[KCH / 8][4];
-  float o[D / 8][4] = {};
+  float o[DV / 8][4] = {};
   // running max of rows ra / rb (the same in the row's four threads) and
   // this thread's share of their running sums
   float ma = MASKED, mb = MASKED, la = 0.f, lb = 0.f;
@@ -329,13 +340,13 @@ __device__ void int8_flash_ring(uint32_t ring, const int8_t* q,
     la = __fmul_rn(la, aa);
     lb = __fmul_rn(lb, ab);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       o[dt][0] = __fmul_rn(o[dt][0], aa);
       o[dt][1] = __fmul_rn(o[dt][1], aa);
       o[dt][2] = __fmul_rn(o[dt][2], ab);
       o[dt][3] = __fmul_rn(o[dt][3], ab);
     }
-    int pv[V8 ? D / 8 : 1][4] = {};
+    int pv[V8 ? DV / 8 : 1][4] = {};
     for (int c0 = j0; c0 < jend; c0 += KCH) {  // pass 2: p, l, p.v
       const uint32_t st = next_stage();
       ring_logits_s8<DP, S::LDK>(st, qf, s32, lane);
@@ -362,14 +373,14 @@ __device__ void int8_flash_ring(uint32_t ring, const int8_t* q,
                            pack_s8(c[0][2], c[0][3], c[1][2], c[1][3]),
                            pack_s8(c[2][0], c[2][1], c[3][0], c[3][1]),
                            pack_s8(c[2][2], c[2][3], c[3][2], c[3][3])};
-        ring_pv_s8<D, S::LDV>(st + S::V, pa, pv, lane);
+        ring_pv_s8<DV, S::LDV>(st + S::V, pa, pv, lane);
       } else {
         ring_pv<D>(st + S::V, p, o, lane);
       }
     }
     if constexpr (V8) {
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
+      for (int dt = 0; dt < DV / 8; ++dt)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           o[dt][r] = __fadd_rn(o[dt][r],
@@ -380,15 +391,16 @@ __device__ void int8_flash_ring(uint32_t ring, const int8_t* q,
   la = quad_sum(la);
   lb = quad_sum(lb);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int dt = 0; dt < DV / 8; ++dt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = r < 2 ? ra : rb;
-      if (row >= nq) continue;
       // bf16 PV: tile dt, columns 2t, 2t+1; s8 PV: tile dt is the even
-      // (dt even) or odd columns of group dt / 2 (ring_pv_s8)
+      // (dt even) or odd columns of group dt / 2 (ring_pv_s8); columns
+      // >= D are the pad's
       const int col = V8 ? (dt >> 1) * 16 + 4 * t + 2 * (r & 1) + (dt & 1)
                          : dt * 8 + 2 * t + (r & 1);
+      if (row >= nq || (DV > D && col >= D)) continue;
       store_f32(out + static_cast<size_t>(row) * ld + col,
                 __fdiv_rn(o[dt][r], r < 2 ? la : lb));
     }
@@ -517,15 +529,27 @@ int launch_d(const I8Args& a, int d, const I8Plan& p, cudaStream_t stream) {
   switch (d) {
     case 16: return launch<16, V8, TO, F32V>(a, p, stream);
     case 32: return launch<32, V8, TO, F32V>(a, p, stream);
+    case 40: return launch<40, V8, TO, F32V>(a, p, stream);
     case 64: return launch<64, V8, TO, F32V>(a, p, stream);
+    case 80: return launch<80, V8, TO, F32V>(a, p, stream);
     case 128: return launch<128, V8, TO, F32V>(a, p, stream);
+    case 160: return launch<160, V8, TO, F32V>(a, p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q / k codes [B*T, heads*d] (16-byte aligned); v: the bf16 or f32 panel
+// Whether int8 code panels at head dim d can be copied: rows and base on
+// 16 bytes, or on 8 where d is no multiple of 16 (copy_rows' 8-byte
+// copies).
+static bool codes_aligned(const void* p, int ld, int d) {
+  const int g = d % 16 ? 8 : 16;
+  return ld % g == 0 && reinterpret_cast<uintptr_t>(p) % g == 0;
+}
+
+// q / k codes [B*T, heads*d] (16-byte aligned, or 8-byte where d % 16 is
+// 8); v: the bf16 or f32 panel
 // (row stride ldv) or, with int8_v, codes [B*Tk, heads*d] (ldv =
 // heads*d); out [B*Tq, heads*d] in bf16 (out_bf16) or f32; bk keys a
 // block (a multiple of KCH); ls / vs device scalars; rows .. blocks_per_sm:
@@ -540,11 +564,11 @@ extern "C" int mixdq_int8_flash_attention(
   const I8Plan p{rows,       threads,    stages,       stage_keys,
                  stage_bytes, ring_bytes, blocks_per_sm};
   const int ld = heads * d;
-  if (bk <= 0 || bk % KCH || !vec16(k, ld) ||
+  if (bk <= 0 || bk % KCH || !codes_aligned(k, ld, d) ||
       reinterpret_cast<uintptr_t>(q) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (int8_v) {
-    if (!vec16(v, ld) || ldv != ld || vs == nullptr)
+    if (!codes_aligned(v, ld, d) || ldv != ld || vs == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     return out_bf16 ? launch_d<true, bf16, false>(a, d, p, stream)
                     : launch_d<true, float, false>(a, d, p, stream);

@@ -51,7 +51,7 @@ from ..ops.sec_attention import (sec_attention, sec_attention_q,
 from ..quant.deploy import bos_row
 from ..quant.state import FP_CTX, QuantCtx
 from . import routing
-from .layers import (GroupNorm, LayerNorm, QAct, QDense, codes_of,
+from .layers import (GroupNorm, LayerNorm, QAct, QConv, QDense, codes_of,
                      deploy_linear, layer_compute, name_layers, small_m)
 
 
@@ -430,8 +430,13 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer with linear ``proj_in``/``proj_out`` (the SDXL
-    form): NHWC map -> tokens -> blocks -> map, plus the input."""
+    """Spatial transformer: NHWC map -> tokens -> blocks -> map, plus the
+    input. ``use_linear_projection`` (the SDXL form): ``proj_in`` /
+    ``proj_out`` are dense layers on the tokens, and under ``int8_sec``
+    the GroupNorm producer emits ``proj_in``'s codes. Otherwise (SD1.5)
+    they are 1x1 ``QConv``s on the map after a plain GroupNorm
+    (``mixdq_tpu/models/attention.py:755-776``): ``proj_in``'s codes come
+    from its own act-quantize, and an int8 1x1 conv is a ``qmatmul``."""
 
     def __init__(self, in_channels: int, heads: int, head_dim: int,
                  num_layers: int, cross_attention_dim: int,
@@ -439,25 +444,29 @@ class Transformer2DModel(nn.Module):
                  norm_num_groups: int = 32, dtype=torch.float32,
                  device=None):
         super().__init__()
-        if not use_linear_projection:
-            raise NotImplementedError("conv proj_in/out (SD1.5) is not "
-                                      "ported")
         kw = dict(dtype=dtype, device=device)
         inner = heads * head_dim
-        self.in_channels, self.dtype = in_channels, dtype
+        self.in_channels, self.inner, self.dtype = in_channels, inner, dtype
+        self.linear = use_linear_projection
         self.norm = GroupNorm(norm_num_groups, in_channels, 1e-6, **kw)
-        self.proj_in = QDense(in_channels, inner, **kw)
+        if use_linear_projection:
+            self.proj_in = QDense(in_channels, inner, **kw)
+        else:
+            self.proj_in = QConv(in_channels, inner, (1, 1), **kw)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, head_dim,
                                   cross_attention_dim, **kw)
             for _ in range(num_layers)])
-        self.proj_out = QDense(inner, in_channels, **kw)
+        if use_linear_projection:
+            self.proj_out = QDense(inner, in_channels, **kw)
+        else:
+            self.proj_out = QConv(inner, in_channels, (1, 1), **kw)
         name_layers(self)
 
     def forward(self, hidden_states, encoder_hidden_states,
                 ctx: QuantCtx = FP_CTX, banks=None):
         B, H, W, C = hidden_states.shape
-        dp_in = fused_entry(ctx, self.proj_in.qname)
+        dp_in = fused_entry(ctx, self.proj_in.qname)  # linear entries only
         if dp_in is not None:
             h = gn_silu_quantize(hidden_states, self.norm.weight,
                                  self.norm.bias, dp_in.scale_inv,
@@ -467,8 +476,14 @@ class Transformer2DModel(nn.Module):
                                  clip=act_clip_range(dp_in.a_bits))
         else:
             h = self.norm(hidden_states)
-        h = self.proj_in(h.reshape(B, H * W, C), ctx)
+        if self.linear:
+            h = self.proj_in(h.reshape(B, H * W, C), ctx)
+        else:
+            h = self.proj_in(h, ctx).reshape(B, H * W, self.inner)
         for blk in self.transformer_blocks:
             h = blk(h, encoder_hidden_states, ctx, banks)
-        h = self.proj_out(h, ctx).reshape(B, H, W, self.in_channels)
+        if self.linear:
+            h = self.proj_out(h, ctx).reshape(B, H, W, self.in_channels)
+        else:
+            h = self.proj_out(h.reshape(B, H, W, self.inner), ctx)
         return deploy_res_add(hidden_states, h)

@@ -1,9 +1,13 @@
 """Configurations of the families this port runs: the SDXL UNet, its two
 CLIP text towers and its VAE, at full width (``sdxl-turbo`` at 512 px and
-``sdxl`` at 1024 px); the ``tiny-sdxl`` cut used by the CPU tests, and
+``sdxl`` at 1024 px); SD1.5 (``sd15``, 512 px, the LCM 4-step family:
+conv ``proj_in`` / ``proj_out``, one CLIP-L tower, heads of 40 / 80 /
+160); the ``tiny-sdxl`` and ``tiny-sd15`` cuts used by the CPU tests;
 ``small-sdxl``, a cut whose cross-attention level is two heads of 64, so
-that the whole-attention kernels run on it. Field names and values follow
-``mixdq_tpu.models.configs``."""
+that the whole-attention kernels run on it; and ``small-sd15``, a cut
+whose 64x64 level is two heads of 40, so that ``attn_impl='auto'`` runs
+flash attention at d = 40 on it. Field names and values follow
+``mixdq_tpu.models.configs``; the ``small-*`` cuts are the port's own."""
 
 from __future__ import annotations
 
@@ -99,6 +103,23 @@ class ModelFamilyConfig:
 SDXL_UNET = UNetConfig(sample_size=128)
 SDXL_TURBO_UNET = UNetConfig(sample_size=64)
 
+SD15_UNET = UNetConfig(
+    sample_size=64,
+    block_out_channels=(320, 640, 1280, 1280),
+    down_block_types=(
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=(
+        "UpBlock2D", "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+    transformer_layers_per_block=(1, 1, 1, 1),
+    num_attention_heads=(8, 8, 8, 8),
+    attention_head_dim=0,  # derived: channels // heads
+    cross_attention_dim=768,
+    use_linear_projection=False,
+    addition_embed_type=None,
+)
+
 TINY_SDXL_UNET = UNetConfig(
     sample_size=16,
     block_out_channels=(32, 64),
@@ -133,11 +154,46 @@ SMALL_SDXL_UNET = UNetConfig(
     norm_num_groups=16,
 )
 
+TINY_SD15_UNET = UNetConfig(
+    sample_size=16,
+    block_out_channels=(32, 64),
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+    layers_per_block=1,
+    transformer_layers_per_block=(1, 1),
+    num_attention_heads=(2, 2),
+    attention_head_dim=0,
+    cross_attention_dim=64,
+    use_linear_projection=False,
+    addition_embed_type=None,
+    norm_num_groups=16,
+)
+
+#: SD1.5's layout cut to two levels: the 64x64 level is C=80 as two heads
+#: of 40, so its attn1 (T = 4096, Tq * Tk = 2^24) runs flash attention at
+#: d = 40 under ``attn_impl='auto'``, as SD1.5 512's does; the 32x32
+#: level's heads are 80
+SMALL_SD15_UNET = UNetConfig(
+    sample_size=64,
+    block_out_channels=(80, 160),
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+    layers_per_block=1,
+    transformer_layers_per_block=(1, 1),
+    num_attention_heads=(2, 2),
+    attention_head_dim=0,
+    cross_attention_dim=64,
+    use_linear_projection=False,
+    addition_embed_type=None,
+    norm_num_groups=16,
+)
+
 CLIP_L = CLIPTextConfig()  # CLIP ViT-L/14 text tower
 CLIP_BIGG = CLIPTextConfig(
     hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
     projection_dim=1280, hidden_act="gelu")
 SDXL_VAE = VAEConfig()
+SD15_VAE = VAEConfig(scaling_factor=0.18215)
 
 TINY_CLIP = CLIPTextConfig(
     vocab_size=1000, hidden_size=64, num_layers=2, num_heads=2,
@@ -163,12 +219,21 @@ FAMILIES = {
     "sdxl": ModelFamilyConfig(
         "sdxl", SDXL_UNET, SDXL_VAE, CLIP_L, CLIP_BIGG, is_sdxl=True,
         default_steps=30, guidance_scale=7.5),
+    "sd15": ModelFamilyConfig(
+        "sd15", SD15_UNET, SD15_VAE, CLIP_L, is_sdxl=False,
+        default_steps=4, guidance_scale=1.0),
     "tiny-sdxl": ModelFamilyConfig(
         "tiny-sdxl", TINY_SDXL_UNET, TINY_VAE, TINY_CLIP, TINY_CLIP_2,
         is_sdxl=True, default_steps=1, guidance_scale=0.0),
+    "tiny-sd15": ModelFamilyConfig(
+        "tiny-sd15", TINY_SD15_UNET, TINY_VAE, TINY_CLIP, is_sdxl=False,
+        default_steps=4, guidance_scale=1.0),
     "small-sdxl": ModelFamilyConfig(
         "small-sdxl", SMALL_SDXL_UNET, TINY_VAE, SMALL_CLIP, SMALL_CLIP_2,
         is_sdxl=True, default_steps=1, guidance_scale=0.0),
+    "small-sd15": ModelFamilyConfig(
+        "small-sd15", SMALL_SD15_UNET, TINY_VAE, TINY_CLIP, is_sdxl=False,
+        default_steps=4, guidance_scale=1.0),
 }
 
 

@@ -6,7 +6,9 @@ The ``*_ok`` gates below are copies of the JAX package's pure shape rules
 128-lane offsets and the TPU's VMEM budgets. They choose the route the
 reference takes at each shape, so the port runs the same kernel at the
 same site; they are not limits of the Hopper kernels, which take every
-shape with ``head_dim`` in ``ops.sec_attention.HEAD_DIMS``.
+shape with ``head_dim`` in ``ops.sec_attention.HEAD_DIMS`` (the flash
+kernels: ``ops.attention.FLASH_HEAD_DIMS``, SD1.5's 40 / 80 / 160 too,
+which ``_lanes`` never sends to a ``sec_attention*`` kernel).
 
 An explicit ``attn_impl`` (``EXPLICIT_ATTN``) sends every site to its
 kernel in any mode; the ``sec_attention*`` kernels run under ``'auto'``

@@ -1,10 +1,11 @@
-"""UNet2DConditionModel, NHWC (port of ``mixdq_tpu/models/unet.py``,
-SDXL block types). Module names follow the diffusers qualified names, so
-the layer names equal the JAX package's ``canonical_name``s.
+"""UNet2DConditionModel, NHWC (port of ``mixdq_tpu/models/unet.py``:
+the SDXL and SD1.5 layouts). Module names follow the diffusers qualified
+names, so the layer names equal the JAX package's ``canonical_name``s.
 
 Forward contract: ``(sample [B, H, W, C], timesteps [] or [B],
 encoder_hidden_states [B, T, D], added_cond_kwargs {text_embeds,
-time_ids}, ctx) -> noise prediction [B, H, W, C]``.
+time_ids} (SDXL; None without ``add_embedding``), ctx) -> noise
+prediction [B, H, W, C]``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@
 ``flash_attention`` reads q/k/v at column offsets of their sources (the
 fused ``to_qkv`` output at 0/C/2C, or three projections) and writes
 ``[B, Tq, heads * head_dim]`` in q's dtype for ``to_out``; ``mha``'s
-head-major copies are not ported. Kernel: ``csrc/flash_attention.cu``.
+head-major copies are not ported. The three flash kernels take the head
+dims ``FLASH_HEAD_DIMS``: the TPU kernels zero-pad any d to 128 lanes;
+these pad 40 / 80 / 160 (SD1.5) to the mma's depth in shared memory and
+write d columns. Kernel: ``csrc/flash_attention.cu``.
 Plain version: ``flash_attention_plain``, a step-by-step copy of the
 online softmax of the TPU kernel.
 
@@ -37,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build, check_cuda_args, register, use_kernel
-from .sec_attention import _panel_ptr, check_head_dim, check_panels
+from .sec_attention import _panel_ptr, check_panels
 
 FLASH_COUNT = register("flash_attention")
 INT8_COUNT = register("int8_flash_attention")
@@ -46,6 +49,18 @@ INT8QKV_COUNT = register("int8qkv_flash_attention")
 #: the TPU kernel's running max before the first key block and the logit
 #: of a masked key (``pallas_attention.py:32``)
 MASKED = -1e30
+
+#: head dims the three flash kernels are built for: the powers of two of
+#: the ``sec_attention*`` kernels and SD1.5's 40 / 80 / 160 (8 heads at
+#: 320 / 640 / 1280 channels), which the kernels pad to the mma's depth
+#: (the TPU kernels zero-pad any d to 128 lanes)
+FLASH_HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160)
+
+
+def check_flash_head_dim(head_dim: int) -> None:
+    if head_dim not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the flash kernels take "
+                         f"{FLASH_HEAD_DIMS}")
 
 
 def flash_block_keys(Tk: int) -> int:
@@ -117,7 +132,7 @@ def flash_attention(q_src: torch.Tensor, k_src: torch.Tensor,
     Tk, >= off + C]`` read at their column offsets (bf16 or f32, one
     dtype) -> ``[B, Tq, C]`` in that dtype, C = heads * head_dim."""
     FLASH_COUNT.calls += 1
-    check_head_dim(head_dim)
+    check_flash_head_dim(head_dim)
     if not use_kernel(q_src, k_src, v_src):
         return flash_attention_plain(
             q_src, k_src, v_src, heads=heads, head_dim=head_dim, scale=scale,
@@ -166,15 +181,17 @@ INT8_FLASH_STAGES = 4
 INT8_FLASH_STAGE_KEYS = 32
 #: blocks an SM each build is made for, by head dim: (bf16 v, int8 v)
 #: (``I8Stage::MIN_BLOCKS``)
-INT8_FLASH_BLOCKS = {16: (5, 5), 32: (5, 5), 64: (5, 4), 128: (2, 2)}
+INT8_FLASH_BLOCKS = {16: (5, 5), 32: (5, 5), 40: (4, 4), 64: (5, 4),
+                     80: (4, 3), 128: (2, 2), 160: (2, 2)}
 
 
 @dataclasses.dataclass(frozen=True)
 class Int8FlashPlan:
     """One int8 flash launch's block and key ring: ``rows`` query rows a
     block of ``threads``; ``stages`` ring stages of ``stage_keys`` keys,
-    each ``stage_bytes`` (k code rows of ``max(d, 32) + 16`` bytes, then
-    v rows: codes at the same stride, or bf16 of ``d + 8`` elements);
+    each ``stage_bytes`` (k code rows of ``int8_flash_depths(d)[0] + 16``
+    bytes, then v rows: codes at the same stride, or bf16 of
+    ``int8_flash_depths(d)[1] + 8`` elements);
     ``ring_bytes`` of dynamic shared memory; ``blocks_per_sm`` the build's
     launch bound. f32 v keeps the scalar path (64-row blocks of 128
     threads, no ring) under the bf16-v plan of its ``d``."""
@@ -187,14 +204,22 @@ class Int8FlashPlan:
     blocks_per_sm: int
 
 
+def int8_flash_depths(d: int):
+    """(QK^T depth, PV depth) of the int8 flash kernels at head dim ``d``:
+    ``d`` padded to the m16n8k32 step (32) and to 16 (``I8Stage::DP`` /
+    ``DV``); the pads are zero in every ring stage."""
+    return -(-d // 32) * 32, -(-d // 16) * 16
+
+
 def int8_flash_plan(d: int, int8_v: bool) -> Int8FlashPlan:
     """The plan of the int8 flash kernel at head dim ``d`` with int8 v
     codes (``int8qkv_flash_attention``) or bf16 v; the C launcher refuses
     any other."""
-    check_head_dim(d)
+    check_flash_head_dim(d)
     keys = INT8_FLASH_STAGE_KEYS
-    ldk = max(d, 32) + 16
-    stage = keys * (ldk + (ldk if int8_v else (d + 8) * 2))
+    dp, dv = int8_flash_depths(d)
+    ldk = dp + 16
+    stage = keys * (ldk + (ldk if int8_v else (dv + 8) * 2))
     return Int8FlashPlan(INT8_FLASH_ROWS, INT8_FLASH_ROWS // 16 * 32,
                          INT8_FLASH_STAGES, keys, stage,
                          INT8_FLASH_STAGES * stage,
@@ -284,7 +309,7 @@ def int8_flash_codes(qi: torch.Tensor, ki: torch.Tensor,
     int8_v = v_scale is not None
     count = INT8QKV_COUNT if int8_v else INT8_COUNT
     count.calls += 1
-    check_head_dim(head_dim)
+    check_flash_head_dim(head_dim)
     if not use_kernel(qi, ki, v_src):
         return int8_flash_codes_plain(
             qi, ki, v_src, logit_scale, v_scale, heads=heads,

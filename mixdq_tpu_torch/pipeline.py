@@ -67,7 +67,8 @@ def build_unet(family: str = "sdxl-turbo", seed: int = 0,
 def example_inputs(family: str = "sdxl-turbo", batch: int = 1, seed: int = 0,
                    dtype=torch.bfloat16, device=None) -> Inputs:
     """One request: a latent, timestep 999, a text embedding of 77 tokens,
-    and SDXL micro-conditioning, all from ``seed``."""
+    and SDXL micro-conditioning (None for a family without it, SD1.5),
+    all from ``seed``."""
     dev = resolve_device(device)
     f = get_family(family)
     cfg = f.unet

@@ -2,8 +2,9 @@
 
 Runs the ``sec_attention*`` kernels (with ``geglu_out_qmatmul`` and
 ``ln_quantize``, which share their LayerNorm code), ``geglu_qmatmul``,
-``gn_silu_quantize`` and the int8 flash kernels of the checkout at ``--root`` at the main-path
-shapes of ``chip_smoke.py`` and at small test shapes, on inputs made
+``gn_silu_quantize``, the int8 flash kernels and ``flash_attention`` of
+the checkout at ``--root`` at the main-path shapes of ``chip_smoke.py``
+and at small test shapes, on inputs made
 from seed 0 (the attention cases by that checkout's ``chip_smoke.py``
 case builders), so that two checkouts see the same inputs. Prints each
 case's median device time (each call after a 256 MB flush and a spin
@@ -169,6 +170,20 @@ def cases(torch, cs, g, dev):
                         lambda a=a, kw=ckw: attention.int8_flash_codes(*a,
                                                                        **kw),
                         False))
+    # bf16 (and f32) flash attention at every head dim both checkouts
+    # build: the SDXL 1024 attn1 site, a ragged cross site, d = 16 / 32 /
+    # 128, f32 q/k/v
+    for B, Tq, Tk, heads, d, cross, dt in [
+            (1, 4096, 4096, 10, 64, False, bf16),
+            (2, 300, 700, 3, 64, True, bf16),
+            (2, 130, 130, 4, 16, False, bf16),
+            (1, 256, 77, 2, 32, True, bf16),
+            (1, 200, 600, 2, 128, True, bf16),
+            (2, 300, 700, 3, 64, True, torch.float32)]:
+        srcs, kw = cs.attn_case(torch, g, dev, B, Tq, Tk, heads, d, dt, cross)
+        out.append((f"flash B={B} Tq={Tq} Tk={Tk} {heads}x{d} {dt}",
+                    lambda s=srcs, kw=kw: attention.flash_attention(*s, **kw),
+                    False))
     return out
 
 

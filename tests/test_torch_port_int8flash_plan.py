@@ -172,12 +172,15 @@ def test_plan_constants_match_the_source():
     assert attention.INT8_FLASH_ROWS == 16 * warps
     assert attention.INT8_FLASH_STAGES == int(
         re.search(r"I8_STAGES = (\d+);", src).group(1))
-    m = re.search(r"MIN_BLOCKS = D <= 32 \? (\d+) : D == 64 \? "
+    m = re.search(r"MIN_BLOCKS =\s+D <= 32 \? (\d+) : D == 40 \? (\d+) : "
+                  r"D == 64 \? \(V8 \? (\d+) : (\d+)\)\s+: D == 80 \? "
                   r"\(V8 \? (\d+) : (\d+)\) : (\d+);", src)
-    small, v8, bf16_v, large = (int(x) for x in m.groups())
+    small, d40, v8, bf16_v, v8_80, bf16_80, large = (int(x)
+                                                     for x in m.groups())
     assert attention.INT8_FLASH_BLOCKS == {
-        16: (small, small), 32: (small, small), 64: (bf16_v, v8),
-        128: (large, large)}
+        16: (small, small), 32: (small, small), 40: (d40, d40),
+        64: (bf16_v, v8), 80: (bf16_80, v8_80), 128: (large, large),
+        160: (large, large)}
     hdr = open(os.path.join(csrc, "attn_mma.cuh")).read()
     assert attention.INT8_FLASH_STAGE_KEYS == int(
         re.search(r"constexpr int KCH = (\d+);", hdr).group(1))
