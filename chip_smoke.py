@@ -214,6 +214,29 @@ Phases (none catches its own failure; any failure exits non-zero):
    LCM 4-step serving loop (``sd15_serving``: CLIP-L, the SD1.5 VAE, one
    CUDA graph a batch at B = 1 and 4, bf16 and W8A8) and the PTQ flow
    on ``configs/sd15_lcm.yaml`` (``sd15_files``).
+15. Reconstruction, QAT and the converters (``phase_recon``), each CLI
+   through its ``main(argv)``: ``ptq --recon layer`` at SDXL-Turbo width
+   on its own calibration data (``configs/sdxl_turbo.yaml`` cut to
+   ``RECON_SAMPLES`` sample, unit normal from a seed: memory), its loss
+   falling, seconds an iteration and peak memory logged, its qparams
+   deployed W8A8 under ``'auto'`` (launches ``ctx_kernel_calls``, a
+   graph replay equal to the eager step, SQNR against bf16 failed by
+   conv_out's scale negated); ``reconstruct`` at W4 on one batch, whose
+   fake step's SQNR against bf16 rises, and falls with the gradient's
+   sign flipped (lr < 0); ``ptq --recon model --adaround`` and ``ptq
+   --recon layer --adaround`` at SD1.5 width (``configs/sd15_lcm.yaml``
+   cut likewise: SDXL-Turbo's alphas, their gradient, Adam's moments and
+   the soft rounding's saved tensors exceed 80 GB), each
+   ``alphas.msgpack`` read back bit for bit and each deploy's codes equal
+   to the hard AdaRound fake-quant codes layer by layer; the model
+   mode's W8A8 step logged against bf16 (5 steps take it from 23.7 to
+   13.5 dB: PERF.md section 6, reconstruction), the layer mode's held
+   as above;
+   ``QAT_STEPS`` QAT steps of an f32 SD1.5 UNet on one batch
+   (the loss finite and falling); the seed-0 SDXL-Turbo UNet written as a
+   diffusers ``.safetensors`` file (bf16), ``convert_checkpoints --mode
+   unet``, ``load_module_params`` into a UNet of another seed: every
+   weight and the bf16 step equal bit for bit.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line; every line but the
@@ -222,6 +245,7 @@ last also goes to ``chiprun_out/chip_smoke.log``.
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -506,6 +530,26 @@ SD15_LAYERS = 282
 # the LCM serving loop: 4 steps, g = 1 (no CFG batch), prompts and seed
 SD15_STEPS = 4
 SD15_SEED = 11
+
+# phase 15: the reconstructions' Adam steps (``--recon_iters``, at the
+# CLI's lr), the calibration samples of their runs (one seeded sample, cut
+# from the configs' 32 prompts: memory, PERF.md section 6), the W4 gate's
+# bits and lr (the JAX package's test_recon.py lr), the QAT steps and lr
+# (Adam moves each of SD1.5's 0.86 G parameters by about lr a step: at
+# 1e-6 one step lifts the loss 12x, at 1e-7 it wanders, at 3e-8 it falls
+# 2-5 % in ten; H100 80GB HBM3, 700 W), and the family the converters
+# round-trip
+RECON_ITERS = 5
+RECON_SAMPLES = 1
+RECON_SEED = 5
+RECON_W4_BITS = 4
+RECON_W4_LR = 3e-3
+QAT_STEPS = 10
+QAT_LR = 3e-8
+QAT_FAMILY = "sd15"
+RECON_TURBO_CONFIG = PTQ_CONFIG
+RECON_SD15_CONFIG = SD15_CONFIG
+CONVERT_FAMILY = "sdxl-turbo"
 
 # phase 13: evaluate's matrix, prompts and batch; its UNet calls per
 # entry (2 batches of one step)
@@ -5095,6 +5139,430 @@ def phase_sd15(torch, dev, card):
     return per_step, launches
 
 
+def cut_config(torch, base, tmp, tag):
+    """``base`` cut to ``RECON_SAMPLES`` samples of one timestep in batches
+    of one, its calibration data written in ``tmp`` from seed
+    ``RECON_SEED`` (``example_inputs``: unit normal latents and text
+    embeddings, as phase 3 calibrates; ``gen_calib_data``'s prompts go
+    through the hash tokenizer, whose ids change with the process: on
+    them the SD1.5 W8A8 step after ``--recon model --adaround`` read 21.18
+    dB in one call and 13.73 in the next); returns (config, path)."""
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.utils.config import load_config, merge, save_config
+
+    cfg = merge(load_config(base), {"calib_data": {
+        "path": os.path.join(tmp, f"{tag}_calib.npz"),
+        "n_samples": RECON_SAMPLES, "n_steps": 1, "batch_size": 1}})
+    path = os.path.join(tmp, f"{tag}.yaml")
+    save_config(cfg, path)
+    x, _, ehs, added = pipeline.example_inputs(
+        cfg.model.family, RECON_SAMPLES, RECON_SEED, torch.float32, "cpu")
+    data = {"xs": x[None].numpy(), "ts": np.array([999.0], np.float32),
+            "outputs": np.zeros_like(x[None].numpy()),
+            "text_embs": ehs.numpy()}
+    if added is not None:
+        data.update({k: v.numpy() for k, v in added.items()})
+    np.savez(cfg.calib_data.path, **data)
+    return cfg, path
+
+
+def recon_cli(torch, cfg, path, exp, *opts):
+    """``ptq --recon ...`` on config ``path``, its losses falling; logs its
+    seconds and peak device memory and returns ptq's result."""
+    from mixdq_tpu_torch.scripts import ptq
+
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    res = ptq.main(["--config", path, "--outdir", exp,
+                    "--recon_iters", str(RECON_ITERS), *opts])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    n = cfg.calib_data.n_samples * cfg.calib_data.n_steps
+    log(f"recon {' '.join(opts)} ({cfg.model.family}, {n} calibration "
+        f"batch(es) of 1): losses {[round(v, 6) for v in losses]}; "
+        f"{res['seconds']['recon']:.2f}s for {RECON_ITERS} iterations "
+        f"({res['seconds']['recon'] / RECON_ITERS:.3f} s each, the FP "
+        f"targets included), calibration {res['seconds']['calibrate']:.2f}s;"
+        f" peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    falling_losses(f"recon {' '.join(opts)}", losses, RECON_ITERS)
+    return res
+
+
+def falling_losses(label, losses, n):
+    """``n`` finite losses, the last below the first."""
+    if len(losses) != n or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+
+
+def w8a8_ctx(pipe, qparams, wq, alphas=None):
+    """The W8A8 deploy of ``qparams`` (``int8_sec``, fused QKV/KV,
+    BoS-aware, the pipeline's channel splits, ``alphas`` folded) under
+    ``'auto'``."""
+    import dataclasses
+
+    from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
+    from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
+
+    names = list(quantizable_layers(pipe.unet))
+    return dataclasses.replace(deploy_unet_ctx(
+        pipe.unet, qparams, uniform_ctrl(names), wq, fuse_qkv=True,
+        splits={k: v for k, v in pipe.splits.items() if k in names},
+        alphas=alphas), attn_impl="auto")
+
+
+def deployed_step(torch, pipe, qparams, wq, req, label, alphas=None):
+    """``w8a8_ctx``'s step: one eager step with the counts set to 0
+    (``run_path``), a CUDA graph whose launches at capture are
+    ``ctx_kernel_calls`` and whose replay equals the eager step, and its
+    SQNR against bf16 (``MIN_SQNR_DB``, failed by conv_out's scale
+    negated); with ``alphas``, the same qparams' nearest rounding logged
+    beside. Returns the eager step's launches."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+
+    unet = pipe.unet
+    ctx = w8a8_ctx(pipe, qparams, wq, alphas)
+    with torch.no_grad():
+        (y,), launches = run_path(torch, unet, [req], ctx, label)
+        sample, t, ehs, added = req
+        g = GraphedCall(lambda x: unet(x, t, ehs, added, ctx=ctx), (sample,))
+        want = pipeline.ctx_kernel_calls(unet.config, ctx)
+        if g.launches != want or not torch.equal(g(sample), y):
+            raise AssertionError(f"{label}: graph launches {g.launches} "
+                                 f"(expected {want}) or replay != eager")
+        ref = pipeline.unet_step(unet, req)
+        fault = pipeline.unet_step(unet, req,
+                                   negated_scale_ctx(ctx, "conv_out"))
+        if alphas is not None:
+            plain = pipeline.unet_step(unet, req, w8a8_ctx(pipe, qparams, wq))
+            log(f"{label}: the same qparams deployed without the alphas "
+                f"(nearest rounding) vs bf16: {sqnr_db(ref, plain):.2f} dB "
+                "(logged)")
+    sqnr_gate(f"{label}: W8A8 auto step vs bf16 (graph replay equals the "
+              "eager step, launches at capture = ctx_kernel_calls)",
+              sqnr_db(ref, y), sqnr_db(ref, fault), MIN_SQNR_DB)
+    return launches
+
+
+def w4_gate(torch, pipe):
+    """``reconstruct`` (mode 'model', ``RECON_ITERS`` steps at lr
+    ``RECON_W4_LR``) at W4A8 on one request (``example_inputs``: unit
+    normal text embeddings, no BoS outlier; the reconstruction's fake
+    context is not BoS-aware, as the JAX package's is not): the fake
+    step's SQNR against bf16 must rise, and fall with the learning rate
+    negated (the gradient's sign flipped, the planted fault)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.calibrate import calibrate
+    from mixdq_tpu_torch.quant.core import QuantSpec
+    from mixdq_tpu_torch.quant.recon import reconstruct
+    from mixdq_tpu_torch.quant.state import (QuantCtx, quantizable_layers,
+                                             uniform_ctrl)
+
+    unet = pipe.unet
+    req = pipeline.example_inputs(pipe.family.name, 1, 0, torch.bfloat16,
+                                  pipe.device)
+    wq = QuantSpec(n_bits=RECON_W4_BITS, sym=True, channel_wise=True,
+                   round_mode="nearest_ste")
+    aq = QuantSpec(running_stat=True)
+    qp = calibrate(unet, [req], wq, aq)
+    ctrl = uniform_ctrl(list(quantizable_layers(unet)), w_bits=RECON_W4_BITS)
+
+    def fake_sqnr(q):
+        ctx = QuantCtx(mode="fake", qparams=q, ctrl=ctrl, wq=wq, aq=aq)
+        with torch.no_grad():
+            return sqnr_db(ref, pipeline.unet_step(unet, req, ctx))
+
+    with torch.no_grad():
+        ref = pipeline.unet_step(unet, req)
+    before = fake_sqnr(qp)
+    out = {}
+    # the fault: Adam ascends the loss (torch's Adam takes no lr < 0)
+    ascent = functools.partial(torch.optim.Adam, maximize=True)
+    for tag, adam in (("sound", torch.optim.Adam), ("lr < 0", ascent)):
+        gc_cuda(torch)
+        t0 = time.time()
+        losses = []
+        with patched(torch.optim, "Adam", adam):
+            qp_r = reconstruct(unet, qp, [req], wq, aq, mode="model",
+                               iters=RECON_ITERS, lr=RECON_W4_LR,
+                               losses=losses)
+        out[tag] = fake_sqnr(qp_r)
+        log(f"recon W{RECON_W4_BITS}A8 gate ({tag}, {RECON_ITERS} steps, "
+            f"{time.time() - t0:.1f}s): fake step vs bf16 {before:.3f} -> "
+            f"{out[tag]:.3f} dB; losses "
+            f"{[round(float(v), 6) for v in losses]}")
+    if not out["sound"] > before or not out["lr < 0"] < before:
+        raise AssertionError(f"W{RECON_W4_BITS} recon gate: before "
+                             f"{before}, after {out}")
+
+
+def adaround_codes(torch, pipe, qparams, alphas):
+    """The per-layer W8 deploy with ``alphas`` folded: every entry's codes
+    (a split conv's two halves) equal the hard AdaRound fake-quant codes
+    of its weight. Returns the number of entries held."""
+    from mixdq_tpu_torch.quant.core import fake_quant_adaround
+    from mixdq_tpu_torch.quant.deploy import build_deploy_params
+    from mixdq_tpu_torch.quant.state import quantizable_layers
+
+    layers = quantizable_layers(pipe.unet)
+    splits = {k: v for k, v in pipe.splits.items() if k in layers}
+    deploy = build_deploy_params(pipe.unet, qparams,
+                                 {n: (8, 8) for n in layers},
+                                 splits=splits, alphas=alphas)
+    bi = 2  # W8
+    bad = []
+    for n, e in deploy.items():
+        w, qp, a = layers[n].weight.detach(), qparams[n], alphas[n]
+        parts = [(e, w, a, qp.w_delta[bi])]
+        if e.kind == "conv_split":
+            s = e.split
+            parts = [(e.part0, w[:, :, :s], a[:, :, :s], qp.w_delta[bi]),
+                     (e.part1, w[:, :, s:], a[:, :, s:], qp.w0_delta[bi])]
+        for part, wp, ap, d in parts:
+            hard = fake_quant_adaround(wp, d, torch.zeros_like(d), 8, ap,
+                                       sym=True, hard=True)
+            if not torch.equal(torch.round(hard.float() / d).to(torch.int8),
+                               part.w_int):
+                bad.append(n)
+    if bad or len(deploy) != len(layers):
+        raise AssertionError(f"AdaRound deploy codes differ from the hard "
+                             f"fake-quant codes: {bad[:4]} ({len(bad)}); "
+                             f"{len(deploy)} of {len(layers)} entries")
+    return len(deploy)
+
+
+def qat_steps(torch, dev):
+    """``QAT_STEPS`` steps of ``make_qat_train_step`` (W8A8, lr
+    ``QAT_LR``) on an f32 ``QAT_FAMILY`` UNet and one request
+    (``example_inputs``, as ``w4_gate``'s), the target its FP output:
+    every loss finite and the last below the first. Returns (losses,
+    seconds a step)."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.calibrate import calibrate
+    from mixdq_tpu_torch.quant.core import QuantSpec
+    from mixdq_tpu_torch.quant.qat import make_qat_train_step
+    from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
+
+    unet = pipeline.build_unet(QAT_FAMILY, seed=0, dtype=torch.float32,
+                               device=dev)
+    batch = pipeline.example_inputs(QAT_FAMILY, 1, 0, torch.float32, dev)
+    wq = QuantSpec(sym=True, channel_wise=True, round_mode="nearest_ste")
+    aq = QuantSpec(running_stat=True)
+    qparams = calibrate(unet, [batch], wq, aq)
+    with torch.no_grad():
+        target = pipeline.unet_step(unet, batch)
+    init, step = make_qat_train_step(
+        unet, wq, aq, uniform_ctrl(list(quantizable_layers(unet))), QAT_LR)
+    params = dict(unet.named_parameters())
+    opt = init(params, qparams)
+    losses = []
+    # cuDNN's weight-gradient convolutions are nondeterministic: the
+    # losses wandered ~2 % from call to call; deterministic ones give the
+    # card one trajectory
+    cudnn = torch.backends.cudnn
+    keep = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        for _ in range(QAT_STEPS):
+            params, qparams, opt, loss = step(params, qparams, opt, batch,
+                                              target)
+            losses.append(float(loss))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = keep
+    sec = (time.time() - t0) / QAT_STEPS
+    log(f"QAT ({QAT_FAMILY} f32, W8A8, lr {QAT_LR}): losses "
+        f"{[round(v, 7) for v in losses]}, {sec:.2f}s a step")
+    falling_losses("QAT", losses, QAT_STEPS)
+    return losses, sec
+
+
+_ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16",
+              "torch.float32": "F32"}
+
+
+def write_safetensors(torch, path, tensors):
+    """``{name: CPU tensor}`` as a ``.safetensors`` file (the card has no
+    ``safetensors`` package): the header's length, the JSON header, the
+    bytes in order. Returns the file's size."""
+    import struct
+
+    header, off = {}, 0
+    for n, t in tensors.items():
+        nb = t.numel() * t.element_size()
+        header[n] = {"dtype": _ST_DTYPES[str(t.dtype)],
+                     "shape": list(t.shape), "data_offsets": [off, off + nb]}
+        off += nb
+    h = json.dumps(header, separators=(",", ":")).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)))
+        f.write(h)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy())
+    return 8 + len(h) + off
+
+
+def hf_unet_state_dict(torch, unet):
+    """The UNet's weights in diffusers' names and layouts (OIHW convs,
+    ``[out, in]`` linears), on the host."""
+    out = {}
+    for n, p in unet.state_dict().items():
+        p = p.detach()
+        if p.ndim == 4:
+            p = p.permute(3, 2, 0, 1)
+        elif p.ndim == 2:
+            p = p.T
+        out[n] = p.contiguous().cpu()
+    return out
+
+
+def convert_round_trip(torch, dev, tmp):
+    """The seed-0 ``CONVERT_FAMILY`` UNet (bf16) written as a diffusers
+    ``.safetensors`` file, ``convert_checkpoints --mode unet``, then
+    ``load_module_params`` into a UNet of seed 1: every weight equal bit
+    for bit to seed 0's, and the bf16 step too."""
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.quant.checkpoint import load_module_params
+    from mixdq_tpu_torch.scripts import convert_checkpoints
+
+    unet = pipeline.build_unet(CONVERT_FAMILY, seed=0, dtype=torch.bfloat16,
+                               device=dev)
+    req = pipeline.example_inputs(CONVERT_FAMILY, 1, 0, torch.bfloat16, dev)
+    st = os.path.join(tmp, "diffusion_pytorch_model.safetensors")
+    mp = os.path.join(tmp, "unet.msgpack")
+    t0 = time.time()
+    size = write_safetensors(torch, st, hf_unet_state_dict(torch, unet))
+    t1 = time.time()
+    res = convert_checkpoints.main(["--mode", "unet", "--input", st,
+                                    "--output", mp])
+    n = res["n"]
+    del res
+    t2 = time.time()
+    other = pipeline.build_unet(CONVERT_FAMILY, seed=1,
+                                dtype=torch.bfloat16, device=dev)
+    load_module_params(other, mp)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    want = unet.state_dict()
+    bad = [k for k, v in other.state_dict().items()
+           if not torch.equal(v, want[k])]
+    with torch.no_grad():
+        y0, y1 = (pipeline.unet_step(m, req) for m in (unet, other))
+    if bad or len(want) != n or not torch.equal(y0, y1):
+        raise AssertionError(f"converted UNet: {len(bad)} weights differ "
+                             f"({bad[:3]}), {n} tensors of {len(want)}, "
+                             f"step equal {torch.equal(y0, y1)}")
+    log(f"converters: {CONVERT_FAMILY} UNet ({n} tensors) -> .safetensors "
+        f"{size} bytes in {t1 - t0:.2f}s; convert_checkpoints --mode unet "
+        f"-> {os.path.getsize(mp)} bytes in {t2 - t1:.2f}s; "
+        f"load_module_params {t3 - t2:.2f}s; every weight and the bf16 "
+        "step equal seed 0's bit for bit")
+    os.remove(st)
+    os.remove(mp)
+
+
+def phase_recon(torch, dev, card):
+    """Phase 15 (see the module docstring). Returns {path: launches}."""
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.loader import (build_pipeline,
+                                                  specs_from_config)
+    from mixdq_tpu_torch.quant.checkpoint import load_qparams
+    from mixdq_tpu_torch.scripts import ptq
+    from mixdq_tpu_torch.utils.msgpack import unpack
+
+    launches, t0 = {}, time.time()
+    tmp = tempfile.mkdtemp(prefix="recon_")
+    try:
+        # 15a: --recon layer at SDXL-Turbo width, deployed W8A8
+        cfg, path = cut_config(torch, RECON_TURBO_CONFIG, tmp, "turbo")
+        exp = os.path.join(tmp, "turbo_layer")
+        res = recon_cli(torch, cfg, path, exp, "--recon", "layer")
+        qparams = load_qparams(res["path"], device=dev)
+        del res
+        gc_cuda(torch)
+        pipe = build_pipeline(cfg, device=dev)
+        with np.load(cfg.calib_data.path) as f:
+            data = {k: f[k] for k in f.files}
+        req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
+        wq = specs_from_config(cfg)[0]
+        launches[f"recon layer {cfg.model.family}"] = deployed_step(
+            torch, pipe, qparams, wq, req, f"recon layer {cfg.model.family}")
+        t_a = time.time()
+        # 15b: the W4 gate on one request
+        del qparams
+        gc_cuda(torch)
+        w4_gate(torch, pipe)
+        del pipe
+        gc_cuda(torch)
+        t_b = time.time()
+        # 15c: --recon model / layer --adaround at SD1.5 width
+        cfg, path = cut_config(torch, RECON_SD15_CONFIG, tmp, "sd15")
+        with np.load(cfg.calib_data.path) as f:
+            data = {k: f[k] for k in f.files}
+        req = next(ptq.calib_batches_from_npz(data, 1, None, dev))
+        wq = specs_from_config(cfg)[0]
+        for mode in ("model", "layer"):
+            exp = os.path.join(tmp, f"sd15_{mode}_adaround")
+            res = recon_cli(torch, cfg, path, exp, "--recon", mode,
+                            "--adaround")
+            alphas, qparams = res["alphas"], res["qparams"]
+            del res
+            with open(os.path.join(exp, "alphas.msgpack"), "rb") as f:
+                back = unpack(bytearray(f.read()))
+            if list(back) != sorted(alphas) or not all(
+                    torch.equal(back[k], alphas[k].cpu()) for k in alphas):
+                raise AssertionError("alphas.msgpack reads back otherwise")
+            gc_cuda(torch)
+            pipe = build_pipeline(cfg, device=dev)
+            n = adaround_codes(torch, pipe, qparams, alphas)
+            label = f"recon {mode} adaround {cfg.model.family}"
+            log(f"{label}: alphas.msgpack ({len(back)} layers) reads back "
+                f"bit for bit; the deploy's codes equal the hard fake-quant "
+                f"codes in all {n} entries")
+            del back
+            if mode == "model":
+                # logged: a step of Adam flips the near-half codes of
+                # every layer toward the output's gradient at once, a
+                # step of a code each that overshoots (PERF.md section 6,
+                # reconstruction); layer mode's per-layer targets hold
+                # the step
+                with torch.no_grad():
+                    ref = pipeline.unet_step(pipe.unet, req)
+                    y, y0 = (pipeline.unet_step(pipe.unet, req, w8a8_ctx(
+                        pipe, qparams, wq, a)) for a in (alphas, None))
+                log(f"{label}: W8A8 auto step vs bf16 {sqnr_db(ref, y):.2f} "
+                    f"dB, without the alphas {sqnr_db(ref, y0):.2f} dB "
+                    "(logged)")
+            else:
+                launches[f"recon adaround {cfg.model.family}"] = \
+                    deployed_step(torch, pipe, qparams, wq, req, label,
+                                  alphas=alphas)
+            del pipe, qparams, alphas
+            gc_cuda(torch)
+        t_c = time.time()
+        # 15d: QAT
+        qat_steps(torch, dev)
+        gc_cuda(torch)
+        t_d = time.time()
+        # 15e: the converters at full width
+        convert_round_trip(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc_cuda(torch)
+    log(f"phase 15 seconds: recon layer + deploy {t_a - t0:.1f}, W4 gate "
+        f"{t_b - t_a:.1f}, adaround + deploy {t_c - t_b:.1f}, QAT "
+        f"{t_d - t_c:.1f}, converters {time.time() - t_d:.1f}; {card}")
+    return launches
+
+
 def gc_cuda(torch):
     import gc
 
@@ -5226,6 +5694,13 @@ def main():
     log(f"phase 14: sd15 ok ({time.time() - t0:.1f}s: W8A8, bf16, mixed and "
         "int8 flash steps, flash at d = 40 / 80 / 160, the LCM serving loop "
         "at B = 1 and 4, the PTQ flow on configs/sd15_lcm.yaml)")
+    gc_cuda(torch)
+    t0 = time.time()
+    recon_launches = phase_recon(torch, dev, card)
+    per_step.update(recon_launches)
+    totals.update(recon_launches)
+    log(f"phase 15: reconstruction, QAT and the converters ok "
+        f"({time.time() - t0:.1f}s)")
     per_step.update(fake_launches)
     totals.update(fake_launches)
     per_step.update(search_launches)

@@ -47,16 +47,22 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
         name_layers(self)
 
+    def _norm_act(self, x, idx: int, ctx: QuantCtx):
+        """``norm{idx}`` + SiLU, or ``conv{idx}``'s codes (a method, as in
+        the JAX package: reconstruction records its results)."""
+        return norm_act(x, getattr(self, f"norm{idx}"),
+                        getattr(self, f"conv{idx}").qname, ctx)
+
     def forward(self, x, temb, ctx: QuantCtx = FP_CTX, split: int = 0,
                 banks=None):
         """``banks``: the step's shared-input bank outputs by layer name
         (``time_emb_proj``'s from the time-embedding bank), or None."""
-        h = norm_act(x, self.norm1, self.conv1.qname, ctx)
+        h = self._norm_act(x, 1, ctx)
         t = self.time_emb_proj(
             F.silu(temb), ctx, bank=None if banks is None else banks.get(
                 self.time_emb_proj.qname))
         h = self.conv1(h, ctx, extra_bias=t)
-        h = norm_act(h, self.norm2, self.conv2.qname, ctx)
+        h = self._norm_act(h, 2, ctx)
         residual = x
         if self.conv_shortcut is not None:
             residual = self.conv_shortcut(x, ctx, split=split)

@@ -16,6 +16,11 @@ msgpack codec (``utils/msgpack.py``): no flax, no ``msgpack`` package.
   copied into its parameter, which casts it to the module's dtype.
   ``save_params`` writes leaf by leaf and ``load_params`` reads through
   an ``mmap``, so neither makes a second host copy of the model.
+* a params fragment: one module's flax params tree alone (the JAX
+  package's ``save_params`` of a converted state dict, as
+  ``scripts/convert_checkpoints.py`` writes it): ``save_params_tree``
+  writes a tree as it is ordered, ``load_module_params`` reads one into a
+  module.
 """
 
 from __future__ import annotations
@@ -155,5 +160,27 @@ def load_params(pipe, path: str) -> None:
             raise KeyError(f"{path}: no params for {p}")
         getattr(pipe, p).load_state_dict(
             convert.params_to_state_dict(tree.pop(p)), strict=True)
+    del tree
+    mm.close()
+
+
+def save_params_tree(tree: Dict[str, Any], path: str) -> None:
+    """Write a params tree (nested dicts of tensors) in its own key order,
+    as flax's ``serialization.to_bytes`` writes a dict."""
+    _makedirs_for(path)
+    with open(path, "wb") as f:
+        pack(tree, f.write)
+
+
+@torch.no_grad()
+def load_module_params(module: nn.Module, path: str) -> None:
+    """Load a params fragment file (``save_params_tree``, or the JAX
+    package's ``save_params`` of one module's tree) into ``module``, each
+    leaf cast to its parameter's dtype on its device; every parameter must
+    be in the file and every leaf of the file must be a parameter."""
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    tree = unpack(mm)
+    module.load_state_dict(convert.params_to_state_dict(tree), strict=True)
     del tree
     mm.close()

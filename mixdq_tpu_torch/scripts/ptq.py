@@ -10,10 +10,16 @@ the up blocks' channel splits (twin qparams for each concat-shortcut
 conv) over every (timestep, chunk) batch in the JAX script's order, and
 writes ``OUTDIR/qparams.msgpack`` (flax's msgpack format: either package
 reads it; with ``quant.softmax.enabled`` it also holds the attention's
-``act_quantizer_q`` / ``_k`` / ``_v`` / ``_softmax`` params) beside ``config.yaml``, ``run.log`` and ``GIT_REVISION``. The
-AdaRound-style reconstruction (``--recon`` / ``--adaround``) is not
-ported yet (ROADMAP Queue A 6) and raises. Runs on the card unless
-``--device cpu``.
+``act_quantizer_q`` / ``_k`` / ``_v`` / ``_softmax`` params) beside
+``config.yaml``, ``run.log`` and ``GIT_REVISION``.
+
+``--recon layer|block|model`` then reconstructs the weight scales over
+the same batches (``quant/recon.py``, ``--recon_iters`` Adam steps); with
+``--adaround`` it also learns each weight element's rounding and writes
+the offsets to ``OUTDIR/alphas.msgpack`` (``{layer: alpha}``, flax's
+msgpack: ``flax.serialization.msgpack_restore`` reads it), for
+``QuantCtx(alphas=...)`` or ``build_deploy_params(alphas=...)``. Runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -28,9 +34,11 @@ import torch
 from ..pipelines.loader import build_pipeline, specs_from_config
 from ..quant.calibrate import calibrate
 from ..quant.checkpoint import save_qparams
+from ..quant.recon import reconstruct
 from ..quant.state import quantizable_layers
 from ..utils.config import load_config
 from ..utils.logging_utils import setup_experiment
+from ..utils.msgpack import pack
 
 
 def calib_batches_from_npz(data, batch_size, rng=None, device=None):
@@ -58,22 +66,33 @@ def calib_batches_from_npz(data, batch_size, rng=None, device=None):
                    t(data["text_embs"][idx]), added)
 
 
+def save_alphas(alphas, path: str) -> None:
+    """``{layer: alpha}`` as ``flax.serialization.msgpack_serialize``
+    writes it (keys sorted, f32 arrays)."""
+    with open(path, "wb") as f:
+        pack({k: alphas[k].detach().float().cpu() for k in sorted(alphas)},
+             f.write)
+
+
 def main(argv=None):
-    """Returns ``{'qparams', 'path', 'seconds'}`` (seconds of the
-    pipeline build, the calibration and the save)."""
+    """Returns ``{'qparams', 'alphas', 'losses', 'path', 'seconds'}``
+    (``alphas``: ``{layer: alpha}`` with ``--adaround``, else None;
+    ``losses``: each reconstruction step's loss with ``--recon``, else
+    None; seconds of the pipeline build, the calibration, the
+    reconstruction and the save)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--recon", choices=["layer", "block", "model"],
-                    default=None, help="not ported yet (ROADMAP Queue A 6)")
+                    default=None,
+                    help="reconstruct the weight scales after calibration")
+    ap.add_argument("--recon_iters", type=int, default=200)
     ap.add_argument("--adaround", action="store_true",
-                    help="not ported yet (ROADMAP Queue A 6)")
+                    help="learn per-element AdaRound rounding offsets "
+                         "during --recon; saved to alphas.msgpack and "
+                         "foldable into deployed int codes")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.recon or args.adaround:
-        raise NotImplementedError(
-            "--recon / --adaround: the reconstruction (quant/recon.py) is "
-            "not ported yet (ROADMAP Queue A 6)")
 
     cfg = load_config(args.config)
     setup_experiment(args.outdir, args.config)
@@ -98,13 +117,35 @@ def main(argv=None):
         torch.cuda.synchronize(pipe.device)
     seconds["calibrate"] = time.perf_counter() - t0
 
+    alphas, losses = None, None
+    if args.recon:
+        t0 = time.perf_counter()
+        losses = []
+        out = reconstruct(pipe.unet, qparams, batches, wq, aq,
+                          mode=args.recon, iters=args.recon_iters,
+                          outdir=args.outdir, adaround=args.adaround,
+                          return_alphas=args.adaround, losses=losses)
+        losses = [float(v) for v in losses]
+        if args.adaround:
+            qparams, alphas = out
+            save_alphas(alphas, os.path.join(args.outdir, "alphas.msgpack"))
+        else:
+            qparams = out
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize(pipe.device)
+        seconds["recon"] = time.perf_counter() - t0
+        print(f"reconstructed ({args.recon}, {args.recon_iters} iters"
+              f"{', AdaRound' if args.adaround else ''}) in "
+              f"{seconds['recon']:.1f}s")
+
     ckpt = os.path.join(args.outdir, "qparams.msgpack")
     t0 = time.perf_counter()
     save_qparams(qparams, ckpt)
     seconds["save"] = time.perf_counter() - t0
     print(f"saved quant checkpoint to {ckpt} (calibration "
           f"{seconds['calibrate']:.1f}s, save {seconds['save']:.2f}s)")
-    return {"qparams": qparams, "path": ckpt, "seconds": seconds}
+    return {"qparams": qparams, "alphas": alphas, "losses": losses,
+            "path": ckpt, "seconds": seconds}
 
 
 if __name__ == "__main__":

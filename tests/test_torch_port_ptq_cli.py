@@ -6,8 +6,9 @@
 package's ``calibrate`` on the port's ``calib.npz``, batched by the JAX
 ``scripts/ptq.py`` in the same order, on the same weights, gives the
 port's qparams at the port's calibration parity tolerance (zero points
-within 1, weight deltas rel 1e-6, act deltas rel 1e-4). The options the
-port does not offer yet raise, naming their ROADMAP item."""
+within 1, weight deltas rel 1e-6, act deltas rel 1e-4). The
+reconstruction options run (they are held against JAX in
+``tests/test_torch_port_recon.py``)."""
 
 import importlib.util
 import logging
@@ -32,6 +33,7 @@ from mixdq_tpu_torch.pipelines.loader import (build_pipeline,  # noqa: E402
                                               specs_from_config)
 from mixdq_tpu_torch.quant import checkpoint  # noqa: E402
 from mixdq_tpu_torch.quant.bitmaps import load_layer_list  # noqa: E402
+from mixdq_tpu_torch.quant.state import quantizable_layers  # noqa: E402
 from mixdq_tpu_torch.scripts import (gen_calib_data, ptq,  # noqa: E402
                                      quant_txt2img)
 from mixdq_tpu_torch.utils.config import (load_config, merge,  # noqa: E402
@@ -176,13 +178,32 @@ def test_act_protect_pt_list(flow, tmp_path):
 
 
 def test_options_not_ported_raise(flow, tmp_path):
-    """The reconstruction options raise, naming their ROADMAP item; the
-    softmax spec and the fake backend, ported since, do not (the fake
-    flow is held in ``tests/test_torch_port_fake_cli.py``)."""
-    for opt in (["--recon", "layer"], ["--adaround"]):
-        with pytest.raises(NotImplementedError, match="Queue A 6"):
-            ptq.main(["--config", flow["cfg_path"], "--outdir",
-                      str(tmp_path / "x"), "--device", "cpu"] + opt)
+    """Every option of the JAX ``ptq`` runs now: ``--recon block
+    --adaround --recon_iters 1`` writes ``alphas.msgpack`` (an alpha of
+    each layer's weight shape) beside ``qparams.msgpack``, and
+    ``--adaround`` without ``--recon`` learns nothing, as in the JAX
+    script; the softmax spec and the fake backend run too (the fake flow
+    is held in ``tests/test_torch_port_fake_cli.py``, the reconstruction
+    in ``tests/test_torch_port_recon.py``)."""
+    out = str(tmp_path / "x")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the tier-1 run's workers share the cores
+    try:
+        res = ptq.main(["--config", flow["cfg_path"], "--outdir", out,
+                        "--device", "cpu", "--recon", "block", "--adaround",
+                        "--recon_iters", "1"])
+        unet = build_pipeline(flow["cfg"], device="cpu").unet
+        res2 = ptq.main(["--config", flow["cfg_path"], "--outdir",
+                         str(tmp_path / "y"), "--device", "cpu",
+                         "--adaround"])
+    finally:
+        torch.set_num_threads(threads)
+    shapes = {n: tuple(m.weight.shape)
+              for n, m in quantizable_layers(unet).items()}
+    assert {n: tuple(a.shape) for n, a in res["alphas"].items()} == shapes
+    assert os.path.exists(os.path.join(out, "alphas.msgpack"))
+    assert os.path.exists(res["path"]) and res["seconds"]["recon"] > 0
+    assert res2["alphas"] is None and "recon" not in res2["seconds"]
     cfg = merge(flow["cfg"], {"quant": {"softmax": {"enabled": True}}})
     sm = specs_from_config(cfg)[2]
     assert sm.always_zero and not sm.sym and sm.n_bits == 8
