@@ -73,8 +73,8 @@ Phases (none catches its own failure; any failure exits non-zero):
    and each quantized path captured as a CUDA graph of one step, whose
    launches counted at capture must be the path's ``ctx_kernel_calls``
    and whose replay must equal the eager step bit for bit; paired median
-   replay times, and one profiled replay beside one profiled eager step
-   (busy ms, idle share).
+   replay times, and a profiled window of replays (busy ms, idle share;
+   the eager step's profile is phase 5's).
 4. Every deploy entry at full width, teacher-forced on the input its
    layer sees in an FP step, against fake quantization computed from the
    quantizers' definition (>= 30 dB each), and every attention module,
@@ -193,7 +193,7 @@ Phases (none catches its own failure; any failure exits non-zero):
    every report key in the JAX order and finite, each entry's launches
    its ``ctx_kernel_calls`` x 2, |FID(FP, FP)| within ``FID_SELF_REL`` of
    its scale, a planted fault's FID, ``conv_out``'s scale negated, above
-   the sound entry's); ``serve_bench --steps 30 --batch_size 4`` (the
+   the sound entry's); ``serve_bench --steps 10 --batch_size 4`` (the
    JAX keys; both engines' launches at capture); ``memory_compare`` at B
    = 1 under ``int8_sec`` (static saving >= ``MEM_STATIC_SAVING``, failed
    by a deploy whose fp weights are not pruned) and ``dequant --pack_w4
@@ -237,6 +237,21 @@ Phases (none catches its own failure; any failure exits non-zero):
    diffusers ``.safetensors`` file (bf16), ``convert_checkpoints --mode
    unet``, ``load_module_params`` into a UNet of another seed: every
    weight and the bf16 step equal bit for bit.
+16. The last modules (``phase_mesh_comfy``, after phase 13, on phase
+   10's files), SDXL-Turbo 512 px, B = 1, W8A8 ``int8_sec``: (a)
+   ``ServingEngine(mesh=make_mesh(1))`` (an NCCL world of one on a
+   ``HashStore``), graphed, against the unsharded engine: the same images
+   and the same launches at capture, bit for bit, with the counts set to
+   0 just before the mesh engine and read just after; (b) the ComfyUI
+   nodes, Load(``sdxl-turbo``) -> Quantize(``int8``) -> Generate, equal
+   to the pipeline's generation under ``deploy_unet_ctx`` at the same
+   seed bit for bit (its launches one step's ``ctx_kernel_calls``), then
+   OriginGen and Integral (both images, their MSE); (c) the deploy written
+   to the ``runtime.tensorstore`` container and read back through a
+   memory map: every field bit for bit, a graphed step on it equal to the
+   in-memory one's, the write and read times logged; (d)
+   ``sweep_sqnr_batched(mesh=make_mesh(1))`` equal to the sequential
+   sweep value for value.
 
 Stdout ends with the ``tpu_kernels`` table, the ``kernels`` line, the
 card's name and power limit, and the ``ok`` line; every line but the
@@ -261,7 +276,7 @@ INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 N_REQUESTS = 4
-TIMING_ROUNDS = 3
+TIMING_ROUNDS = 2
 # replays of a CUDA graph timed back to back in each round of the graphed
 # paired medians (phases 3, 6, 7, 9)
 GRAPH_ITERS = 5
@@ -281,7 +296,7 @@ CAPTURE_CALLS = 50
 # PERF.md section 6, PR 14
 SERVE_BATCHES = (1, 4)
 SERVE_SEED = 7
-SERVE_ROUNDS = 3
+SERVE_ROUNDS = 2
 SERVE_VAE_FAULT = "decoder.up_blocks_3_resnets_0.conv_shortcut"
 SERVE_VAE_DB = 25.0
 # the VAE decoder's largest int8 GEMMs at 512 px, B = 4 (phase 9's largest
@@ -575,8 +590,15 @@ SERVE_BENCH_KEYS = ("family", "steps", "batch_size", "deploy_compute",
                     "quantize_vae", "fp_imgs_per_sec", "int8_imgs_per_sec",
                     "speedup", "ssim_vs_fp", "fp_batch_ms",
                     "host_fingerprint_ms")
-SERVE_BENCH_STEPS, SERVE_BENCH_BATCH = 30, 4
+SERVE_BENCH_STEPS, SERVE_BENCH_BATCH = 10, 4
 SWEEP_BATCHES = (1, 2, 4, 8)
+# phase 16: the prompt and seeds of its generations, and the swept layers
+# of its dp sweep (a spatial conv, a dense layer, a split conv)
+MESH_SEED = 11
+COMFY_SEED = 42
+MESH_SWEEP_LAYERS = ("conv_in", "down_blocks.1.attentions.0."
+                     "transformer_blocks.0.attn1.to_q",
+                     "up_blocks.1.resnets.0.conv_shortcut")
 SWEEP_KEYS = ("B", "bf16_ms", "int8_ms", "speedup", "ms_per_img",
               "host_fingerprint_ms")
 
@@ -711,6 +733,12 @@ def log(*a):
     print(*a, flush=True)
     if LOG_FILE is not None:
         print(*a, file=LOG_FILE, flush=True)
+
+
+def elapsed():
+    """`` [N s]``: the seconds since the script started, for a phase's
+    closing line."""
+    return f" [{time.time() - T_START:.1f}s]"
 
 
 def card_line():
@@ -1571,10 +1599,12 @@ def graph_structure(torch, fn):
     programmatic)."""
     import ctypes
 
+    from mixdq_tpu_torch.pipelines.graphed import capture
+
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
+    with capture(g):
         fn()
     raw = ctypes.c_void_p(g.raw_cuda_graph())
     with open("/proc/self/maps") as f:
@@ -1627,6 +1657,7 @@ def capture_report(torch, dev):
     elsewhere (``graphed_step_ms``, the card tests)."""
     from mixdq_tpu_torch.ops import gn_quant, qmatmul
     from mixdq_tpu_torch.ops import sec_attention as sa
+    from mixdq_tpu_torch.pipelines.graphed import capture
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((1, 64, 64, 320), generator=g, device=dev).to(
@@ -1640,7 +1671,7 @@ def capture_report(torch, dev):
 
     coop, edges = graph_structure(torch, gn)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         for _ in range(CAPTURE_CALLS):
             gn()
     graph.replay()
@@ -2188,7 +2219,8 @@ def phase_mixed(torch, unet, calib, requests, w8a8_ctx, qparams, seen,
     graphed_step_ms(torch, unet, requests[0],
                     (("bf16", FP_CTX), ("mp_int8_sec", ctxs["int8_sec"]),
                      ("mp_pallas_dequant", ctxs["pallas_dequant"])), card,
-                    "sdxl-turbo mixed")
+                    "sdxl-turbo mixed",
+                    profiled=("mp_int8_sec", "mp_pallas_dequant"))
     for tag, ctx in paths:
         total, dep = resident_weight_bytes(
             unet, ctx.deploy if ctx.mode == "int8" else {})
@@ -2663,7 +2695,7 @@ def phase_outfuse(torch, unet, ctx, requests, refs, outs, card):
     graphed_step_ms(torch, unet, requests[0],
                     (("bf16", FP_CTX), ("default", ctx),
                      ("outfuse_all", ctxs["all"])), card,
-                    "sdxl-turbo out-fusion")
+                    "sdxl-turbo out-fusion", profiled=("outfuse_all",))
     phase_profile(torch, unet, requests[0], [("outfuse_all", ctxs["all"])])
     return launches
 
@@ -2786,9 +2818,9 @@ def graphed_step_ms(torch, unet, req, paths, card, label, profiled=None):
     turn, each over ``GRAPH_ITERS`` replays (CUDA events); and one profiled
     window of ``GRAPH_ITERS`` replays of each
     (``chiprun_out/profile_graph_*.txt``; one replay alone reads the
-    profiler's own start-up as idle time) beside one profiled eager step
-    (``..._eager_*``), for the tags in ``profiled`` (default: all).
-    Returns {tag: median ms}."""
+    profiler's own start-up as idle time), for the tags in ``profiled``
+    (default: all). An eager step's profile is ``phase_profile``'s, made
+    once a path. Returns {tag: median ms}."""
     from mixdq_tpu_torch import pipeline
     from mixdq_tpu_torch.pipelines.graphed import GraphedCall
     from mixdq_tpu_torch.utils.profiling import timeit
@@ -2823,18 +2855,14 @@ def graphed_step_ms(torch, unet, req, paths, card, label, profiled=None):
         + " ".join(f"bf16/{k}={med['bf16'] / v:.3f}" for k, v in med.items()
                    if k != "bf16"))
     name = label.replace(" ", "_")
-    for (tag, c), g in zip(paths, graphs.values()):
+    for tag, g in graphs.items():
         if profiled is not None and tag not in profiled:
             continue
         gw, gb, _ = profile_call(torch, g.replay, f"graph_{name}_{tag}",
                                  GRAPH_ITERS)
-        ew, eb, _ = profile_call(
-            torch, lambda c=c: pipeline.unet_step(unet, req, c),
-            f"eager_{name}_{tag}")
         log(f"{label} {tag}: graph replay wall {gw / GRAPH_ITERS:.3f} ms "
             f"busy {gb / GRAPH_ITERS:.3f} ms idle {max(0.0, 1 - gb / gw):.3f}"
-            f" ({GRAPH_ITERS} replays profiled) | eager step wall {ew:.3f} "
-            f"ms busy {eb:.3f} ms idle {max(0.0, 1 - eb / ew):.3f}")
+            f" ({GRAPH_ITERS} replays profiled)")
     del graphs
     return med
 
@@ -3411,7 +3439,7 @@ def phase_ptq_flow(torch, dev, card, turbo_graphed, tmp):
                            "ptq flow split deploy")
     graphed = graphed_step_ms(torch, ref.unet, req,
                               (("bf16", FP_CTX), ("w8a8_splits", ctx)),
-                              card, "ptq flow")
+                              card, "ptq flow", profiled=("w8a8_splits",))
     log(f"ptq flow: graphed step ms, split deploy "
         f"{graphed['w8a8_splits']:.3f} against phase 3's deploy without "
         f"splits {turbo_graphed['auto']:.3f} (bf16 here "
@@ -4619,9 +4647,9 @@ def phase_evaluate(torch, exp, tmp, card):
 
 
 def phase_serve_bench(torch, exp, card):
-    """Phase 13b: ``serve_bench --steps 30 --batch_size 4`` on phase 10's
+    """Phase 13b: ``serve_bench --steps 10 --batch_size 4`` on phase 10's
     files: the JSON line's keys (the JAX script's), each engine's
-    launches at capture = its path's launches x 30 steps (bf16 einsum:
+    launches at capture = its path's launches x 10 steps (bf16 einsum:
     none; the W8A8 ``int8_sec`` deploy: ``ctx_kernel_calls``; failed by
     the counts of the same deploy without the time-embedding bank); the
     counts set to 0 just before the CLI and read just after must be the
@@ -4803,6 +4831,228 @@ def phase_txt2img_serve(torch, exp, tmp, card):
                              f"{want_calls}")
     log(f"phase 13e: txt2img and serve ok ({time.time() - t0:.1f}s; {card})")
     return {"serve int8": dict(eng.launches)}
+
+
+def entry_fields(e, prefix=""):
+    """``{field: value}`` of a deploy entry, its split halves'
+    prefixed."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(entry_fields(v, f"{prefix}{f.name}."))
+        else:
+            out[prefix + f.name] = v
+    return out
+
+
+def deploys_equal(torch, a, b):
+    """The (layer, field) pairs where two deploy dicts differ (tensors
+    compared bit for bit, with their dtypes)."""
+    bad = [(n, None) for n in set(a) ^ set(b)]
+    for n in set(a) & set(b):
+        fa, fb = entry_fields(a[n]), entry_fields(b[n])
+        for f in set(fa) | set(fb):
+            x, y = fa.get(f), fb.get(f)
+            if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+                same = (isinstance(x, torch.Tensor)
+                        and isinstance(y, torch.Tensor)
+                        and x.dtype == y.dtype and torch.equal(x, y))
+            else:
+                same = x == y and type(x) is type(y)
+            if not same:
+                bad.append((n, f))
+    return bad
+
+
+def phase_mesh_comfy(torch, dev, card, exp, tmp):
+    """Phase 16 (see the module's docstring) on phase 10's experiment
+    directory ``exp``; the container file goes to ``tmp``. Returns
+    {path: launches of one generation}."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from mixdq_tpu_torch import ops, pipeline
+    from mixdq_tpu_torch.comfyui import nodes
+    from mixdq_tpu_torch.mixed_precision import sensitivity
+    from mixdq_tpu_torch.parallel.mesh import make_mesh
+    from mixdq_tpu_torch.pipelines.graphed import GraphedCall
+    from mixdq_tpu_torch.pipelines.loader import build_pipeline
+    from mixdq_tpu_torch.pipelines.serving import ServingEngine
+    from mixdq_tpu_torch.quant import checkpoint
+    from mixdq_tpu_torch.quant.deploy import deploy_unet_ctx
+    from mixdq_tpu_torch.quant.state import quantizable_layers, uniform_ctrl
+    from mixdq_tpu_torch.runtime import tensorstore
+    from mixdq_tpu_torch.scripts.mixed_precision_search import calib_batch
+    from mixdq_tpu_torch.utils.config import load_config
+    from mixdq_tpu_torch.utils.profiling import timeit
+    from mixdq_tpu_torch.utils.prompts import BUILTIN_PROMPTS
+
+    t_phase = time.time()
+    cfg = load_config(os.path.join(exp, "config.yaml"))
+    qp_path = os.path.join(exp, "qparams.msgpack")
+    prompts = [BUILTIN_PROMPTS[0]]
+    pipe = build_pipeline(cfg, device=dev)
+    qparams = checkpoint.load_qparams(qp_path, device=dev)
+    names = sorted(quantizable_layers(pipe.unet))
+    ctrl = uniform_ctrl(names, w_bits=8, a_bits=8)
+    ctx = dataclasses.replace(deploy_unet_ctx(
+        pipe.unet, qparams, ctrl, pipeline.WQ, fuse_qkv=True,
+        splits=pipe.splits), attn_impl="auto")
+    cfg_unet = pipe.unet.config
+    want = pipeline.ctx_kernel_calls(cfg_unet, ctx)
+    launches = {}
+
+    # (a) the mesh engine against the unsharded engine
+    t0 = time.time()
+    ref = ServingEngine(pipe, ctx, batch_size=1, steps=1,
+                        guidance_scale=0.0).compile()
+    img_ref = ref.generate(prompts, seed=MESH_SEED)
+    mesh = make_mesh(1)
+    if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1):
+        raise AssertionError(f"mesh {mesh}: backend {dist.get_backend()}")
+    ops.reset_counts()
+    eng = ServingEngine(pipe, ctx, batch_size=1, steps=1,
+                        guidance_scale=0.0, mesh=mesh).compile()
+    img = eng.generate(prompts, seed=MESH_SEED)
+    torch.cuda.synchronize()
+    counted_since_reset("mesh engine", times_calls(want, 3))
+    launches["mesh engine B=1"] = dict(eng.launches)
+    if eng.launches != want or ref.launches != want:
+        raise AssertionError(f"mesh engine: launches at capture "
+                             f"{eng.launches}, unsharded {ref.launches}, "
+                             f"expected {want}")
+    if img.shape != (1, 512, 512, 3) or not np.isfinite(img).all() or \
+            img.min() < 0 or img.max() > 1:
+        raise AssertionError(f"mesh engine: bad images {img.shape}")
+    if not np.array_equal(img, img_ref):
+        raise AssertionError(f"mesh engine: images differ from the "
+                             f"unsharded engine's (max |d| "
+                             f"{np.abs(img - img_ref).max()})")
+    if eng.ctx.deploy is not ctx.deploy or eng.ctx.batch_group is not None:
+        raise AssertionError("mesh engine at (1, 1): the deploy was "
+                             "sharded or a batch group set")
+    ms = {k: timeit(e._graph.replay, iters=GRAPH_ITERS, warmup=0)
+          for k, e in (("unsharded", ref), ("mesh", eng))}
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    log(f"phase 16a: mesh engine ({dist.get_backend()} world of "
+        f"{dist.get_world_size()}, mesh {shape}) equals the unsharded "
+        f"engine bit for bit, launches at capture equal "
+        f"({sum(want.values())} a generation); graph replay ms unsharded "
+        f"{ms['unsharded']:.3f} mesh {ms['mesh']:.3f} "
+        f"({GRAPH_ITERS} replays, CUDA events, {card}); "
+        f"{time.time() - t0:.1f}s")
+    del ref, eng
+
+    # (c) the deploy through the tensorstore container
+    t0 = time.time()
+    path = os.path.join(tmp, "deploy_w8a8.mixdq")
+    t1 = time.perf_counter()
+    tensorstore.save_deploy_ckpt(ctx.deploy, path)
+    t_write = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = tensorstore.load_deploy_ckpt(path, device=dev)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t1
+    bad = deploys_equal(torch, ctx.deploy, back)
+    if bad:
+        raise AssertionError(f"tensorstore: fields differ after the round "
+                             f"trip: {bad[:5]}")
+    with np.load(cfg.calib_data.path) as f:
+        data = {k: f[k] for k in f.files}
+    (sample, t, ehs, added), fp_out = calib_batch(data, 1, dev)
+    bctx = dataclasses.replace(ctx, deploy=back)
+    steps = {}
+    for tag, c in (("memory", ctx), ("file", bctx)):
+        g = GraphedCall(lambda s, c=c: pipe.unet(s, t, ehs, added, ctx=c),
+                        (sample,))
+        if g.launches != want:
+            raise AssertionError(f"tensorstore {tag}: launches at capture "
+                                 f"{g.launches}, expected {want}")
+        steps[tag] = g.replay().clone()
+        del g
+    if not torch.equal(steps["memory"], steps["file"]):
+        raise AssertionError(
+            f"tensorstore: the loaded deploy's graphed step differs "
+            f"({sqnr_db(steps['memory'], steps['file']):.2f} dB)")
+    size = os.path.getsize(path)
+    log(f"phase 16c: tensorstore round trip of the W8A8 deploy "
+        f"({len(back)} entries, {size / 1e9:.3f} GB): every field bit for "
+        f"bit, the graphed step equal; write {t_write:.2f}s "
+        f"({size / t_write / 1e9:.2f} GB/s), read (memory map, then to the "
+        f"card) {t_read:.2f}s ({size / t_read / 1e9:.2f} GB/s; the file "
+        f"just written: a warm page cache); {card}; "
+        f"{time.time() - t0:.1f}s")
+    os.remove(path)
+    del back, bctx, steps
+
+    # (d) the dp sweep against the sequential sweep
+    t0 = time.time()
+    args = (pipe.unet, qparams, list(MESH_SWEEP_LAYERS), names,
+            (sample, t, ehs, added), fp_out, pipeline.WQ, pipeline.AQ)
+    seq = sensitivity.sweep_sqnr(*args, bits=(4, 8))
+    par = sensitivity.sweep_sqnr_batched(*args, bits=(4, 8),
+                                         mesh=make_mesh(1))
+    if par != seq or not all(math.isfinite(v) for vs in seq.values()
+                             for v in vs):
+        raise AssertionError(f"dp sweep {par} != sequential {seq}")
+    log(f"phase 16d: sweep_sqnr_batched over a dp mesh equals the "
+        f"sequential sweep value for value: {json.dumps(seq)}; "
+        f"{time.time() - t0:.1f}s")
+    dist.destroy_process_group()
+    del pipe, ctx, qparams, sample, ehs, added, fp_out, data
+    gc_cuda(torch)
+
+    # (b) the ComfyUI chain
+    t0 = time.time()
+    (state,) = nodes.MixdqTPULoadPipeline().load("sdxl-turbo", "",
+                                                 "bfloat16")
+    (q,) = nodes.MixdqTPUQuantize().quantize(state, qp_path, "int8", 8, 8)
+    p = q["pipe"]
+    qctx = q["ctx"]
+    cwant = pipeline.ctx_kernel_calls(p.unet.config, qctx)
+    ops.reset_counts()
+    (gen,) = nodes.MixdqTPUGenerate().generate(q, prompts[0], 1,
+                                                COMFY_SEED)
+    torch.cuda.synchronize()
+    counted_since_reset("comfyui generate", cwant)
+    launches["comfyui generate"] = cwant
+    rctx = deploy_unet_ctx(p.unet, checkpoint.load_qparams(qp_path,
+                                                           device=dev),
+                           uniform_ctrl(names, w_bits=8, a_bits=8),
+                           pipeline.WQ, splits=p.splits)
+    if qctx.deploy_compute != "int8_sec":
+        raise AssertionError(f"comfyui Quantize: {qctx.deploy_compute}")
+    want_img = p(prompts, seed=COMFY_SEED, num_inference_steps=1,
+                 ctx=rctx).images
+    if tuple(gen.shape) != (1, 512, 512, 3) or gen.dtype != torch.float32 \
+            or not np.array_equal(gen.numpy(), want_img):
+        raise AssertionError(f"comfyui Generate {tuple(gen.shape)} differs "
+                             f"from the pipeline's W8A8 image")
+    (fp,) = nodes.MixdqTPUOriginGen().generate(q, prompts[0], 1, COMFY_SEED)
+    want_fp = p(prompts, seed=COMFY_SEED, num_inference_steps=1).images
+    if not np.array_equal(fp.numpy(), want_fp):
+        raise AssertionError("comfyui OriginGen differs from the "
+                             "pipeline's bf16 image")
+    both, report = nodes.MixdqTPUIntegral().generate(q, prompts[0], 1,
+                                                     COMFY_SEED)
+    mse = float(((gen - fp) ** 2).mean())
+    if not (torch.equal(both[:1], fp) and torch.equal(both[1:], gen)) or \
+            report != f"pixel MSE quant vs FP: {mse:.6f}":
+        raise AssertionError(f"comfyui Integral: {tuple(both.shape)}, "
+                             f"{report!r} (MSE {mse})")
+    log(f"phase 16b: ComfyUI Load -> Quantize(int8) -> Generate equals the "
+        f"pipeline's W8A8 generation bit for bit ({sum(cwant.values())} "
+        f"launches: {json.dumps({k: v for k, v in cwant.items() if v})}); "
+        f"OriginGen the bf16 one; Integral: {report}; "
+        f"{time.time() - t0:.1f}s")
+    del state, q, p, qctx, rctx
+    log(f"phase 16: {time.time() - t_phase:.1f}s")
+    return launches
 
 
 def phase_eval_clis(torch, dev, card, exp, tmp):
@@ -5609,31 +5859,32 @@ def main():
     del flush
     fused_one_kernel(torch, dev)
     capture_report(torch, dev)
-    log("phase 1: every kernel matches its plain version")
+    log("phase 1: every kernel matches its plain version" + elapsed())
     phase_tiny_parity(torch, dev)
     log("phase 2: tiny-sdxl, small-sd15 and small-sdxl parity ok under both "
-        "attn_impl values and small-sdxl out-fused")
+        "attn_impl values and small-sdxl out-fused" + elapsed())
     unet, ctx, calib, requests, launches, e_launches, refs, outs, \
         turbo_graphed = phase_main_path(torch, dev, card)
     req = requests[0]
-    log("phase 3: main paths ok (auto, einsum)")
+    log("phase 3: main paths ok (auto, einsum)" + elapsed())
     totals = {"sdxl-turbo auto": launches, "sdxl-turbo einsum": e_launches}
     totals.update(phase_outfuse(torch, unet, ctx, requests, refs, outs, card))
     del refs, outs
     log("phase 3: out-fusion paths ok (all sites, all sites without LN "
-        "fold, none)")
+        "fold, none)" + elapsed())
     qparams, seen = phase_layers(torch, unet, ctx, calib, req)
-    log("phase 4: every deploy entry matches fake quantization")
+    log("phase 4: every deploy entry matches fake quantization" + elapsed())
     phase_attention_sites(torch, unet, ctx, req)
-    log("phase 4: every attention site matches under auto and einsum")
+    log("phase 4: every attention site matches under auto and einsum"
+        + elapsed())
     phase_profile(torch, unet, req, (
         ("auto", ctx), ("einsum", dataclasses.replace(ctx, attn_impl="einsum")),
         ("bf16", FP_CTX)))
-    log("phase 5: profiles written")
+    log("phase 5: profiles written" + elapsed())
     totals.update(phase_mixed(torch, unet, calib, requests, ctx, qparams,
                               seen, card))
     log("phase 6: mixed-precision paths ok (mp auto, w-only dequant, "
-        "w-only pallas_dequant)")
+        "w-only pallas_dequant)" + elapsed())
     del unet, ctx, calib, req, requests, qparams, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -5643,12 +5894,12 @@ def main():
     per_step.update(sdxl_per_step)
     totals.update(sdxl_totals)
     log("phase 7: sdxl 1024 paths ok (auto, int8 flash qk / qkv, einsum, "
-        "bf16 auto)")
+        "bf16 auto)" + elapsed())
     # kernel_bench "per step": one call of each row at each shape
     totals["kernel_bench"], kb_calls = phase_kernel_bench(torch, dev, card)
     per_step["kernel_bench"] = {k: v // kb_calls
                                 for k, v in totals["kernel_bench"].items()}
-    log("phase 8: kernel_bench path ok (four shapes, seven rows)")
+    log("phase 8: kernel_bench path ok (four shapes, seven rows)" + elapsed())
     gc.collect()
     torch.cuda.empty_cache()
     serving = phase_serving(torch, dev, card)
@@ -5657,7 +5908,8 @@ def main():
     per_step.update({p: {k: v // 3 for k, v in c.items()}
                      for p, c in serving.items()})
     log("phase 9: serving path ok (bf16, W8A8, W8A8 + int8 VAE at B = "
-        f"{', '.join(map(str, SERVE_BATCHES))}, one CUDA graph a batch)")
+        f"{', '.join(map(str, SERVE_BATCHES))}, one CUDA graph a batch)"
+        + elapsed())
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="ptq_flow_")
@@ -5666,7 +5918,7 @@ def main():
             torch, dev, card, turbo_graphed, tmp)
         per_step.update(ptq_launches)
         log("phase 10: PTQ flow ok (gen_calib_data, ptq with splits, "
-            "quant_txt2img; checkpoint and params round trips)")
+            "quant_txt2img; checkpoint and params round trips)" + elapsed())
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -5674,16 +5926,22 @@ def main():
         log(f"phase 11: fake-quant mode ok ({time.time() - t0:.1f}s: W8A8, "
             "q/k/v/softmax and mixed fake at 512 px, attn_impl flash / "
             "int8_flash / int8qkv_flash, deploy_compute=int8, W8A8 fake at "
-            "1024 px)")
+            "1024 px)" + elapsed())
         gc_cuda(torch)
         t0 = time.time()
         search_launches = phase_search(torch, dev, card, exp, tmp)
         log(f"phase 12: BoS outputs, banks, small-M, the search, the ILP, "
-            f"the elected map and quant_error ok ({time.time() - t0:.1f}s)")
+            f"the elected map and quant_error ok ({time.time() - t0:.1f}s)"
+            + elapsed())
         gc_cuda(torch)
         eval_launches = phase_eval_clis(torch, dev, card, exp, tmp)
         log("phase 13: evaluate (FID, CLIP towers), serve_bench, "
-            "memory_compare, batch_sweep, txt2img and serve ok")
+            "memory_compare, batch_sweep, txt2img and serve ok"
+            + elapsed())
+        gc_cuda(torch)
+        mesh_launches = phase_mesh_comfy(torch, dev, card, exp, tmp)
+        log("phase 16: the mesh engine, the ComfyUI nodes, the tensorstore "
+            "container and the dp sweep ok" + elapsed())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc_cuda(torch)
@@ -5693,20 +5951,22 @@ def main():
     totals.update(sd15_totals)
     log(f"phase 14: sd15 ok ({time.time() - t0:.1f}s: W8A8, bf16, mixed and "
         "int8 flash steps, flash at d = 40 / 80 / 160, the LCM serving loop "
-        "at B = 1 and 4, the PTQ flow on configs/sd15_lcm.yaml)")
+        "at B = 1 and 4, the PTQ flow on configs/sd15_lcm.yaml)" + elapsed())
     gc_cuda(torch)
     t0 = time.time()
     recon_launches = phase_recon(torch, dev, card)
     per_step.update(recon_launches)
     totals.update(recon_launches)
     log(f"phase 15: reconstruction, QAT and the converters ok "
-        f"({time.time() - t0:.1f}s)")
+        f"({time.time() - t0:.1f}s)" + elapsed())
     per_step.update(fake_launches)
     totals.update(fake_launches)
     per_step.update(search_launches)
     totals.update(search_launches)
     per_step.update(eval_launches)
     totals.update(eval_launches)
+    per_step.update(mesh_launches)
+    totals.update(mesh_launches)
 
     log(json.dumps({"tpu_kernels": [
         {"tpu_kernel": f"mixdq_tpu/ops/{tk}",

@@ -14,8 +14,11 @@ jit data, so one compiled program serves every point, and its batched
 sweeps vmap ``chunk`` points at once; here a control is Python data and
 each point runs eagerly, one after another, so the batched sweeps equal
 the sequential ones exactly and ``chunk`` only groups the progress log.
-A ``mesh`` (the JAX sweeps' data-parallel branch) is not ported: ROADMAP
-Queue A 9.
+With a ``mesh`` (``parallel.mesh.make_mesh``; every rank calls the sweep)
+the batched sweeps share their (layer, bits) points out over dp: each
+rank runs every dp-th point on its replicated model, and the values are
+all-gathered (the only collective), so each equals the sequential
+sweep's.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import mesh as pmesh
 from ..quant.state import QuantCtx, group_ctrl
 from ..utils.metrics import sqnr, ssim
 
@@ -64,13 +68,24 @@ def _check_points(fn: str, layer_names, all_names, wq, bits) -> None:
                          "calibrated qparams exist for them")
 
 
-def _no_mesh(fn: str, mesh) -> None:
+def _sweep(point_fn, layer_names, bits, mesh, tag: str, every: int
+           ) -> Dict[str, List[float]]:
+    """``{name: [point_fn(name, b) for b in bits]}``; over a mesh, each dp
+    rank runs its share of the points and the values are gathered."""
+    points = [(n, b) for n in layer_names for b in bits]
+    local = points if mesh is None else pmesh.dp_points(mesh, points)
+    vals = []
+    for i, (name, b) in enumerate(local):
+        vals.append(point_fn(name, b))
+        if i % every == 0:
+            logger.info("%s sweep point %d/%d %s @%d -> %.3f", tag, i,
+                        len(local), name, b, vals[-1])
     if mesh is not None:
-        raise NotImplementedError(f"{fn}: a mesh (data-parallel sweep "
-                                  "points) is not ported: ROADMAP Queue A 9")
+        vals = pmesh.gather_points(mesh, points, vals)
+    nb = len(bits)
+    return {n: vals[i * nb:(i + 1) * nb] for i, n in enumerate(layer_names)}
 
 
-@torch.inference_mode()
 def sweep_sqnr(model, qparams, layer_names: Sequence[str],
                all_names: Sequence[str], calib_batch: Tuple,
                fp_outputs: torch.Tensor, wq, aq, which: str = "weight",
@@ -78,19 +93,20 @@ def sweep_sqnr(model, qparams, layer_names: Sequence[str],
     """SQNR (dB) of ``model(*calib_batch)`` against ``fp_outputs`` with
     each target (an exact layer name or a dotted block prefix) quantized
     alone at each of ``bits``: ``{target: [one value a bit]}``."""
-    out: Dict[str, List[float]] = {}
-    for li, name in enumerate(layer_names):
-        vals = []
-        for b in bits:
-            ctrl = group_ctrl(all_names, [name], which, b,
-                              candidate_bits=wq.candidate_bits)
-            y = model(*calib_batch, ctx=_fake_ctx(qparams, ctrl, wq, aq))
-            vals.append(float(sqnr(fp_outputs, y)))
-        out[name] = vals
-        if li % 20 == 0:
-            logger.info("sqnr sweep %d/%d %s -> %s", li, len(layer_names),
-                        name, [f"{v:.1f}" for v in vals])
-    return out
+    return _sqnr_points(model, qparams, layer_names, all_names, calib_batch,
+                        fp_outputs, wq, aq, which, bits, None)
+
+
+@torch.inference_mode()
+def _sqnr_points(model, qparams, layer_names, all_names, calib_batch,
+                 fp_outputs, wq, aq, which, bits, mesh):
+    def point(name, b):
+        ctrl = group_ctrl(all_names, [name], which, b,
+                          candidate_bits=wq.candidate_bits)
+        y = model(*calib_batch, ctx=_fake_ctx(qparams, ctrl, wq, aq))
+        return float(sqnr(fp_outputs, y))
+
+    return _sweep(point, layer_names, bits, mesh, "sqnr", 20)
 
 
 def sweep_sqnr_batched(model, qparams, layer_names: Sequence[str],
@@ -99,11 +115,11 @@ def sweep_sqnr_batched(model, qparams, layer_names: Sequence[str],
                        which: str = "weight", bits: Sequence[int] = (2, 4, 8),
                        chunk: int = 8, mesh=None) -> Dict[str, List[float]]:
     """``sweep_sqnr`` over exact layer names at candidate bits, with the
-    JAX batched sweep's checks; its points run one after another."""
-    _no_mesh("sweep_sqnr_batched", mesh)
+    JAX batched sweep's checks; its points run one after another, shared
+    out over dp on a ``mesh``."""
     _check_points("sweep_sqnr_batched", layer_names, all_names, wq, bits)
-    return sweep_sqnr(model, qparams, layer_names, all_names, calib_batch,
-                      fp_outputs, wq, aq, which, bits)
+    return _sqnr_points(model, qparams, layer_names, all_names, calib_batch,
+                        fp_outputs, wq, aq, which, bits, mesh)
 
 
 def _ssim_win(h: int, ssim_win: int) -> int:
@@ -138,26 +154,27 @@ def sweep_ssim(pipe, qparams, layer_names: Sequence[str],
     alone at each of ``bits`` against the FP images of the same noise
     (``seed``). The window is ``ssim_win`` (the reference's 511 on 512 px
     images), at most the height less one, odd."""
-    fp_imgs = generate(pipe, prompts, seed, num_steps)
-    win = _ssim_win(fp_imgs.shape[1], ssim_win)
     for name in layer_names:
         if not any(n == name or n.startswith(name + ".") for n in all_names):
             raise KeyError(f"sweep_ssim target {name!r} matches no layer "
                            "(exact or dotted prefix) in all_names")
-    out: Dict[str, List[float]] = {}
-    for li, name in enumerate(layer_names):
-        vals = []
-        for b in bits:
-            ctrl = group_ctrl(all_names, [name], which, b,
-                              candidate_bits=wq.candidate_bits)
-            q_imgs = generate(pipe, prompts, seed, num_steps,
-                              _fake_ctx(qparams, ctrl, wq, aq))
-            vals.append(images_ssim(fp_imgs, q_imgs, win))
-        out[name] = vals
-        if li % 10 == 0:
-            logger.info("ssim sweep %d/%d %s -> %s", li, len(layer_names),
-                        name, [f"{v:.3f}" for v in vals])
-    return out
+    return _ssim_points(pipe, qparams, layer_names, all_names, prompts, seed,
+                        wq, aq, which, bits, num_steps, ssim_win, None)
+
+
+def _ssim_points(pipe, qparams, layer_names, all_names, prompts, seed, wq,
+                 aq, which, bits, num_steps, ssim_win, mesh):
+    fp_imgs = generate(pipe, prompts, seed, num_steps)
+    win = _ssim_win(fp_imgs.shape[1], ssim_win)
+
+    def point(name, b):
+        ctrl = group_ctrl(all_names, [name], which, b,
+                          candidate_bits=wq.candidate_bits)
+        q_imgs = generate(pipe, prompts, seed, num_steps,
+                          _fake_ctx(qparams, ctrl, wq, aq))
+        return images_ssim(fp_imgs, q_imgs, win)
+
+    return _sweep(point, layer_names, bits, mesh, "ssim", 10)
 
 
 def sweep_ssim_batched(pipe, qparams, layer_names: Sequence[str],
@@ -167,8 +184,8 @@ def sweep_ssim_batched(pipe, qparams, layer_names: Sequence[str],
                        num_steps: Optional[int] = None, ssim_win: int = 511,
                        chunk: int = 4, mesh=None) -> Dict[str, List[float]]:
     """``sweep_ssim`` over exact layer names at candidate bits, with the
-    JAX batched sweep's checks; its points run one after another."""
-    _no_mesh("sweep_ssim_batched", mesh)
+    JAX batched sweep's checks; its points run one after another, shared
+    out over dp on a ``mesh``."""
     _check_points("sweep_ssim_batched", layer_names, all_names, wq, bits)
-    return sweep_ssim(pipe, qparams, layer_names, all_names, prompts, seed,
-                      wq, aq, which, bits, num_steps, ssim_win)
+    return _ssim_points(pipe, qparams, layer_names, all_names, prompts, seed,
+                        wq, aq, which, bits, num_steps, ssim_win, mesh)

@@ -210,7 +210,8 @@ class Attention(nn.Module):
         elif route.kernel in (routing.INT8_FLASH, routing.INT8QKV_FLASH):
             fn = (int8_flash_attention if route.kernel == routing.INT8_FLASH
                   else int8qkv_flash_attention)
-            out = fn(*srcs, out_dtype=self.dtype, **kw)
+            out = fn(*srcs, out_dtype=self.dtype, group=ctx.batch_group,
+                     **kw)
         else:
             out = self._einsum(*srcs, offsets, ctx)
         return self._finish(out, ctx, residual)

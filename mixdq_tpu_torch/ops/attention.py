@@ -157,13 +157,19 @@ def flash_attention(q_src: torch.Tensor, k_src: torch.Tensor,
     return out
 
 
-def quantize_sym_dynamic(x: torch.Tensor):
+def quantize_sym_dynamic(x: torch.Tensor, group=None):
     """Per-tensor symmetric int8 codes of ``x`` and their f32 scale
     (``pallas_attention.py:382-389``): ``s = max |x| / 127 + 1e-12`` over
     the whole tensor, codes ``round(x / s)`` (half to even) clipped to
-    +-127."""
+    +-127. ``group``: the process group over which the batch is sharded;
+    the max is then all-reduced over it (the whole batch's)."""
     xf = x.float()
-    s = xf.abs().amax() / 127.0 + 1e-12
+    amax = xf.abs().amax()
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    s = amax / 127.0 + 1e-12
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
 
@@ -236,15 +242,15 @@ def s8_slot(q: int) -> int:
 
 
 def _int8_operands(q_src, k_src, v_src, heads, head_dim, q_off, k_off, v_off,
-                   int8_v):
+                   int8_v, group=None):
     """Codes of q and k (and of v with ``int8_v``) and the scales, as
     ``int8_mha`` / ``int8qkv_mha`` make them: (q codes, k codes, v codes
-    or None, s_q * s_k, s_v or None)."""
+    or None, s_q * s_k, s_v or None); ``group``: ``quantize_sym_dynamic``'s."""
     C = heads * head_dim
-    qi, sq = quantize_sym_dynamic(q_src[..., q_off:q_off + C])
-    ki, sk = quantize_sym_dynamic(k_src[..., k_off:k_off + C])
-    vi, sv = (quantize_sym_dynamic(v_src[..., v_off:v_off + C]) if int8_v
-              else (None, None))
+    qi, sq = quantize_sym_dynamic(q_src[..., q_off:q_off + C], group)
+    ki, sk = quantize_sym_dynamic(k_src[..., k_off:k_off + C], group)
+    vi, sv = (quantize_sym_dynamic(v_src[..., v_off:v_off + C], group)
+              if int8_v else (None, None))
     return qi, ki, vi, sq * sk, sv
 
 
@@ -358,9 +364,11 @@ def int8_flash_codes(qi: torch.Tensor, ki: torch.Tensor,
 def int8_flash_attention_plain(q_src, k_src, v_src, *, heads: int,
                                head_dim: int, scale: float, q_off: int = 0,
                                k_off: int = 0, v_off: int = 0,
-                               out_dtype=None, bk: Optional[int] = None):
+                               out_dtype=None, bk: Optional[int] = None,
+                               group=None):
     qi, ki, _, s_qk, _ = _int8_operands(q_src, k_src, v_src, heads,
-                                        head_dim, q_off, k_off, v_off, False)
+                                        head_dim, q_off, k_off, v_off, False,
+                                        group)
     return int8_flash_codes_plain(qi, ki, v_src, s_qk * scale, heads=heads,
                                   head_dim=head_dim, v_off=v_off,
                                   out_dtype=out_dtype, bk=bk)
@@ -369,9 +377,11 @@ def int8_flash_attention_plain(q_src, k_src, v_src, *, heads: int,
 def int8qkv_flash_attention_plain(q_src, k_src, v_src, *, heads: int,
                                   head_dim: int, scale: float, q_off: int = 0,
                                   k_off: int = 0, v_off: int = 0,
-                                  out_dtype=None, bk: Optional[int] = None):
+                                  out_dtype=None, bk: Optional[int] = None,
+                                  group=None):
     qi, ki, vi, s_qk, sv = _int8_operands(q_src, k_src, v_src, heads,
-                                          head_dim, q_off, k_off, v_off, True)
+                                          head_dim, q_off, k_off, v_off, True,
+                                          group)
     return int8_flash_codes_plain(qi, ki, vi, s_qk * scale, sv, heads=heads,
                                   head_dim=head_dim,
                                   out_dtype=out_dtype or v_src.dtype, bk=bk)
@@ -380,13 +390,17 @@ def int8qkv_flash_attention_plain(q_src, k_src, v_src, *, heads: int,
 def int8_flash_attention(q_src: torch.Tensor, k_src: torch.Tensor,
                          v_src: torch.Tensor, *, heads: int, head_dim: int,
                          scale: float, q_off: int = 0, k_off: int = 0,
-                         v_off: int = 0, out_dtype=None) -> torch.Tensor:
+                         v_off: int = 0, out_dtype=None,
+                         group=None) -> torch.Tensor:
     """``int8_mha``: flash attention with QK^T on int8 codes of q and k
-    (per-tensor symmetric, from ``quantize_sym_dynamic``) and PV on ``p``
-    cast to v's dtype, over the panels ``flash_attention`` takes -> ``[B,
-    Tq, C]`` in v's dtype (``out_dtype``, if given, must be it)."""
+    (per-tensor symmetric, from ``quantize_sym_dynamic``; ``group``: the
+    process group of a sharded batch, whose max the scales take) and PV
+    on ``p`` cast to v's dtype, over the panels ``flash_attention`` takes
+    -> ``[B, Tq, C]`` in v's dtype (``out_dtype``, if given, must be
+    it)."""
     qi, ki, _, s_qk, _ = _int8_operands(q_src, k_src, v_src, heads,
-                                        head_dim, q_off, k_off, v_off, False)
+                                        head_dim, q_off, k_off, v_off, False,
+                                        group)
     return int8_flash_codes(qi, ki, v_src, s_qk * scale, heads=heads,
                             head_dim=head_dim, v_off=v_off,
                             out_dtype=out_dtype)
@@ -396,12 +410,13 @@ def int8qkv_flash_attention(q_src: torch.Tensor, k_src: torch.Tensor,
                             v_src: torch.Tensor, *, heads: int,
                             head_dim: int, scale: float, q_off: int = 0,
                             k_off: int = 0, v_off: int = 0,
-                            out_dtype=None) -> torch.Tensor:
+                            out_dtype=None, group=None) -> torch.Tensor:
     """``int8qkv_mha``: as ``int8_flash_attention`` with v as int8 codes
     too and PV on ``round(127 p)`` in int8 -> ``[B, Tq, C]`` in
     ``out_dtype`` (default: v's dtype; bf16 or f32)."""
     qi, ki, vi, s_qk, sv = _int8_operands(q_src, k_src, v_src, heads,
-                                          head_dim, q_off, k_off, v_off, True)
+                                          head_dim, q_off, k_off, v_off, True,
+                                          group)
     return int8_flash_codes(qi, ki, vi, s_qk * scale, sv, heads=heads,
                             head_dim=head_dim,
                             out_dtype=out_dtype or v_src.dtype)

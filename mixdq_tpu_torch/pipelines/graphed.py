@@ -16,10 +16,21 @@ capture, the launches one replay makes.
 
 On the CPU (inputs on the CPU: the caller asked for it) nothing is
 captured and a call runs ``fn`` eagerly.
+
+Every capture goes through ``capture``, which pauses Python's cycle
+collector: torch no longer collects before a capture, so an engine that
+died in a reference cycle (an engine and its ``GraphedCall`` hold each
+other) keeps its ``CUDAGraph`` until a collection, and a collection
+that ran inside another capture would destroy that graph there. The
+destroy is a call CUDA refuses while a stream captures; torch only warns
+of it, and the capture is invalidated, so the next launch fails with
+``cudaErrorStreamCaptureInvalidated``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -32,6 +43,21 @@ from .. import ops
 #: graph's memory pool; the second runs with all of it in place, as the
 #: captured call will.
 WARMUP = 2
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(graph)`` with Python's cycle collector paused
+    until the capture has ended, so no finalizer (a dead graph's destroy)
+    runs inside it."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class GraphedCall:
@@ -54,7 +80,7 @@ class GraphedCall:
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
             before = ops.launch_counts()
-            with torch.cuda.graph(graph):
+            with capture(graph):
                 self.output = fn(*self.inputs)
             after = ops.launch_counts()
             self.launches = {k: after[k] - before[k] for k in after}

@@ -1,5 +1,5 @@
 """Batch serving: one CUDA graph a batch shape (port of
-``mixdq_tpu/pipelines/serving.py``, without its ``mesh``).
+``mixdq_tpu/pipelines/serving.py``).
 
 ``ServingEngine`` runs a whole generation -- tokens -> both CLIP towers ->
 the denoise loop (CFG as a doubled batch) -> VAE decode -> images in
@@ -14,15 +14,30 @@ eagerly.
 Every engine's split-K GEMMs share one buffer of arrival counters a
 device (``ops.qmatmul.igemm_scratch``); replays on one stream run one
 after another, so two engines never touch it at once.
+
+Over a (dp, tp) ``mesh`` (``parallel.mesh.make_mesh``; every rank builds
+the same engine): tp shards the pipeline's parameters (on the engine's
+copy of its modules, ``sharded_copy``: the caller's pipeline is left as
+it is) and both contexts' deploy dicts (``ShardedTree``), each
+tensor gathered where it is read; dp shards the batch. Each rank draws the
+noise of the whole batch from the caller's seed and keeps its rows, so a
+sharded generation sees the unsharded one's noise; it runs its rows
+(graphed on CUDA; the tp gathers inside the graph), then the images are
+all-gathered over dp outside the graph, and every rank returns the whole
+batch. Batch-wide statistics (the int8 flash kernels' dynamic scales)
+are all-reduced over dp (``QuantCtx.batch_group``).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from ..quant.state import FP_CTX, QuantCtx
 from . import samplers
 from .graphed import GraphedCall
@@ -47,6 +62,7 @@ class ServingEngine:
         height: Optional[int] = None,
         width: Optional[int] = None,
         vae_ctx: QuantCtx = FP_CTX,
+        mesh=None,
     ):
         f = pipe.family
         self.pipe = pipe
@@ -55,14 +71,31 @@ class ServingEngine:
         self.g = f.guidance_scale if guidance_scale is None else guidance_scale
         self.height = height or f.unet.sample_size * 8
         self.width = width or f.unet.sample_size * 8
+        self.mesh = mesh
+        #: this rank's rows of the batch (all of them without a mesh)
+        self.rows = slice(0, batch_size)
+        if mesh is not None:
+            self.rows = pmesh.dp_slice(mesh, batch_size)
+            if pmesh.tp_size(mesh) > 1:
+                self.pipe = pipe = copy.copy(pipe)
+                for name in ("unet", "vae", "text_encoder",
+                             "text_encoder_2"):
+                    m = getattr(pipe, name)
+                    if m is not None:
+                        setattr(pipe, name, pmesh.sharded_copy(m, mesh))
+            group = (mesh.get_group("dp") if pmesh.dp_size(mesh) > 1
+                     else None)
+            ctx, vae_ctx = (dataclasses.replace(
+                c, deploy=pmesh.shard_tree(mesh, c.deploy),
+                batch_group=group) for c in (ctx, vae_ctx))
         self.ctx = ctx
         self.vae_ctx = vae_ctx
         self.schedule = ScheduleTensors(make_schedule(f, self.steps),
                                         pipe.device)
         # built here, outside any capture: a graph copies nothing from
         # the host
-        self.time_ids = pipe.default_time_ids(self.B, self.height,
-                                              self.width)
+        b = self.rows.stop - self.rows.start
+        self.time_ids = pipe.default_time_ids(b, self.height, self.width)
         self._graph: Optional[GraphedCall] = None
 
     @property
@@ -93,8 +126,8 @@ class ServingEngine:
     def run(self, tokens: torch.Tensor, ntokens: torch.Tensor,
             noise: torch.Tensor, lcm_noise: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
-        """One generation: images ``[B, H, W, 3]`` in [0, 1], model
-        dtype."""
+        """One generation: images ``[b, H, W, 3]`` in [0, 1], model
+        dtype, of this rank's ``b`` rows."""
         return self.pipe.decode(self.denoise(tokens, ntokens, noise,
                                              lcm_noise), self.vae_ctx)
 
@@ -127,21 +160,28 @@ class ServingEngine:
         negative prompts' (``""`` each by default) on the device, and the
         noise drawn from ``torch.Generator(device).manual_seed(seed)``
         (``Text2ImgPipeline.make_noise``: the pipeline's noise for the same
-        seed; then the LCM loop's)."""
+        seed; then the LCM loop's); over a mesh, this rank's rows of
+        each."""
         if len(prompts) != self.B:
             raise ValueError(f"engine built for batch {self.B}, got "
                              f"{len(prompts)} prompts")
-        tokens = self.pipe.tokens(prompts).long()
-        ntokens = self.pipe.tokens(negative_prompts or [""] * self.B).long()
+        r = self.rows
+        tokens = self.pipe.tokens(prompts).long()[r]
+        ntokens = self.pipe.tokens(negative_prompts
+                                   or [""] * self.B).long()[r]
         noise, lcm_noise = self._noise(seed)
-        return (tokens, ntokens, noise) + (() if self.euler else (lcm_noise,))
+        return (tokens, ntokens, noise[r]) + (
+            () if self.euler else (lcm_noise[:, r],))
 
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  negative_prompts: Optional[Sequence[str]] = None
                  ) -> np.ndarray:
         """Images ``[B, H, W, 3]`` float32 in [0, 1]: ``run`` on
         ``inputs(prompts, seed, negative_prompts)``, replayed from the
-        captured graph (compiled at the first call)."""
+        captured graph (compiled at the first call); over a mesh, every
+        dp rank's rows gathered."""
         args = self.inputs(prompts, seed, negative_prompts)
         out = self.compile()._graph(*args)
+        if self.mesh is not None:
+            out = pmesh.gather_batch(self.mesh, out)
         return out.float().cpu().numpy()

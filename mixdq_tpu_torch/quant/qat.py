@@ -1,8 +1,13 @@
 """Quantization-aware training step (port of ``mixdq_tpu/quant/qat.py``):
 the model's weights and every float tensor of its qparams train together
-through fake quantization's round STE, with Adam. One device only: the
-JAX package's sharded (dp, tp) form waits for the port of
-``mixdq_tpu/parallel/mesh.py``.
+through fake quantization's round STE, with Adam.
+
+It is also the port's sharded training step, as the JAX package's is:
+over a (dp, tp) ``mesh`` (``parallel.mesh``) each rank feeds its dp share
+of the batch (``shard_batch_tree``) to a model whose parameters
+(``shard_module``) and qparams (``shard_tree``) are tp-sharded and
+gathered, with gradients, where they are read; the gradients and the loss
+are averaged over dp, which is JAX's mean over the global batch.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..parallel import mesh as pmesh
 from .core import QuantSpec
 from .state import LayerQParams, QuantCtx
 
@@ -19,7 +25,9 @@ from .state import LayerQParams, QuantCtx
 def _qparams_tensors(qparams: Dict[str, LayerQParams]
                      ) -> List[torch.Tensor]:
     """Every float tensor of ``qparams`` (``w/a_delta``, ``w/a_zp`` and the
-    ``*0`` twins), in layer-name order."""
+    ``*0`` twins), in layer-name order; of a ``ShardedTree``, this rank's
+    shards."""
+    qparams = getattr(qparams, "local", qparams)
     out = []
     for n in sorted(qparams):
         for f in dataclasses.fields(LayerQParams):
@@ -31,7 +39,7 @@ def _qparams_tensors(qparams: Dict[str, LayerQParams]
 
 def make_qat_train_step(model: torch.nn.Module, wq: QuantSpec,
                         aq: QuantSpec, ctrl: Dict[str, Any],
-                        lr: float = 1e-4):
+                        lr: float = 1e-4, mesh=None):
     """Returns ``(init_fn, step_fn)``:
 
     ``init_fn(params, qparams) -> opt_state``
@@ -46,7 +54,9 @@ def make_qat_train_step(model: torch.nn.Module, wq: QuantSpec,
     ``model(*batch_args, ctx=...)``, the loss ``mean((out - target)^2)``
     and one Adam step, updating both in place (each tensor's ``.grad``
     holds this step's gradient until the next step), and returns them
-    with the loss (a detached 0-d tensor)."""
+    with the loss (a detached 0-d tensor). With a ``mesh``, ``params`` and
+    ``qparams`` are the sharded model's and ``batch_args`` / ``target``
+    this rank's dp share; gradients and loss are averaged over dp."""
 
     def init_fn(params, qparams):
         tensors = list(params.values())
@@ -63,7 +73,12 @@ def make_qat_train_step(model: torch.nn.Module, wq: QuantSpec,
             out = model(*batch, ctx=ctx)
             loss = torch.mean((out - target) ** 2)
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            pmesh.dp_mean_([t.grad for g in opt_state.param_groups
+                            for t in g["params"] if t.grad is not None]
+                           + [loss], mesh)
         opt_state.step()
-        return params, qparams, opt_state, loss.detach()
+        return params, qparams, opt_state, loss
 
     return init_fn, step_fn

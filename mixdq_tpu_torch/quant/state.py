@@ -306,6 +306,12 @@ class QuantCtx:
     softmax_aq: Optional[QuantSpec] = None
     qkv_quant: bool = False
     soft_round: bool = False
+    #: the process group a batch-wide statistic is all-reduced over: the
+    #: dp group of a batch sharded over a mesh (``parallel.mesh``), whose
+    #: ranks then take the statistic of the whole batch, as the JAX
+    #: package does over its global batch (the int8 flash kernels'
+    #: dynamic scales, ``ops/pallas_attention.py:387``); None: one batch
+    batch_group: Any = None
     #: the banks' stacked constants, built at a step's first use
     #: (``deploy._bank_groups``); a replaced context starts empty
     bank_cache: dict = dataclasses.field(default_factory=dict, init=False,

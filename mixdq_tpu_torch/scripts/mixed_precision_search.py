@@ -12,7 +12,8 @@
     python -m mixdq_tpu_torch.scripts.mixed_precision_search \\
         --base_path logs/x --target_bits 5.0 [--which weight|act] \\
         [--n_prompts 2] [--seed 42] [--quick] [--batched CHUNK] \\
-        [--protect_frac F] [--artifacts_dir DIR] [--device cuda]
+        [--protect_frac F] [--artifacts_dir DIR] [--dp_mesh N] \\
+        [--device cuda]
 
 Reads ``BASE/config.yaml``, ``BASE/qparams.msgpack`` (``ptq``) and the
 config's calibration data; writes ``BASE/{which}_mp_config.yaml`` (the
@@ -27,8 +28,14 @@ JAX script's does. The weight budget weighs each layer by its weight's
 element count (from the layer shapes, ``pipeline._layer_shapes``), the
 act budget by its input's in one captured forward. ``--quick``: 8 layers
 of each group. The sweeps' and the election's generations share the seed
-``--seed`` (the same noise). The JAX script's ``--dp_mesh`` is not ported
-(ROADMAP Queue A 9). Runs on the card unless ``--device cpu``.
+``--seed`` (the same noise). ``--dp_mesh N`` shares the batched sweeps'
+points out over a data-parallel mesh of N ranks (``make_mesh(N,
+tp=1)``: gloo on the CPU, NCCL on the card, one card a rank), started
+here, one process a rank (``parallel.launch``), unless a world of N runs
+already (with ``--batched 0`` it is an error); each point's value
+equals the single-rank sweep's. Rank 0 runs
+the ILP and the election, writes the files and returns the result. Runs
+on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -37,12 +44,16 @@ import argparse
 import math
 import os
 import shutil
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..mixed_precision import election, ilp, sensitivity
+from ..parallel.launch import spawn_main
+from ..parallel.mesh import make_mesh
 from ..pipeline import _layer_shapes
 from ..pipelines.loader import build_pipeline, specs_from_config
 from ..quant.checkpoint import load_qparams
@@ -107,13 +118,26 @@ def main(argv=None):
     ap.add_argument("--artifacts_dir", default=None,
                     help="also mirror the outputs under DIR/final_config/"
                          "{which}/<achieved>.yaml and DIR/sensitivity_log/")
+    ap.add_argument("--dp_mesh", type=int, default=0, metavar="N",
+                    help="share the batched sweeps' points out over N "
+                         "ranks (0: one)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.dp_mesh > 1 and not args.batched:
+        # the sequential sweeps take no mesh: every rank would run them all
+        ap.error("--dp_mesh shares the batched sweeps' points; it needs "
+                 "--batched CHUNK > 0")
+    if args.dp_mesh > 1 and not dist.is_initialized():
+        return spawn_main(__name__, sys.argv[1:] if argv is None else argv,
+                          args.dp_mesh, args.device)
+    mesh = make_mesh(args.dp_mesh, tp=1) if args.dp_mesh > 1 else None
+    lead = mesh is None or dist.get_rank() == 0
 
     seconds = {}
     t0 = time.perf_counter()
     cfg = load_config(os.path.join(args.base_path, "config.yaml"))
-    setup_experiment(args.base_path)
+    if lead:
+        setup_experiment(args.base_path)
     pipe = build_pipeline(cfg, device=args.device)
     wq, aq, _ = specs_from_config(cfg)
     qparams = load_qparams(os.path.join(args.base_path, "qparams.msgpack"),
@@ -133,7 +157,7 @@ def main(argv=None):
                                 pipe.device)
     sweep_q = (sensitivity.sweep_sqnr_batched if args.batched
                else sensitivity.sweep_sqnr)
-    kw = {"chunk": args.batched} if args.batched else {}
+    kw = {"chunk": args.batched, "mesh": mesh} if args.batched else {}
     sens_q = sweep_q(pipe.unet, qparams, quality, names, batch, fp_out, wq,
                      aq, which=args.which, bits=BITS_QUALITY, **kw)
     seconds["sqnr_sweep"] = time.perf_counter() - t0
@@ -145,11 +169,14 @@ def main(argv=None):
     steps = cfg.inference.get("num_steps")
     sweep_c = (sensitivity.sweep_ssim_batched if args.batched
                else sensitivity.sweep_ssim)
-    kw = {"chunk": min(args.batched, 4)} if args.batched else {}
+    kw = ({"chunk": min(args.batched, 4), "mesh": mesh} if args.batched
+          else {})
     sens_c = sweep_c(pipe, qparams, content, names, prompts, args.seed, wq,
                      aq, which=args.which, bits=bits_c, num_steps=steps,
                      **kw)
     seconds["ssim_sweep"] = time.perf_counter() - t0
+    if not lead:
+        return None
 
     # the act-protect list: the worst score at the largest bits, per group
     protected = []

@@ -15,10 +15,14 @@ without bit maps), ``int8`` the deploy of the same controls under
 ``--deploy_compute`` (default: the family's ``default_deploy_compute``),
 its fp weights pruned. Attention runs the context's default einsum
 chain, as in the JAX script. Batch ``k`` draws its noise from seed ``k``.
-Prints each batch's ms and images/s; writes ``serve_{n:05d}.png``. The
-JAX script's ``--dp`` (a data-parallel mesh) is kept in the parser and
-raises above 1: the mesh is not ported (ROADMAP Queue A 9). Runs on the
-card unless ``--device cpu``.
+Prints each batch's ms and images/s; writes ``serve_{n:05d}.png``.
+``--dp N`` serves over a data-parallel mesh of N ranks
+(``make_mesh(N, tp=1)``; gloo on the CPU, NCCL on the card, one card a
+rank, so N above the card count raises): started here, one process a
+rank (``parallel.launch``), unless a world of N runs already. Each rank
+generates its share of every batch; rank 0 writes the images and its
+result is returned (without the engine). Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -26,11 +30,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from types import SimpleNamespace
 
 import numpy as np
+import torch.distributed as dist
 
+from ..parallel.launch import spawn_main
+from ..parallel.mesh import make_mesh
 from ..pipelines.loader import build_pipeline, specs_from_config
 from ..pipelines.serving import ServingEngine
 from ..quant.checkpoint import load_qparams
@@ -58,17 +66,18 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel devices: not ported (ROADMAP Queue "
-                         "A 9), 1 only")
+                    help="data-parallel ranks (one device each)")
     ap.add_argument("--prompts", default=None)
     ap.add_argument("--n_batches", type=int, default=2)
     ap.add_argument("--outdir", default="serve_out")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp > 1: the data-parallel mesh (parallel/mesh.py) is not "
-            "ported yet (ROADMAP Queue A 9)")
+    if args.dp > 1 and not dist.is_initialized():
+        return {"engine": None, **spawn_main(
+            __name__, sys.argv[1:] if argv is None else argv, args.dp,
+            args.device)}
+    mesh = make_mesh(args.dp, tp=1) if args.dp > 1 else None
+    writer = mesh is None or dist.get_rank() == 0
 
     cfg_path = (os.path.join(args.base_path, "config.yaml")
                 if args.base_path else args.config)
@@ -99,12 +108,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     eng = ServingEngine(pipe, ctx, batch_size=args.batch_size,
                         steps=args.steps, height=cfg.inference.get("height"),
-                        width=cfg.inference.get("width")).compile()
+                        width=cfg.inference.get("width"),
+                        mesh=mesh).compile()
     compile_s = time.perf_counter() - t0
     print(f"compiled in {compile_s:.1f}s")
 
     prompts = load_prompts(args.prompts, args.batch_size * args.n_batches)
-    os.makedirs(args.outdir, exist_ok=True)
+    if writer:
+        os.makedirs(args.outdir, exist_ok=True)
     paths, batch_ms = [], []
     for bi in range(args.n_batches):
         batch = prompts[bi * args.batch_size:(bi + 1) * args.batch_size]
@@ -114,7 +125,7 @@ def main(argv=None):
         batch_ms.append(dt * 1000)
         print(f"batch {bi}: {dt * 1000:.1f} ms "
               f"({args.batch_size / dt:.2f} imgs/sec)")
-        for img in imgs:
+        for img in imgs if writer else ():
             paths.append(os.path.join(args.outdir,
                                       f"serve_{len(paths):05d}.png"))
             write_png(paths[-1], (img * 255).astype(np.uint8))

@@ -345,16 +345,22 @@ def test_txt2img_writes_the_pipelines_images(tmp_path):
 
 
 def test_serve_int8_and_dp(exp, tmp_path):
-    """``serve --backend int8`` writes batch x n_batches PNGs; ``--dp 2``
-    raises, naming ROADMAP Queue A 9."""
+    """``serve --backend int8`` writes batch x n_batches PNGs; so does
+    ``--dp 2``, from rank 0 of a world of two gloo ranks (the dp engine
+    against the unsharded one: ``tests/test_torch_port_mesh.py``)."""
     out = serve.main(["--base_path", str(exp), "--backend", "int8",
                       "--batch_size", "2", "--n_batches", "2",
                       "--outdir", str(tmp_path), "--device", "cpu"])
     assert len(out["paths"]) == 4 and len(out["batch_ms"]) == 2
     assert read_png(out["paths"][-1]).shape == (128, 128, 3)
     assert out["engine"].ctx.deploy_compute == "int8_sec"
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        serve.main(["--config", TINY, "--dp", "2", "--device", "cpu"])
+    dp = serve.main(["--config", TINY, "--dp", "2", "--batch_size", "2",
+                     "--n_batches", "1", "--outdir", str(tmp_path / "dp"),
+                     "--device", "cpu"])
+    assert dp["engine"] is None and len(dp["batch_ms"]) == 1
+    assert [os.path.basename(p) for p in dp["paths"]] == [
+        "serve_00000.png", "serve_00001.png"]
+    assert read_png(dp["paths"][-1]).shape == (128, 128, 3)
 
 
 def test_serve_bench_json_equals_jax(exp, capsys):

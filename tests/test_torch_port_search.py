@@ -16,7 +16,8 @@ JAX package's:
 * one SSIM point and the election over two candidates: JAX's
   ``sweep_ssim`` and ``elect`` on the port's generated images (a pipeline
   shim: the same latents) against the port's functions;
-* the batched sweeps equal the sequential ones and raise as JAX's do.
+* the batched sweeps equal the sequential ones (also with ``mesh=``, a
+  world of one) and raise as JAX's do.
 """
 
 import glob
@@ -45,6 +46,7 @@ from mixdq_tpu_torch import pipeline  # noqa: E402
 from mixdq_tpu_torch.mixed_precision import (election, ilp,  # noqa: E402
                                              reference_data, sensitivity)
 from mixdq_tpu_torch.models.configs import get_family  # noqa: E402
+from mixdq_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mixdq_tpu_torch.pipelines.txt2img import Text2ImgPipeline  # noqa: E402
 from mixdq_tpu_torch.quant import checkpoint  # noqa: E402
 from mixdq_tpu_torch.quant.calibrate import calibrate  # noqa: E402
@@ -277,15 +279,29 @@ def test_batched_sweeps_equal_sequential_and_raise(tiny):
             tiny["req"], tiny["fp"], pipeline.WQ, pipeline.AQ)
     with pytest.raises(ValueError, match="candidate_bits"):
         sensitivity.sweep_sqnr_batched(*args, bits=(3, 8))
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        sensitivity.sweep_sqnr_batched(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        sensitivity.sweep_ssim_batched(None, None, [names[0]], names, ["a"],
-                                       0, pipeline.WQ, pipeline.AQ,
-                                       mesh=object())
+    # ``mesh=`` runs: here a world of one (gloo, a ``HashStore``); a
+    # world of two: tests/test_torch_port_mesh.py
+    mesh = make_mesh(1, device="cpu")
+    try:
+        assert sensitivity.sweep_sqnr_batched(*args, bits=(2, 8),
+                                              mesh=mesh) == seq
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(KeyError, match="exact layer names"):
         sensitivity.sweep_ssim_batched(None, None, ["nope"], names, ["a"],
                                        0, pipeline.WQ, pipeline.AQ)
+
+
+def test_search_dp_mesh_needs_batched(capsys):
+    """``--dp_mesh`` shares out the batched sweeps' points; with the
+    sequential sweeps (``--batched 0``) every rank would run all of them,
+    so the CLI refuses before it starts any rank."""
+    from mixdq_tpu_torch.scripts import mixed_precision_search
+
+    with pytest.raises(SystemExit):
+        mixed_precision_search.main(["--base_path", "none", "--batched",
+                                     "0", "--dp_mesh", "2"])
+    assert "needs --batched CHUNK > 0" in capsys.readouterr().err
 
 
 class _Shim:

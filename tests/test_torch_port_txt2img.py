@@ -209,6 +209,45 @@ def test_graphed_call_runs_eagerly_on_cpu():
     torch.testing.assert_close(g(torch.full((3,), 2.0)), torch.full((3,), 4.0))
 
 
+def test_capture_pauses_the_cycle_collector(monkeypatch):
+    """``graphed.capture`` holds Python's cycle collector off through
+    ``torch.cuda.graph`` (a dead graph collected inside a capture would
+    invalidate it) and restores it after, also when the capture raises;
+    a collector that was off stays off."""
+    import contextlib
+    import gc
+
+    from mixdq_tpu_torch.pipelines import graphed
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph):
+        seen.append(("enter", graph, gc.isenabled()))
+        yield
+        seen.append(("exit", graph, gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        with graphed.capture("g"):
+            seen.append(("body", "g", gc.isenabled()))
+        assert seen == [("enter", "g", False), ("body", "g", False),
+                        ("exit", "g", False)]
+        assert gc.isenabled()
+        with pytest.raises(RuntimeError):
+            with graphed.capture("h"):
+                raise RuntimeError("capture failed")
+        assert gc.isenabled()
+        gc.disable()
+        with graphed.capture("k"):
+            pass
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_bench_imports_with_main():
     """The graphed bench imports without triton, defines ``main()``, and
     its chained step (run eagerly on the CPU) chains ``inner`` bounded
