@@ -12,7 +12,12 @@ eager fallback.
 
 The kernel wrappers count Python calls (``ops.launch_counts``), so a
 replay counts nothing: ``launches`` holds the counts taken during the
-capture, the launches one replay makes.
+capture, the launches one replay makes. In the same way ``marks`` holds
+the timing events that ``utils.profiling.mark`` recorded into the graph
+during the capture (``profiling.graph_marks``), in the order they run;
+every replay sets them again, tracing on or off. With the tracer on, a
+call's copies and its replay are the spans ``engine.copy_in`` and
+``engine.launch``.
 
 On the CPU (inputs on the CPU: the caller asked for it) nothing is
 captured and a call runs ``fn`` eagerly.
@@ -31,11 +36,12 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import ops
+from ..utils import profiling
 
 #: eager calls before the capture. The first builds every kernel, loads
 #: every library, fills the per-shape plan caches and allocates the
@@ -66,6 +72,8 @@ class GraphedCall:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         #: kernel launches recorded in the graph (``None`` on the CPU)
         self.launches: Optional[Dict[str, int]] = None
+        #: ``(name, timing event)`` of each mark recorded in the graph
+        self.marks: List[Tuple[str, torch.cuda.Event]] = []
         with torch.inference_mode():
             self.inputs = tuple(t.clone() for t in inputs)
             dev = self.inputs[0].device
@@ -80,9 +88,10 @@ class GraphedCall:
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
             before = ops.launch_counts()
-            with capture(graph):
+            with profiling.graph_marks() as marks, capture(graph):
                 self.output = fn(*self.inputs)
             after = ops.launch_counts()
+            self.marks = marks
             self.launches = {k: after[k] - before[k] for k in after}
             self.graph = graph
 
@@ -90,9 +99,11 @@ class GraphedCall:
         with torch.inference_mode():
             if self.graph is None:
                 return self.fn(*inputs)
-            for buf, x in zip(self.inputs, inputs):
-                buf.copy_(x)
-            self.graph.replay()
+            with profiling.span("engine.copy_in"):
+                for buf, x in zip(self.inputs, inputs):
+                    buf.copy_(x)
+            with profiling.span("engine.launch"):
+                self.graph.replay()
             return self.output
 
     def replay(self):

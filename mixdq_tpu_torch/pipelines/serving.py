@@ -26,19 +26,31 @@ sharded generation sees the unsharded one's noise; it runs its rows
 all-gathered over dp outside the graph, and every rank returns the whole
 batch. Batch-wide statistics (the int8 flash kernels' dynamic scales)
 are all-reduced over dp (``QuantCtx.batch_group``).
+
+Tracing (``utils.profiling.tracing()``): ``generate`` is the request
+span ``engine.request``, with the children ``engine.tokenize``,
+``engine.noise``, ``engine.copy_in``, ``engine.launch``, ``engine.wait``
+(the host waits for the replay's last mark), ``engine.gather`` (with a
+mesh) and ``engine.to_host``. ``run`` places the device marks
+``run.begin``, ``towers.end``, ``unet.begin`` / ``unet.end`` around each
+step's UNet call (``Text2ImgPipeline.sample_latents``), ``vae.begin``
+and ``run.end``; the capture records them into the graph, so every
+replay times its phases (``phases``), and with the tracer on ``generate``
+anchors them on the host clock of its spans.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..parallel import mesh as pmesh
 from ..quant.state import FP_CTX, QuantCtx
+from ..utils import profiling
 from . import samplers
 from .graphed import GraphedCall
 from .txt2img import ScheduleTensors, Text2ImgPipeline, make_schedule
@@ -115,6 +127,7 @@ class ServingEngine:
         if self.g > 1.0:
             neg_embeds, neg_pooled = pipe.encode_prompt(ntokens)
             neg_added = pipe.added_conds(neg_pooled, self.time_ids)
+        profiling.mark("towers.end")
         latents = noise
         if self.euler:
             latents = latents * self.schedule.schedule.init_noise_sigma
@@ -128,8 +141,12 @@ class ServingEngine:
             ) -> torch.Tensor:
         """One generation: images ``[b, H, W, 3]`` in [0, 1], model
         dtype, of this rank's ``b`` rows."""
-        return self.pipe.decode(self.denoise(tokens, ntokens, noise,
-                                             lcm_noise), self.vae_ctx)
+        profiling.mark("run.begin")
+        latents = self.denoise(tokens, ntokens, noise, lcm_noise)
+        profiling.mark("vae.begin")
+        images = self.pipe.decode(latents, self.vae_ctx)
+        profiling.mark("run.end")
+        return images
 
     def compile(self) -> "ServingEngine":
         """Warm ``run`` and capture it (CUDA), once per engine."""
@@ -143,16 +160,28 @@ class ServingEngine:
         the CPU or before ``compile``)."""
         return None if self._graph is None else self._graph.launches
 
-    def _noise(self, seed: int):
-        pipe = self.pipe
+    def _tokens(self, prompts: Sequence[str],
+                negative_prompts: Optional[Sequence[str]]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if len(prompts) != self.B:
+            raise ValueError(f"engine built for batch {self.B}, got "
+                             f"{len(prompts)} prompts")
+        r = self.rows
+        tokens = self.pipe.tokens(prompts).long()[r]
+        ntokens = self.pipe.tokens(negative_prompts
+                                   or [""] * self.B).long()[r]
+        return tokens, ntokens
+
+    def _noise(self, seed: int) -> Tuple[torch.Tensor, ...]:
+        pipe, r = self.pipe, self.rows
         gen = torch.Generator(device=pipe.device).manual_seed(seed)
         noise = pipe.make_noise(self.B, self.height, self.width, gen)
-        lcm_noise = None
-        if not self.euler:
-            lcm_noise = torch.randn((self.steps,) + tuple(noise.shape),
-                                    generator=gen, device=pipe.device,
-                                    dtype=pipe.dtype)
-        return noise, lcm_noise
+        if self.euler:
+            return (noise[r],)
+        lcm_noise = torch.randn((self.steps,) + tuple(noise.shape),
+                                generator=gen, device=pipe.device,
+                                dtype=pipe.dtype)
+        return noise[r], lcm_noise[:, r]
 
     def inputs(self, prompts: Sequence[str], seed: int = 0,
                negative_prompts: Optional[Sequence[str]] = None):
@@ -162,16 +191,7 @@ class ServingEngine:
         (``Text2ImgPipeline.make_noise``: the pipeline's noise for the same
         seed; then the LCM loop's); over a mesh, this rank's rows of
         each."""
-        if len(prompts) != self.B:
-            raise ValueError(f"engine built for batch {self.B}, got "
-                             f"{len(prompts)} prompts")
-        r = self.rows
-        tokens = self.pipe.tokens(prompts).long()[r]
-        ntokens = self.pipe.tokens(negative_prompts
-                                   or [""] * self.B).long()[r]
-        noise, lcm_noise = self._noise(seed)
-        return (tokens, ntokens, noise[r]) + (
-            () if self.euler else (lcm_noise[:, r],))
+        return self._tokens(prompts, negative_prompts) + self._noise(seed)
 
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  negative_prompts: Optional[Sequence[str]] = None
@@ -180,8 +200,44 @@ class ServingEngine:
         ``inputs(prompts, seed, negative_prompts)``, replayed from the
         captured graph (compiled at the first call); over a mesh, every
         dp rank's rows gathered."""
-        args = self.inputs(prompts, seed, negative_prompts)
-        out = self.compile()._graph(*args)
-        if self.mesh is not None:
-            out = pmesh.gather_batch(self.mesh, out)
-        return out.float().cpu().numpy()
+        graph = self.compile()._graph
+        with profiling.span("engine.request"):
+            tracer = profiling.active()
+            if tracer is not None:
+                # the device is idle here: the last request's images were
+                # copied to the host
+                tracer.anchor(self.pipe.device)
+            with profiling.span("engine.tokenize"):
+                tokens = self._tokens(prompts, negative_prompts)
+            with profiling.span("engine.noise"):
+                noise = self._noise(seed)
+            out = graph(*tokens, *noise)
+            if tracer is not None and graph.marks:
+                with profiling.span("engine.wait"):
+                    graph.marks[-1][1].synchronize()
+                tracer.replayed(graph.marks)
+            if self.mesh is not None:
+                with profiling.span("engine.gather"):
+                    out = pmesh.gather_batch(self.mesh, out)
+            with profiling.span("engine.to_host"):
+                return out.float().cpu().numpy()
+
+
+def phases(marks: Sequence[profiling.Mark]) -> Dict[str, int]:
+    """The device phases of one ``run`` from its marks, in ns: ``towers``
+    (``towers.end - run.begin``), ``unet`` (each step's ``unet.end -
+    unet.begin``, summed), ``sampler`` (the rest up to ``vae.begin``: CFG,
+    the sampler's arithmetic, noise scaling), ``vae`` (``run.end -
+    vae.begin``) and ``run`` (``run.end - run.begin``, their sum)."""
+    at, unet, begin = {}, 0, None
+    for m in marks:
+        if m.name == "unet.begin":
+            begin = m.t_ns
+        elif m.name == "unet.end":
+            unet += m.t_ns - begin
+        else:
+            at[m.name] = m.t_ns
+    return {"towers": at["towers.end"] - at["run.begin"], "unet": unet,
+            "sampler": at["vae.begin"] - at["towers.end"] - unet,
+            "vae": at["run.end"] - at["vae.begin"],
+            "run": at["run.end"] - at["run.begin"]}

@@ -29,6 +29,7 @@ from ..models.unet import UNet2DConditionModel, conv_shortcut_splits
 from ..models.vae import AutoencoderKL
 from ..pipeline import resolve_device
 from ..quant.state import FP_CTX, QuantCtx
+from ..utils import profiling
 from ..utils.tokenizer import load_tokenizer
 from . import samplers
 
@@ -172,7 +173,8 @@ class Text2ImgPipeline:
         """Run the denoise loop: (latents, trajectory dict or None). CFG
         doubles the batch when ``guidance_scale > 1`` and negative embeds
         are given. ``lcm_noise`` ``[S, B, h, w, 4]``: the LCM loop's noise
-        (zeros if None)."""
+        (zeros if None). Each step's UNet call lies between the marks
+        ``unet.begin`` and ``unet.end`` (``utils.profiling.mark``)."""
         st = (schedule if isinstance(schedule, ScheduleTensors)
               else ScheduleTensors(schedule, latents.device))
         sch = st.schedule
@@ -188,7 +190,9 @@ class Text2ImgPipeline:
         def eps_of(model_in, t):
             if do_cfg:
                 model_in = torch.cat([model_in, model_in], 0)
+            profiling.mark("unet.begin")
             eps = self.unet(model_in, t, embeds, added, ctx=ctx)
+            profiling.mark("unet.end")
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2, 0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)

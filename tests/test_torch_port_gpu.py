@@ -747,6 +747,59 @@ def test_graphed_serving_engine(dev):
     assert eng.launches == pipeline.ctx_kernel_calls(pipe.unet.config, ctx)
 
 
+@pytest.mark.parametrize("family,steps", [("tiny-sdxl", 1),
+                                          ("tiny-sd15", 4)])
+def test_graphed_engine_marks(dev, family, steps):
+    """The marks a ``ServingEngine`` capture records into its graph (2 +
+    2 S + 2 timing events) resolve after every replay, tracing off and
+    on; with them in the graph the replay still equals the eager ``run``
+    bit for bit, tracing on and off give the same images, and the capture
+    counts S steps' kernel launches, as before the marks."""
+    import numpy as np
+
+    from mixdq_tpu_torch import pipeline
+    from mixdq_tpu_torch.pipelines.serving import ServingEngine, phases
+    from mixdq_tpu_torch.pipelines.txt2img import Text2ImgPipeline
+    from mixdq_tpu_torch.utils import profiling
+
+    pipe = Text2ImgPipeline(family, torch.float32, dev).init_weights(0)
+    calib = pipeline.example_inputs(family, 2, 1, torch.float32, dev)
+    ctx = pipeline.quantize_w8a8(pipe.unet, calib)
+    eng = ServingEngine(pipe, ctx, batch_size=2, steps=steps).compile()
+    graph = eng._graph
+    names = (["run.begin", "towers.end"] + ["unet.begin", "unet.end"] * steps
+             + ["vae.begin", "run.end"])
+    assert [n for n, _ in graph.marks] == names
+    prompts = ["a red cube", "a blue sphere"]
+    off = []
+    for seed in range(3):
+        off.append(eng.generate(prompts, seed=seed))
+        ms = [graph.marks[0][1].elapsed_time(e) for _, e in graph.marks]
+        assert ms == sorted(ms) and ms[-1] > 0
+    eager = eng.run(*eng.inputs(prompts, 2)).float().cpu().numpy()
+    assert np.array_equal(off[2], eager)
+    with profiling.tracing() as tracer:
+        on = [eng.generate(prompts, seed=seed) for seed in range(3)]
+    assert all(np.array_equal(a, b) for a, b in zip(on, off))
+    reqs = tracer.drain()
+    assert len(reqs) == 3
+    for req in reqs:
+        spans = {s.name: s for s in req.spans}
+        assert [s.name for s in req.spans] == [
+            "engine.request", "engine.tokenize", "engine.noise",
+            "engine.copy_in", "engine.launch", "engine.wait",
+            "engine.to_host"]
+        assert [m.name for m in req.marks] == names
+        t = [m.t_ns for m in req.marks]
+        assert t == sorted(t)
+        assert spans["engine.copy_in"].start_ns <= t[0]
+        assert t[-1] <= spans["engine.wait"].end_ns
+        ph = phases(req.marks)
+        assert min(ph.values()) >= 0 and ph["run"] == t[-1] - t[0]
+    per_step = pipeline.ctx_kernel_calls(pipe.unet.config, ctx)
+    assert eng.launches == {k: steps * v for k, v in per_step.items()}
+
+
 def _split_unet(dev, dtype=torch.float32):
     """tiny-sdxl on the card in ``dtype``, calibrated with its channel splits and
     deployed W8A8 (``int8_sec``, fused QKV/KV, ``conv_split`` entries)."""

@@ -297,15 +297,19 @@ def test_trajectory_dataclass_fields():
 
 
 def test_profiling_annotations_on_cpu(tmp_path):
-    """``utils.profiling``'s trace and ranges run on the CPU (their CUDA
-    timers need the card)."""
+    """``utils.profiling``'s trace and its tracer's spans run on the CPU
+    (their CUDA timers need the card): a span, with the tracer on, is a
+    ``mixdq.`` range in the profile and in the Chrome trace."""
     from mixdq_tpu_torch.utils import profiling
 
-    with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("block"):
-            assert (torch.ones(2) + 1).tolist() == [2.0, 2.0]
-    assert "block" in {e.key for e in prof.key_averages()}
-    assert (tmp_path / "trace.json").exists()
+    with profiling.tracing() as tracer:
+        with profiling.trace(str(tmp_path)) as prof:
+            with profiling.span("block"):
+                assert (torch.ones(2) + 1).tolist() == [2.0, 2.0]
+    assert "mixdq.block" in {e.key for e in prof.key_averages()}
+    assert '"mixdq.block"' in (tmp_path / "trace.json").read_text()
+    assert [s.name for (r,) in [tracer.drain()] for s in r.spans] == [
+        "block"]
 
 
 def test_schedule_tensors_hold_the_tables():
